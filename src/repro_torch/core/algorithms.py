@@ -1,0 +1,114 @@
+"""Public convolution entry point with algorithm selection
+(``repro/core/algorithms.py``).
+
+``conv2d(x, w, algorithm=...)`` routes one conv site: 'ilpm' and
+'pointwise' run their CUDA kernels; 'auto' asks the autotuner; an explicit
+``choice`` (a plan's ``Choice``) pins the algorithm. 'xla' keeps the
+reference's name so plan JSON stays compatible: it is the escape hatch,
+``ref.conv2d_reference`` plus ``ref.apply_epilogue``. Strided sites forced
+onto im2col/libdnn/winograd fall back to ilpm, and an inapplicable
+winograd site does too, as in the reference; the algorithms whose kernels
+are not ported yet raise ``NotImplementedError`` from ``ops.dispatch``.
+
+The optional fused epilogue (``scale``/``bias``/``act``) rides into the
+kernel's output write. Layouts: NHWC images, HWIO filters.
+"""
+from __future__ import annotations
+
+from repro_torch.core import autotune
+from repro_torch.core.convspec import ConvSpec
+from repro_torch.kernels import ops, ref
+
+# kernels that downsample in-kernel (strided tap windows / subsampling)
+STRIDED_DENSE = ("ilpm", "direct")
+
+
+def _auto(x, w, stride, epilogue=False):
+    tuned = autotune.select(ConvSpec.from_tensors(x, w, stride),
+                            epilogue=epilogue)
+    return tuned.algorithm, dict(tuned.params)
+
+
+def _escape_hatch(x, w, stride, padding, groups, ep):
+    return ref.apply_epilogue(
+        ref.conv2d_reference(x, w, stride=stride, padding=padding,
+                             groups=groups), **ep)
+
+
+def conv2d(x, w, *, stride=1, padding="SAME", algorithm="auto", impl="auto",
+           choice=None, scale=None, bias=None, act=None):
+    """x: (B,H,W,C) NHWC; w: (R,S,C/groups,K) HWIO -> (B,H',W',K)."""
+    R, S, Cg, K = w.shape
+    C = x.shape[-1]
+    if C % Cg:
+        raise ValueError(f"image channels {C} vs filter depth {Cg}")
+    groups = C // Cg
+    ep = dict(scale=scale, bias=bias, act=act)
+    ep_on = scale is not None or bias is not None or act is not None
+    if choice is not None:
+        algorithm, params = choice.algorithm, dict(choice.params)
+    else:
+        params = {}
+    if algorithm == "xla":
+        return _escape_hatch(x, w, stride, padding, groups, ep)
+
+    if groups > 1:
+        depthwise_ok = groups == C and K % C == 0 and stride in (1, 2)
+        if depthwise_ok and algorithm in ("auto", "depthwise"):
+            raise NotImplementedError(
+                "depthwise conv is not ported yet: ROADMAP queue 2 row 5 "
+                "(MobileNetV2 slice)")
+        # a grouped-but-not-depthwise conv: the escape hatch, as in the
+        # reference
+        return _escape_hatch(x, w, stride, padding, groups, ep)
+
+    if stride != 1 and (R, S) == (stride, stride) and padding == "VALID":
+        # non-overlapping patch conv (ViT patch embed): reshape + matmul
+        B, H, W, _ = x.shape
+        hp, wp = H // stride, W // stride
+        xr = x[:, :hp * stride, :wp * stride].reshape(
+            B, hp, stride, wp, stride, C).permute(0, 1, 3, 2, 4, 5)
+        xr = xr.reshape(B, hp * wp, stride * stride * C)
+        y = (xr.float() @ w.reshape(-1, K).float()).to(x.dtype)
+        return ref.apply_epilogue(y.reshape(B, hp, wp, K), **ep)
+
+    if algorithm == "auto":
+        algorithm, params = _auto(x, w, stride, epilogue=ep_on)
+        if algorithm == "xla":  # tuner punted (e.g. stride > 2)
+            return _escape_hatch(x, w, stride, padding, 1, ep)
+
+    if algorithm == "pointwise":
+        if (R, S) != (1, 1):
+            algorithm = "ilpm"  # pointwise kernel is 1x1-only
+        else:
+            return ops.dispatch("pointwise", x, w, impl=impl, stride=stride,
+                                **ep, **params)
+
+    if stride != 1 and algorithm not in STRIDED_DENSE:
+        algorithm = "ilpm"  # im2col/libdnn/winograd have no strided kernels
+
+    if padding == "SAME":
+        xp = ref.pad_same(x, R, S, stride=stride)
+    elif padding == "VALID":
+        xp = x
+    else:
+        raise ValueError(padding)
+
+    if algorithm == "winograd":
+        H, W = xp.shape[1] - R + 1, xp.shape[2] - S + 1
+        if (R, S) != (3, 3) or H % 2 or W % 2:
+            algorithm = "ilpm"  # winograd F(2,3) inapplicable
+    return ops.dispatch(algorithm, xp, w, impl=impl, stride=stride,
+                        **ep, **params)
+
+
+def block_residual_conv(x, p, choice, *, res, impl="auto"):
+    """A ResNet block's last conv with the shortcut add and the outer ReLU
+    fused into its output write. ``p`` is the conv's ``{"w", "scale",
+    "bias"}`` site, ``res`` the identity/projection branch; SAME padding
+    is applied here (the fused kernel is stride 1)."""
+    w = p["w"]
+    xp = ref.pad_same(x, w.shape[0], w.shape[1])
+    weights = {"w": w, "scale": p["scale"], "bias": p["bias"]}
+    return ops.dispatch_block(choice.algorithm, xp, weights, impl=impl,
+                              res=res, act="relu", **dict(choice.params))

@@ -1,0 +1,118 @@
+"""Public wrappers over the kernels, with dispatch (``repro/kernels/ops.py``).
+
+The ``impl`` policy:
+  * ``"auto"`` runs the CUDA kernel for CUDA tensors and the plain
+    version for CPU tensors;
+  * ``"cuda"`` runs the CUDA kernel and raises for a CPU tensor;
+  * ``"torch"`` runs the plain version wherever the tensors are.
+A kernel that fails to build or launch raises; nothing falls back.
+
+Every conv wrapper takes optional ``scale``/``bias`` ((K,) folded-BN
+vectors) and ``act`` ('relu' | 'relu6' | None), applied in the kernel's
+output write. The TPU tile sizes a plan carries (``block_k``) are not in
+any signature, so ``kernel_params`` drops them: the Hopper kernels choose
+their own tiles.
+"""
+from __future__ import annotations
+
+import inspect
+
+from repro_torch.kernels import fused_block as _fb
+from repro_torch.kernels import ilpm_conv as _il
+from repro_torch.kernels import pointwise_conv as _pw
+from repro_torch.kernels import ref
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def _use_kernel(impl: str, x) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; want one of {IMPLS}")
+    if impl == "cuda" and x.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs a CUDA tensor, got one on "
+                         f"{x.device}")
+    return impl != "torch"
+
+
+def ilpm(x_padded, w, *, impl="auto", stride=1, scale=None, bias=None,
+         act=None):
+    """ILP-M dense conv on a SAME-padded NHWC image, stride 1 or 2."""
+    fn = _il.ilpm_conv if _use_kernel(impl, x_padded) else ref.ilpm_conv
+    return fn(x_padded, w, stride=stride, scale=scale, bias=bias, act=act)
+
+
+def pointwise(x, w, *, impl="auto", stride=1, scale=None, bias=None,
+              act=None):
+    """1x1 conv: x (B,H,W,C) *unpadded*, w (1,1,C,K) -> (B,H',W',K)."""
+    fn = _pw.pointwise_conv if _use_kernel(impl, x) else ref.pointwise_conv
+    return fn(x, w, stride=stride, scale=scale, bias=bias, act=act)
+
+
+def fused_residual_conv(x_padded, weights, *, impl="auto", res, act="relu"):
+    """ResNet block tail: the stride-1 conv with the shortcut add and the
+    outer activation fused into its output write."""
+    fn = _fb.fused_residual_conv if _use_kernel(impl, x_padded) \
+        else ref.fused_residual_conv
+    return fn(x_padded, weights, res=res, act=act)
+
+
+ALGORITHMS = {"ilpm": ilpm, "pointwise": pointwise}
+
+BLOCK_ALGORITHMS = {"fused_residual_conv": fused_residual_conv}
+
+# algorithms of the JAX package whose kernels are not ported yet, with the
+# ROADMAP item that ports them
+NOT_PORTED = {
+    "fused_inverted_residual": "ROADMAP queue 2 row 4 (MobileNetV2 slice)",
+    "depthwise": "ROADMAP queue 2 row 5 (MobileNetV2 slice)",
+    "direct": "ROADMAP queue 2 row 6 (baselines slice)",
+    "im2col": "ROADMAP queue 2 rows 7-8 (baselines slice)",
+    "libdnn": "ROADMAP queue 2 row 9 (baselines slice)",
+    "winograd": "ROADMAP queue 2 rows 7, 10, 11 (baselines slice)",
+}
+
+
+def _lookup(table, algorithm):
+    """Look ``algorithm`` up at call time, so tests can replace entries."""
+    if algorithm in table:
+        return table[algorithm]
+    if algorithm in NOT_PORTED:
+        raise NotImplementedError(
+            f"algorithm {algorithm!r} is not ported yet: "
+            f"{NOT_PORTED[algorithm]}")
+    raise KeyError(f"unknown algorithm {algorithm!r}")
+
+
+def _accepted(fn, params: dict) -> dict:
+    """Keep the params ``fn``'s signature accepts; a ``**kwargs`` in the
+    signature opts out and receives everything."""
+    accepted = inspect.signature(fn).parameters
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD
+           for p in accepted.values()):
+        return dict(params)
+    return {k: v for k, v in params.items() if k in accepted}
+
+
+def kernel_params(algorithm: str, params: dict) -> dict:
+    """The params this algorithm's wrapper accepts; the rest are dropped."""
+    return _accepted(_lookup(ALGORITHMS, algorithm), params)
+
+
+def block_kernel_params(algorithm: str, params: dict) -> dict:
+    """``kernel_params`` for the block-level table."""
+    return _accepted(_lookup(BLOCK_ALGORITHMS, algorithm), params)
+
+
+def dispatch(algorithm: str, x_padded, w, *, impl="auto", **params):
+    """Run one conv algorithm by name with its (filtered) parameters.
+    ``x_padded`` carries the algorithm's padding: pointwise takes the raw
+    image, every other algorithm a SAME-padded one."""
+    fn = _lookup(ALGORITHMS, algorithm)
+    return fn(x_padded, w, impl=impl, **kernel_params(algorithm, params))
+
+
+def dispatch_block(algorithm: str, x, weights, *, impl="auto", **params):
+    """Block-level twin of ``dispatch``: one call runs one fused block."""
+    fn = _lookup(BLOCK_ALGORITHMS, algorithm)
+    return fn(x, weights, impl=impl,
+              **block_kernel_params(algorithm, params))

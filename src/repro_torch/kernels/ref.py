@@ -1,0 +1,112 @@
+"""Plain PyTorch versions of the kernels (``repro/kernels/ref.py``).
+
+``conv2d_reference`` is the ground truth and the escape hatch; the
+structural references mirror each kernel's arithmetic: fp32 accumulation
+over an R×S tap loop, the epilogue ``acc*scale + bias`` then the
+activation on the fp32 accumulator, and one cast on the write, as the
+kernels' output writes do (the JAX package's ``ops.<algo>(impl='jnp')``
+casts the conv output before its unfused epilogue, which differs only in
+the low-precision dtypes). They are what a CPU tensor runs and what the
+CUDA kernels are held against on the card.
+
+Layouts: activations NHWC, filters HWIO (R, S, C, K).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def pad_same(x, r, s, stride=1, value=0.0):
+    """Explicit SAME padding of an NHWC tensor, split low first: the total
+    pad ``(out-1)*stride + r - h`` gives its smaller half to the top/left,
+    as XLA does (torch's symmetric ``padding=`` would shift the windows by
+    one pixel at stride 2 and even H)."""
+    h, w = x.shape[1], x.shape[2]
+    ph = max((-(-h // stride) - 1) * stride + r - h, 0)
+    pw = max((-(-w // stride) - 1) * stride + s - w, 0)
+    return F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2),
+                 value=value)
+
+
+def conv2d_reference(x, w, *, stride=1, padding="SAME", groups=1):
+    """Ground truth. x: (B,H,W,C), w: (R,S,C/groups,K) -> (B,H',W',K),
+    computed in fp32 and cast to ``x.dtype``. On the card an fp32 result
+    is IEEE fp32 only with ``torch.backends.cudnn.allow_tf32 = False``."""
+    R, S = w.shape[0], w.shape[1]
+    if padding == "SAME":
+        x = pad_same(x, R, S, stride)
+    elif padding != "VALID":
+        raise ValueError(padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                 w.permute(3, 2, 0, 1).float(), stride=stride, groups=groups)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def apply_act(y, act):
+    """Apply a named activation ('relu' | 'relu6' | None)."""
+    if act is None:
+        return y
+    if act == "relu":
+        return torch.clamp_min(y, 0)
+    if act == "relu6":
+        return torch.clamp(y, 0.0, 6.0)
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def apply_epilogue(y, scale=None, bias=None, act=None):
+    """Unfused epilogue: y*scale + bias, then the activation, in fp32,
+    cast once back to ``y.dtype``."""
+    if scale is None and bias is None and act is None:
+        return y
+    return _epilogue(y.float(), scale, bias, act).to(y.dtype)
+
+
+def _epilogue(acc, scale, bias, act):
+    """The kernels' epilogue on an fp32 accumulator (stays fp32)."""
+    if scale is not None:
+        acc = acc * scale.float()
+    if bias is not None:
+        acc = acc + bias.float()
+    return apply_act(acc, act)
+
+
+def _tap_loop(x_padded, w, stride):
+    """fp32 accumulator of the R×S tap loop: one (pixels, C) @ (C, K)
+    product per tap over a strided window of the padded image."""
+    R, S, _, K = w.shape
+    B, Hp, Wp, _ = x_padded.shape
+    H = (Hp - R) // stride + 1
+    W = (Wp - S) // stride + 1
+    xf, wf = x_padded.float(), w.float()
+    acc = torch.zeros((B, H, W, K), dtype=torch.float32,
+                      device=x_padded.device)
+    for r in range(R):
+        for s in range(S):
+            xs = xf[:, r:r + (H - 1) * stride + 1:stride,
+                    s:s + (W - 1) * stride + 1:stride, :]
+            acc += xs @ wf[r, s]
+    return acc
+
+
+def ilpm_conv(x_padded, w, *, stride=1, scale=None, bias=None, act=None):
+    """x_padded: (B, (H-1)*stride+R, (W-1)*stride+S, C); w: (R,S,C,K)
+    -> (B,H,W,K), with the fused epilogue."""
+    acc = _tap_loop(x_padded, w, stride)
+    return _epilogue(acc, scale, bias, act).to(x_padded.dtype)
+
+
+def pointwise_conv(x, w, *, stride=1, scale=None, bias=None, act=None):
+    """x: (B,H,W,C) unpadded; w: (1,1,C,K) -> (B,ceil(H/s),ceil(W/s),K).
+    A strided 1x1 reads ``x[:, ::s, ::s]``."""
+    acc = x[:, ::stride, ::stride, :].float() @ w[0, 0].float()
+    return _epilogue(acc, scale, bias, act).to(x.dtype)
+
+
+def fused_residual_conv(x_padded, weights, *, res, act="relu"):
+    """Stride-1 conv on ``x_padded`` with weights ``w``/``scale``/
+    ``bias``: the folded-BN result is cast to the compute dtype first,
+    then ``res`` is added in that dtype, then the activation."""
+    acc = _tap_loop(x_padded, weights["w"], 1)
+    y = _epilogue(acc, weights.get("scale"), weights.get("bias"), None)
+    return apply_act(y.to(x_padded.dtype) + res, act)
