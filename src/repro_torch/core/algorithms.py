@@ -1,14 +1,15 @@
 """Public convolution entry point with algorithm selection
 (``repro/core/algorithms.py``).
 
-``conv2d(x, w, algorithm=...)`` routes one conv site: 'ilpm' and
-'pointwise' run their CUDA kernels; 'auto' asks the autotuner; an explicit
-``choice`` (a plan's ``Choice``) pins the algorithm. 'xla' keeps the
-reference's name so plan JSON stays compatible: it is the escape hatch,
-``ref.conv2d_reference`` plus ``ref.apply_epilogue``. Strided sites forced
-onto im2col/libdnn/winograd fall back to ilpm, and an inapplicable
-winograd site does too, as in the reference; the algorithms whose kernels
-are not ported yet raise ``NotImplementedError`` from ``ops.dispatch``.
+``conv2d(x, w, algorithm=...)`` routes one conv site: 'ilpm', 'pointwise'
+and 'depthwise' run their CUDA kernels; 'auto' asks the autotuner; an
+explicit ``choice`` (a plan's ``Choice``) pins the algorithm. 'xla' keeps
+the reference's name so plan JSON stays compatible: it is the escape
+hatch, ``ref.conv2d_reference`` plus ``ref.apply_epilogue``. As in the
+reference, strided sites forced onto im2col/libdnn/winograd fall back to
+ilpm, an inapplicable winograd site does too, and a grouped conv that is
+not depthwise takes the escape hatch; the algorithms whose kernels are not
+ported yet raise ``NotImplementedError`` from ``ops.dispatch``.
 
 The optional fused epilogue (``scale``/``bias``/``act``) rides into the
 kernel's output write. Layouts: NHWC images, HWIO filters.
@@ -53,14 +54,16 @@ def conv2d(x, w, *, stride=1, padding="SAME", algorithm="auto", impl="auto",
         return _escape_hatch(x, w, stride, padding, groups, ep)
 
     if groups > 1:
+        if algorithm == "auto":
+            algorithm, params = _auto(x, w, stride, epilogue=ep_on)
         depthwise_ok = groups == C and K % C == 0 and stride in (1, 2)
-        if depthwise_ok and algorithm in ("auto", "depthwise"):
-            raise NotImplementedError(
-                "depthwise conv is not ported yet: ROADMAP queue 2 row 5 "
-                "(MobileNetV2 slice)")
-        # a grouped-but-not-depthwise conv: the escape hatch, as in the
-        # reference
-        return _escape_hatch(x, w, stride, padding, groups, ep)
+        if algorithm != "depthwise" or not depthwise_ok:
+            # the tuner punted, or a grouped-but-not-depthwise conv
+            return _escape_hatch(x, w, stride, padding, groups, ep)
+        xp = ref.pad_same(x, R, S, stride=stride) if padding == "SAME" \
+            else x
+        return ops.dispatch("depthwise", xp, w, impl=impl, stride=stride,
+                            **ep, **params)
 
     if stride != 1 and (R, S) == (stride, stride) and padding == "VALID":
         # non-overlapping patch conv (ViT patch embed): reshape + matmul
@@ -100,6 +103,25 @@ def conv2d(x, w, *, stride=1, padding="SAME", algorithm="auto", impl="auto",
             algorithm = "ilpm"  # winograd F(2,3) inapplicable
     return ops.dispatch(algorithm, xp, w, impl=impl, stride=stride,
                         **ep, **params)
+
+
+def block_inverted_residual(x, p, choice, *, stride=1, residual=False,
+                            impl="auto"):
+    """A whole MobileNetV2 inverted-residual block as one fused dispatch.
+    ``p`` is the block's params, an optional ``pw1`` plus ``dw`` and
+    ``pw2``, each ``{"w", "scale", "bias"}``, flattened here into the
+    stage-keyed weights the block kernel takes; the activations are
+    MobileNetV2's ReLU6 and linear projection."""
+    weights = {"wdw": p["dw"]["w"], "sdw": p["dw"]["scale"],
+               "bdw": p["dw"]["bias"],
+               "w2": p["pw2"]["w"], "s2": p["pw2"]["scale"],
+               "b2": p["pw2"]["bias"]}
+    if "pw1" in p:
+        weights.update({"w1": p["pw1"]["w"], "s1": p["pw1"]["scale"],
+                        "b1": p["pw1"]["bias"]})
+    return ops.dispatch_block(choice.algorithm, x, weights, impl=impl,
+                              stride=stride, residual=residual, act="relu6",
+                              out_act=None, **dict(choice.params))
 
 
 def block_residual_conv(x, p, choice, *, res, impl="auto"):

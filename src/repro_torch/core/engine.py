@@ -24,8 +24,6 @@ from torch import nn
 from repro_torch.core import autotune
 from repro_torch.core.autotune import TuningPlan
 from repro_torch.core.convspec import ConvSpec
-from repro_torch.models.registry import cnn_module
-from repro_torch.models.spec import init_params
 
 log = logging.getLogger(__name__)
 
@@ -59,12 +57,16 @@ class InferenceEngine:
     ``algorithm="auto"`` tunes a per-layer plan; a concrete algorithm name
     forces every conv site onto it; ``plan=`` (a TuningPlan or a JSON
     path) skips tuning and deploys a saved plan. ``params`` is a nested
-    dict of tensors, a flat ``state_dict`` or a ``ResNet``; by default
+    dict of tensors, a flat ``state_dict`` or a network module; by default
     the weights are drawn from ``seed``.
     """
 
     def __init__(self, cfg, params=None, seed=0, algorithm="auto",
                  plan=None, device=None, tune_mode="cost_model"):
+        # the models import core, so core reads them at call time
+        from repro_torch.models.registry import cnn_module
+        from repro_torch.models.spec import init_params
+
         if cfg.family != "cnn":
             raise ValueError(f"InferenceEngine runs CNNs, not {cfg.family}")
         self.cfg = cfg
@@ -75,7 +77,7 @@ class InferenceEngine:
                                  cfg.param_dtype)
         elif isinstance(params, nn.Module):
             params = params.state_dict()
-        self.model = self._model.ResNet(cfg, params).to(self.device)
+        self.model = self._model.Network(cfg, params).to(self.device)
         self.params = self.model.params()
         self.algorithm = algorithm
         if plan is not None and not isinstance(plan, TuningPlan):

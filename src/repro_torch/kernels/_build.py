@@ -38,6 +38,8 @@ SIGNATURES = {
     "ilpm_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
     "pointwise_conv_launch": [_I] + [_P] * 5 + [_I] * 7 + [_P],
     "fused_residual_conv_launch": [_I] + [_P] * 6 + [_I] * 8 + [_P],
+    "depthwise_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
+    "fused_inverted_residual_launch": [_I] + [_P] * 11 + [_I] * 13 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

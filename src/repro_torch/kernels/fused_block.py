@@ -1,24 +1,31 @@
-"""Fused ResNet block tail as a CUDA kernel for Hopper.
+"""Fused blocks as CUDA kernels for Hopper.
 
-Replaces the Pallas kernel ``fused_residual_conv`` in ``src/repro/
-kernels/fused_block.py``; the source is ``csrc/fused_residual_conv.cu``
-over the halo'd-tile body in ``csrc/conv_tile.cuh``. The other Pallas
-kernel of that file, ``fused_inverted_residual``, comes with the
-MobileNetV2 slice.
+Replace the two Pallas kernels of ``src/repro/kernels/fused_block.py``:
 
-What bounds it on the H100: a ResNet-18 block's second conv does 0.23
-GFLOP per launch and must move 1-10 MB, so in fp32 (IEEE, on CUDA cores)
-the arithmetic bounds it and in bf16 the bytes do. The tiling is
-``ilpm_conv``'s: an 8x8-output halo'd tile staged in shared memory chunk
-by chunk of C, reused over a 64-channel filter slab and every tap. The
-shortcut add and the outer activation ride in the single output write,
-so the conv output makes no separate round trip: the kernel converts
-``acc*scale + bias`` to the compute dtype, adds ``res`` and applies the
-activation, the op order of the unfused ``act(conv(x) + identity)``.
+* ``fused_residual_conv`` (source ``csrc/fused_residual_conv.cu`` over the
+  halo'd-tile body in ``csrc/conv_tile.cuh``): a ResNet block's last conv
+  with the shortcut add and the outer activation in its output write. A
+  ResNet-18 block's second conv does 0.23 GFLOP per launch and must move
+  1-10 MB, so in fp32 (IEEE, on CUDA cores) the arithmetic bounds it and
+  in bf16 the bytes do. The tiling is ``ilpm_conv``'s: an 8x8-output
+  halo'd tile staged in shared memory chunk by chunk of C, reused over a
+  64-channel filter slab and every tap. The kernel converts
+  ``acc*scale + bias`` to the compute dtype, adds ``res`` and applies the
+  activation, the op order of the unfused ``act(conv(x) + identity)``.
+* ``fused_inverted_residual`` (source ``csrc/fused_inverted_residual.cu``):
+  MobileNetV2's expand -> depthwise -> project block with the identity add,
+  whose expanded tensor never reaches device memory. At MobileNetV2's
+  shapes its fp32 operations on CUDA cores bound it. One block owns a
+  ``tile`` x ``tile`` patch of output pixels, all output channels and one
+  image, and loops over 32-channel slabs of the expanded width; neighbouring
+  blocks recompute the expansion of their shared halo. ``choose_tile``
+  picks the tile (8, 4, 2 or 1) that minimises an estimate of the time per
+  launch, within a block's shared memory, so a 7x7 image still spreads
+  over many SMs.
 
-``fused_residual_conv`` runs the kernel for a CUDA tensor and the plain
-version (``ref.fused_residual_conv``) for a CPU tensor;
-``fused_residual_conv.launches`` counts the kernel's launches.
+Each wrapper runs its kernel for a CUDA tensor and its plain version
+(``ref.<name>``) for a CPU tensor; ``<wrapper>.launches`` counts the
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -27,6 +34,13 @@ import torch
 from repro_torch.kernels import _build, ref
 
 plain = ref.fused_residual_conv
+plain_inverted_residual = ref.fused_inverted_residual
+
+# csrc/fused_inverted_residual.cu: the mid slab width, the rows a thread
+# carries in a block product, and a block's shared-memory limit on sm_90
+IR_SLAB = 32
+IR_GEMM_ROWS = 4
+MAX_SMEM = 232448
 
 
 def fused_residual_conv(x_padded, weights, *, res, act="relu"):
@@ -64,3 +78,111 @@ def fused_residual_conv(x_padded, weights, *, res, act="relu"):
 
 
 fused_residual_conv.launches = 0
+
+
+def ir_smem_bytes(tile, stride, r, s, cin, cout, expanded):
+    """Shared memory of one ``fused_inverted_residual`` block: the input
+    halo, the w1 slab, the expanded and depthwise slabs, the w2 slab and
+    the fp32 accumulator, all fp32."""
+    npi = ((tile - 1) * stride + r) * ((tile - 1) * stride + s)
+    npo = tile * tile
+    return 4 * (npi * cin + (cin * IR_SLAB if expanded else 0)
+                + npi * IR_SLAB + npo * IR_SLAB + IR_SLAB * cout
+                + npo * cout)
+
+
+def choose_tile(h, w, cin, mid, cout, r, s, stride, expanded, *, batch=1,
+                sms=132):
+    """The output tile of ``fused_inverted_residual``: among 8, 4, 2 and 1,
+    within a block's shared memory, the one with the least estimated time,
+    the larger of one block's FMAs (the block products padded to 4 rows
+    and 32 columns, as the kernel computes them) and all blocks' FMAs over
+    ``sms``. A tie goes to the larger tile."""
+    def gemm(m, n, k):
+        return -(-m // IR_GEMM_ROWS) * IR_GEMM_ROWS * -(-n // 32) * 32 * k
+
+    oh, ow = -(-h // stride), -(-w // stride)
+    best = None
+    for tile in (8, 4, 2, 1):
+        if ir_smem_bytes(tile, stride, r, s, cin, cout, expanded) > MAX_SMEM:
+            continue
+        npi = ((tile - 1) * stride + r) * ((tile - 1) * stride + s)
+        npo = tile * tile
+        work = -(-mid // IR_SLAB) * (
+            (gemm(npi, IR_SLAB, cin) if expanded else 0)
+            + npo * IR_SLAB * r * s + gemm(npo, cout, IR_SLAB))
+        blocks = -(-oh // tile) * -(-ow // tile) * batch
+        est = max(work, blocks * work / sms)
+        if best is None or est < best[0]:
+            best = (est, tile)
+    if best is None:
+        raise ValueError(f"fused_inverted_residual: no tile fits shared "
+                         f"memory for Cin {cin}, Cout {cout}")
+    return best[1]
+
+
+def fused_inverted_residual(x, weights, *, stride=1, residual=False,
+                            act="relu6", out_act=None):
+    """x: (B, H, W, Cin) unpadded; weights: optional ``w1`` (1, 1, Cin,
+    mid) with ``s1``/``b1`` (absent for t == 1 blocks), ``wdw`` (R, S, 1,
+    mid) with ``sdw``/``bdw``, ``w2`` (1, 1, mid, Cout) with ``s2``/``b2``
+    -> (B, ceil(H/stride), ceil(W/stride), Cout). ``residual`` adds ``x``
+    (stride 1, Cin == Cout)."""
+    if x.device.type == "cpu":
+        return plain_inverted_residual(x, weights, stride=stride,
+                                       residual=residual, act=act,
+                                       out_act=out_act)
+    name = "fused_inverted_residual"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    B, H, W, Cin = x.shape
+    w1, wdw, w2 = weights.get("w1"), weights["wdw"], weights["w2"]
+    R, S, one, mid = wdw.shape
+    Cout = w2.shape[-1]
+    expanded = w1 is not None
+    if (one != 1 or stride not in (1, 2) or tuple(w2.shape) != (1, 1, mid, Cout)
+            or (expanded and tuple(w1.shape) != (1, 1, Cin, mid))
+            or (not expanded and mid != Cin)
+            or (residual and (stride != 1 or Cin != Cout))):
+        raise ValueError(
+            f"{name}: bad geometry x {tuple(x.shape)} w1 "
+            f"{None if w1 is None else tuple(w1.shape)} wdw "
+            f"{tuple(wdw.shape)} w2 {tuple(w2.shape)} stride {stride} "
+            f"residual {residual}")
+    dev, dt = x.device, x.dtype
+    code = _build.kernel_dtype(name, x)
+    _build.check_operand(name, "x", x, dev, dt)
+    _build.check_operand(name, "wdw", wdw, dev, dt)
+    _build.check_operand(name, "w2", w2, dev, dt)
+    ptrs = []
+    if expanded:
+        _build.check_operand(name, "w1", w1, dev, dt)
+        s1, b1 = _build.epilogue_vectors(weights.get("s1"),
+                                         weights.get("b1"), mid, dev)
+        ptrs += [w1.data_ptr(), s1.data_ptr(), b1.data_ptr()]
+    else:
+        ptrs += [None, None, None]
+    sdw, bdw = _build.epilogue_vectors(weights.get("sdw"),
+                                       weights.get("bdw"), mid, dev)
+    s2, b2 = _build.epilogue_vectors(weights.get("s2"), weights.get("b2"),
+                                     Cout, dev)
+    tile = choose_tile(H, W, Cin, mid, Cout, R, S, stride, expanded,
+                       batch=B, sms=_sm_count(dev))
+    out = torch.empty((B, -(-H // stride), -(-W // stride), Cout), dtype=dt,
+                      device=dev)
+    err = _build.library().fused_inverted_residual_launch(
+        code, x.data_ptr(), *ptrs, wdw.data_ptr(), sdw.data_ptr(),
+        bdw.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), B, H, W, Cin, mid, Cout, R, S, stride, tile,
+        _build.act_code(act), _build.act_code(out_act), int(residual),
+        _build.stream(dev))
+    _build.check(err, name)
+    fused_inverted_residual.launches += 1
+    return out
+
+
+fused_inverted_residual.launches = 0
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -9,14 +9,15 @@ A kernel that fails to build or launch raises; nothing falls back.
 
 Every conv wrapper takes optional ``scale``/``bias`` ((K,) folded-BN
 vectors) and ``act`` ('relu' | 'relu6' | None), applied in the kernel's
-output write. The TPU tile sizes a plan carries (``block_k``) are not in
-any signature, so ``kernel_params`` drops them: the Hopper kernels choose
-their own tiles.
+output write. The TPU tile sizes a plan carries (``block_k``, ``block_c``,
+``block_m``) are not in any signature, so ``kernel_params`` drops them:
+the Hopper kernels choose their own tiles.
 """
 from __future__ import annotations
 
 import inspect
 
+from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import fused_block as _fb
 from repro_torch.kernels import ilpm_conv as _il
 from repro_torch.kernels import pointwise_conv as _pw
@@ -48,6 +49,27 @@ def pointwise(x, w, *, impl="auto", stride=1, scale=None, bias=None,
     return fn(x, w, stride=stride, scale=scale, bias=bias, act=act)
 
 
+def depthwise(x_padded, w, *, impl="auto", stride=1, scale=None, bias=None,
+              act=None):
+    """Depthwise conv: x (B,Hp,Wp,C) pre-padded, w (R,S,1,M·C)
+    -> (B,H,W,M·C), stride 1 or 2; output channel k reads input k // M."""
+    fn = _dw.depthwise_conv if _use_kernel(impl, x_padded) \
+        else ref.depthwise_conv
+    return fn(x_padded, w, stride=stride, scale=scale, bias=bias, act=act)
+
+
+def fused_inverted_residual(x, weights, *, impl="auto", stride=1,
+                            residual=False, act="relu6", out_act=None):
+    """MobileNetV2 expand -> depthwise -> project in one launch. ``x``
+    (B,H,W,Cin) unpadded; ``weights``: optional ``w1``/``s1``/``b1``
+    (absent for t == 1 blocks), ``wdw``/``sdw``/``bdw``, ``w2``/``s2``/
+    ``b2``; ``residual`` adds ``x`` (stride 1, Cin == Cout)."""
+    fn = _fb.fused_inverted_residual if _use_kernel(impl, x) \
+        else ref.fused_inverted_residual
+    return fn(x, weights, stride=stride, residual=residual, act=act,
+              out_act=out_act)
+
+
 def fused_residual_conv(x_padded, weights, *, impl="auto", res, act="relu"):
     """ResNet block tail: the stride-1 conv with the shortcut add and the
     outer activation fused into its output write."""
@@ -56,15 +78,14 @@ def fused_residual_conv(x_padded, weights, *, impl="auto", res, act="relu"):
     return fn(x_padded, weights, res=res, act=act)
 
 
-ALGORITHMS = {"ilpm": ilpm, "pointwise": pointwise}
+ALGORITHMS = {"ilpm": ilpm, "pointwise": pointwise, "depthwise": depthwise}
 
-BLOCK_ALGORITHMS = {"fused_residual_conv": fused_residual_conv}
+BLOCK_ALGORITHMS = {"fused_inverted_residual": fused_inverted_residual,
+                    "fused_residual_conv": fused_residual_conv}
 
 # algorithms of the JAX package whose kernels are not ported yet, with the
 # ROADMAP item that ports them
 NOT_PORTED = {
-    "fused_inverted_residual": "ROADMAP queue 2 row 4 (MobileNetV2 slice)",
-    "depthwise": "ROADMAP queue 2 row 5 (MobileNetV2 slice)",
     "direct": "ROADMAP queue 2 row 6 (baselines slice)",
     "im2col": "ROADMAP queue 2 rows 7-8 (baselines slice)",
     "libdnn": "ROADMAP queue 2 row 9 (baselines slice)",

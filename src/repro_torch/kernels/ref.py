@@ -110,3 +110,49 @@ def fused_residual_conv(x_padded, weights, *, res, act="relu"):
     acc = _tap_loop(x_padded, weights["w"], 1)
     y = _epilogue(acc, weights.get("scale"), weights.get("bias"), None)
     return apply_act(y.to(x_padded.dtype) + res, act)
+
+
+def depthwise_conv(x_padded, w, *, stride=1, scale=None, bias=None,
+                   act=None):
+    """x_padded: (B, Hp, Wp, C) pre-padded; w: (R, S, 1, M*C)
+    -> (B, H, W, M*C), with the fused epilogue. Each tap is a strided
+    window times one per-channel filter row; output channel k reads input
+    channel k // M (lax's HWIO convention for a channel multiplier)."""
+    R, S, _, K = w.shape
+    B, Hp, Wp, C = x_padded.shape
+    if K % C:
+        raise ValueError(f"depthwise filters {tuple(w.shape)} for {C} "
+                         "input channels")
+    H = (Hp - R) // stride + 1
+    W = (Wp - S) // stride + 1
+    xf, wf = x_padded.float(), w.float()
+    if K != C:
+        xf = xf.repeat_interleave(K // C, dim=-1)
+    acc = torch.zeros((B, H, W, K), dtype=torch.float32,
+                      device=x_padded.device)
+    for r in range(R):
+        for s in range(S):
+            acc += xf[:, r:r + (H - 1) * stride + 1:stride,
+                      s:s + (W - 1) * stride + 1:stride, :] * wf[r, s, 0]
+    return _epilogue(acc, scale, bias, act).to(x_padded.dtype)
+
+
+def fused_inverted_residual(x, weights, *, stride=1, residual=False,
+                            act="relu6", out_act=None):
+    """MobileNetV2's inverted residual composed stage by stage: expand
+    (1x1 + ``s1``/``b1`` + act, absent for t == 1 blocks) -> SAME pad, low
+    first -> depthwise (+ ``sdw``/``bdw`` + act) -> project (1x1 +
+    ``s2``/``b2`` + ``out_act``) -> optional ``+ x``. Each stage casts once
+    to the compute dtype, where the per-layer kernels' writes cast; the
+    identity add runs in the compute dtype."""
+    h = x
+    if weights.get("w1") is not None:
+        h = pointwise_conv(h, weights["w1"], scale=weights.get("s1"),
+                           bias=weights.get("b1"), act=act)
+    wdw = weights["wdw"]
+    h = depthwise_conv(pad_same(h, wdw.shape[0], wdw.shape[1], stride), wdw,
+                       stride=stride, scale=weights.get("sdw"),
+                       bias=weights.get("bdw"), act=act)
+    h = pointwise_conv(h, weights["w2"], scale=weights.get("s2"),
+                       bias=weights.get("b2"), act=out_act)
+    return h + x if residual else h

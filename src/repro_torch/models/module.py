@@ -1,0 +1,53 @@
+"""The ``nn.Module`` every CNN family's network is.
+
+Its parameters mirror the family's spec tree, so ``state_dict()`` keys are
+the JAX parameter paths joined with '.' (``stem.w``, ``s1b0.dw.scale``,
+``fc.b``) and plan keys and parameters map one to one. A family subclasses
+``CNN`` and names its ``model_specs`` and ``forward``.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+from repro_torch.models.spec import flatten, unflatten, walk
+
+
+def _tree_module(tree) -> nn.Module:
+    """A module whose parameters mirror a nested dict of tensors."""
+    m = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            m.add_module(k, _tree_module(v))
+        else:
+            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return m
+
+
+class CNN(nn.Module):
+    """The network as a module. ``params`` is a nested dict of tensors or
+    a flat ``state_dict`` with dotted keys; it must hold exactly the
+    family's parameter paths."""
+
+    model_specs = None  # cfg -> spec tree
+    forward_fn = None  # (params, cfg, images, **kw) -> logits
+
+    def __init__(self, cfg, params):
+        super().__init__()
+        self.cfg = cfg
+        tree = unflatten(params) if any("." in k for k in params) \
+            else params
+        expected = {".".join(p) for p, _ in walk(self.model_specs(cfg))}
+        got = set(flatten(tree))
+        if got != expected:
+            raise ValueError(f"params do not match {cfg.name}: missing "
+                             f"{sorted(expected - got)}, extra "
+                             f"{sorted(got - expected)}")
+        for k, v in tree.items():
+            self.add_module(k, _tree_module(v))
+
+    def params(self) -> dict:
+        """The parameters as the nested dict ``forward`` takes."""
+        return unflatten(dict(self.named_parameters()))
+
+    def forward(self, images, **kw):
+        return self.forward_fn(self.params(), self.cfg, images, **kw)

@@ -6,10 +6,9 @@ activation as the kernel's fused epilogue, so the whole backbone runs
 under a TuningPlan. A ``<block>.block`` plan entry replaces a block's last
 conv and its shortcut add + ReLU with one fused-block dispatch.
 
-``ResNet`` is an ``nn.Module`` whose ``state_dict()`` keys are the JAX
-parameter paths joined with '.' (``stem.w``, ``s1b0.proj.scale``,
-``fc.b``), so plan keys and parameters map one to one; ``forward`` is the
-same function on a nested dict of tensors.
+``ResNet`` is the family's ``models.module.CNN``, whose ``state_dict()``
+keys are the JAX parameter paths (``stem.w``, ``s1b0.proj.scale``,
+``fc.b``); ``forward`` is the same function on a nested dict of tensors.
 """
 from __future__ import annotations
 
@@ -17,13 +16,13 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.core import algorithms
 from repro_torch.core.convspec import ConvSpec, FusedBlockSpec
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ref
-from repro_torch.models.spec import ParamSpec, flatten, unflatten, walk
+from repro_torch.models.module import CNN
+from repro_torch.models.spec import ParamSpec
 
 WIDTHS = (64, 128, 256, 512)
 
@@ -191,39 +190,9 @@ def forward(params, cfg, images, *, algorithm="ilpm", plan=None,
     return logits[0] if single else logits
 
 
-def _tree_module(tree) -> nn.Module:
-    """A module whose parameters mirror a nested dict of tensors."""
-    m = nn.Module()
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            m.add_module(k, _tree_module(v))
-        else:
-            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
-    return m
+class ResNet(CNN):
+    model_specs = staticmethod(model_specs)
+    forward_fn = staticmethod(forward)
 
 
-class ResNet(nn.Module):
-    """The network as a module. ``params`` is a nested dict of tensors or
-    a flat ``state_dict`` with dotted keys."""
-
-    def __init__(self, cfg, params):
-        super().__init__()
-        self.cfg = cfg
-        tree = unflatten(params) if any("." in k for k in params) \
-            else params
-        expected = {".".join(p) for p, _ in walk(model_specs(cfg))}
-        got = set(flatten(tree))
-        if got != expected:
-            raise ValueError(f"params do not match {cfg.name}: missing "
-                             f"{sorted(expected - got)}, extra "
-                             f"{sorted(got - expected)}")
-        for k, v in tree.items():
-            self.add_module(k, _tree_module(v))
-
-    def params(self) -> dict:
-        """The parameters as the nested dict ``forward`` takes."""
-        return unflatten(dict(self.named_parameters()))
-
-    def forward(self, images, algorithm="ilpm", plan=None, impl="auto"):
-        return forward(self.params(), self.cfg, images, algorithm=algorithm,
-                       plan=plan, impl=impl)
+Network = ResNet
