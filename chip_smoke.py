@@ -7,14 +7,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``src/repro_torch/_build/``), then, printing one JSON object per line:
 
 1. environment: the card's name and power limit, torch, nvcc, build time;
-2. kernel phase: each kernel at every shape class that the three main
-   paths below launch (plus the 1x1 fused block ResNet-50 uses and a
-   depthwise conv with channel multiplier 2), in fp32 and bf16, with
-   non-zero folded-BN scales and biases, held against its plain PyTorch
-   version on the same inputs within ``tolerance(dtype)``, with CUDA-event
-   times of the kernel, the plain version and one PyTorch library call,
-   and the least time the card could take for the same work;
-3. engine phases, each on 4 numpy-seeded images through ``run`` and
+2. kernel phase: each kernel at every shape class that the six paths
+   below launch (plus the 1x1 fused block ResNet-50 uses and a depthwise
+   conv with channel multiplier 2), in fp32 and bf16, with non-zero
+   folded-BN scales and biases, held against its plain PyTorch version on
+   the same inputs within ``tolerance(dtype)`` (the im2col unroll, a copy,
+   bitwise), with CUDA-event times of the kernel, the plain version and
+   one PyTorch library call, and the least time the card could take for
+   the same work;
+3. a ``comparison`` line: the paper's algorithm comparison re-run on this
+   card at its four ResNet layers (``PAPER_CONV_LAYERS``), fp32, with the
+   folded-BN epilogue and ReLU: the device time of ilpm, direct and
+   libdnn (one kernel each), im2col as its path runs it (unroll, gemm,
+   epilogue pass) and cuDNN, and the ratios to ilpm beside the paper's
+   figures, which are a mobile GPU's (Mali);
+4. engine phases, each on 4 numpy-seeded images through ``run`` and
    ``run_batch``, with the launch counters set to 0 just before and read
    just after: logits against the same engine and plan on the CPU,
    ``run_batch`` bitwise equal to ``run``, and the kernel launches per
@@ -29,9 +36,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    - the same network on the per-layer plan (the tuned plan with its
      blocks stripped): ilpm_conv 1, depthwise_conv 17, pointwise_conv 34;
      its logits against the tuned engine's on the card;
-4. a ``kernels`` line with each kernel's launches, error and times summed
+   - ``InferenceEngine(get("resnet18"), algorithm=X)``, the reference's
+     forced-algorithm entry point, on the tuned engine's weights, for X
+     in direct (direct_conv 20), im2col (im2col_unroll 13, gemm 13,
+     ilpm_conv 7: the strided sites) and libdnn (libdnn_conv 13,
+     ilpm_conv 7); each also against the tuned engine's logits;
+5. a ``kernels`` line with each kernel's launches, error and times summed
    over one image of each path it runs on;
-5. the card's name and power limit as ``nvidia-smi`` gives them, then
+6. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises: the script exits non-zero and never prints the
@@ -73,12 +85,27 @@ KERNEL_INFO = {
     "fused_inverted_residual": (
         "src/repro_torch/csrc/fused_inverted_residual.cu",
         "src/repro/kernels/fused_block.py:133"),
+    "direct_conv": ("src/repro_torch/csrc/direct_conv.cu",
+                    "src/repro/kernels/direct_conv.py:51"),
+    "im2col_unroll": ("src/repro_torch/csrc/im2col_unroll.cu",
+                      "src/repro/kernels/im2col_conv.py:31"),
+    "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:32"),
+    "libdnn_conv": ("src/repro_torch/csrc/libdnn_conv.cu",
+                    "src/repro/kernels/libdnn_conv.py:43"),
 }
 # the plan algorithm each kernel serves
 KERNEL_OF = {"ilpm": "ilpm_conv", "pointwise": "pointwise_conv",
              "depthwise": "depthwise_conv",
              "fused_residual_conv": "fused_residual_conv",
              "fused_inverted_residual": "fused_inverted_residual"}
+# the kernels a site forced onto an algorithm launches
+FORCED_KERNELS = {"ilpm": ("ilpm_conv",), "direct": ("direct_conv",),
+                  "im2col": ("im2col_unroll", "gemm"),
+                  "libdnn": ("libdnn_conv",)}
+FORCED = ("direct", "im2col", "libdnn")
+# the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
+# for the comparison line, not a target
+PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
 
 ENGINE_IMAGES = 4
 ENGINE_REL_BOUND = 1e-4  # the convolutions sum in other orders on the card
@@ -90,6 +117,10 @@ EXPECTED_PER_IMAGE = {
                      "fused_inverted_residual": 17, "pointwise_conv": 1},
     "mobilenet_v2/per_layer": {**NO_LAUNCHES, "ilpm_conv": 1,
                                "depthwise_conv": 17, "pointwise_conv": 34},
+    "resnet18/direct": {**NO_LAUNCHES, "direct_conv": 20},
+    "resnet18/im2col": {**NO_LAUNCHES, "im2col_unroll": 13, "gemm": 13,
+                        "ilpm_conv": 7},
+    "resnet18/libdnn": {**NO_LAUNCHES, "libdnn_conv": 13, "ilpm_conv": 7},
 }
 
 
@@ -199,6 +230,21 @@ def shape_classes(plan):
     return classes
 
 
+def forced_classes(specs, algorithm):
+    """Counter of (kernel, shape) -> launches per image of a network whose
+    every conv site is forced onto ``algorithm``: im2col and libdnn have no
+    strided kernel, so their strided sites run ilpm, as the router sends
+    them. Shapes as in ``shape_classes``."""
+    classes = Counter()
+    for _, spec in specs:
+        algo = algorithm if spec.stride == 1 or algorithm == "direct" \
+            else "ilpm"
+        for kernel in FORCED_KERNELS[algo]:
+            classes[(kernel, (spec.h, spec.c, spec.k, spec.r,
+                              spec.stride))] += 1
+    return classes
+
+
 def _same_pads(h, r, stride):
     """SAME padding of one axis, low first: (lo, hi)."""
     pad = max((-(-h // stride) - 1) * stride + r - h, 0)
@@ -214,8 +260,9 @@ def kernel_setup(kernel, shape, dtype, gen):
     """The call of one shape class: the wrapper, its plain version, their
     arguments, a PyTorch library call computing the same function, the
     inputs the function must read, its operations and its shape line."""
-    from repro_torch.kernels import (depthwise_conv, fused_block, ilpm_conv,
-                                     pointwise_conv, ref)
+    from repro_torch.kernels import (depthwise_conv, direct_conv, fused_block,
+                                     gemm, ilpm_conv, im2col_conv,
+                                     libdnn_conv, pointwise_conv, ref)
 
     dev = "cuda"
 
@@ -295,6 +342,14 @@ def kernel_setup(kernel, shape, dtype, gen):
     Ho = -(-H // stride)
     line = dict(flops=2 * Ho * Ho * R * R * C * K,
                 shape={"H": H, "C": C, "K": K, "R": R, "stride": stride})
+    if kernel == "gemm":  # im2col's product: (H*W, R*S*C) @ (R*S*C, K)
+        a = randn(1, H * H, R * R * C)
+        b = w.reshape(R * R * C, K)
+        return dict(line, fn=gemm.gemm, plain=gemm.plain, args=(a, b),
+                    kw={}, library=lambda: torch.matmul(a, b),
+                    inputs=[a, b],
+                    shape={**line["shape"], "M": H * H, "Kc": R * R * C,
+                           "N": K})
     if kernel == "pointwise_conv":
         w_mat = w[0, 0]
 
@@ -307,6 +362,18 @@ def kernel_setup(kernel, shape, dtype, gen):
                     inputs=[x[:, ::stride, ::stride, :], w, scale, bias])
     xp = ref.pad_same(x, R, R, stride)
     x_lib, w_lib = xp.permute(0, 3, 1, 2), _cl(w)
+    # a strided 1x1 reads only the pixels x[::s, ::s]
+    x_read = xp[:, ::stride, ::stride] if R == 1 else xp
+    if kernel == "im2col_unroll":
+        Hp, Wp = xp.shape[1], xp.shape[2]
+
+        def library():  # the patch matrix in the same order, one copy
+            return torch.as_strided(
+                xp, (1, H, H, R, R, C),
+                (Hp * Wp * C, Wp * C, C, Wp * C, C, 1)).contiguous()
+        return dict(line, fn=im2col_conv.im2col_unroll,
+                    plain=im2col_conv.plain, args=(xp, R, R), kw={},
+                    library=library, inputs=[xp], flops=0)
     if kernel == "ilpm_conv":
         def library():
             return F.conv2d(x_lib, w_lib, stride=stride)
@@ -314,7 +381,20 @@ def kernel_setup(kernel, shape, dtype, gen):
                     args=(xp, w),
                     kw=dict(stride=stride, scale=scale, bias=bias,
                             act="relu"),
-                    library=library, inputs=[xp, w, scale, bias])
+                    library=library, inputs=[x_read, w, scale, bias])
+    if kernel in ("direct_conv", "libdnn_conv"):
+        mod = direct_conv if kernel == "direct_conv" else libdnn_conv
+        kw = dict(scale=scale, bias=bias, act="relu")
+        if kernel == "direct_conv":
+            kw["stride"] = stride
+        s_lib, b_lib = vec(scale), vec(bias)
+
+        def library():  # cuDNN with the epilogue
+            return torch.relu(F.conv2d(x_lib, w_lib, stride=stride) * s_lib
+                              + b_lib)
+        return dict(line, fn=getattr(mod, kernel), plain=mod.plain,
+                    args=(xp, w), kw=kw, library=library,
+                    inputs=[x_read, w, scale, bias])
     res = randn(1, H, H, K)
     res_lib = res.permute(0, 3, 1, 2)
 
@@ -357,7 +437,73 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
+    if kernel == "im2col_unroll":  # a copy: bitwise or wrong
+        line["bitwise_equal"] = torch.equal(y, p)
+        require(line["bitwise_equal"],
+                f"im2col_unroll {name} {case['shape']}: not bitwise equal "
+                "to its plain version")
     return line
+
+
+def comparison(peaks):
+    """The paper's algorithm comparison on this card: each
+    ``PAPER_CONV_LAYERS`` shape in fp32 with the folded-BN epilogue and
+    ReLU, the device time of every contender and its ratio to ilpm. Each
+    contender's output is held against ilpm's within tolerance("float32"),
+    as they sum in other orders."""
+    from repro_torch.configs.resnet import PAPER_CONV_LAYERS
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import (direct_conv, ilpm_conv, im2col_conv,
+                                     libdnn_conv, ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    layers = []
+    for layer in PAPER_CONV_LAYERS:
+        C, K, H, R = layer.c_in, layer.c_out, layer.h, layer.r
+        x = torch.randn(1, H, H, C, device="cuda", generator=gen)
+        w = torch.randn(R, R, C, K, device="cuda", generator=gen) \
+            * (R * R * C) ** -0.5
+        scale = torch.rand(K, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(K, device="cuda", generator=gen) * 0.1
+        xp = ref.pad_same(x, R, R)
+        ep = dict(scale=scale, bias=bias, act="relu")
+        x_lib, w_lib = xp.permute(0, 3, 1, 2), _cl(w)
+        s_lib, b_lib = scale.view(1, -1, 1, 1), bias.view(1, -1, 1, 1)
+        runs = {
+            "ilpm": lambda: ilpm_conv.ilpm_conv(xp, w, **ep),
+            "direct": lambda: direct_conv.direct_conv(xp, w, **ep),
+            "libdnn": lambda: libdnn_conv.libdnn_conv(xp, w, **ep),
+            "im2col": lambda: im2col_conv.im2col_conv(xp, w, **ep),
+            "cudnn": lambda: torch.relu(F.conv2d(x_lib, w_lib) * s_lib
+                                        + b_lib).permute(0, 2, 3, 1),
+        }
+        base = runs["ilpm"]()
+        errs = {}
+        for algo, fn in runs.items():
+            y = fn().float()
+            errs[algo] = ((y - base).abs().max() / base.abs().max()).item()
+        bad = {a: e for a, e in errs.items()
+               if not e <= tolerance("float32")}
+        require(not bad, f"comparison {layer.name}: outputs disagree with "
+                         f"ilpm's: {bad}")
+        ms = {algo: time_ms(fn) for algo, fn in runs.items()}
+        flops = 2 * H * H * R * R * C * K
+        nbytes = 4 * (xp.numel() + w.numel() + 2 * K + base.numel())
+        layers.append({
+            "layer": layer.name, "H": H, "C": C, "K": K, "R": R,
+            "ms": ms, "max_rel_err_vs_ilpm": errs,
+            "over_ilpm": {a: t / ms["ilpm"] for a, t in ms.items()
+                          if a != "ilpm"},
+            "bound_ms": max(flops / peaks["float32"],
+                            nbytes / peaks["mem_bw"]) * 1e3})
+    total = {algo: sum(r["ms"][algo] for r in layers)
+             for algo in layers[0]["ms"]}
+    return {"phase": "comparison", "dtype": "float32",
+            "epilogue": "folded BN + relu", "layers": layers,
+            "sum_ms": total,
+            "sum_over_ilpm": {a: t / total["ilpm"] for a, t in total.items()
+                              if a != "ilpm"},
+            "paper_speedup_of_ilpm_mobile_gpu_mali": PAPER_SPEEDUP}
 
 
 def perturb_bn(params, seed):
@@ -414,7 +560,8 @@ def engine_phase(path, engine, images, counters):
     require(bitwise, f"{path}: run_batch is not bitwise equal to run")
     cpu = InferenceEngine(cfg, params={k: v.cpu() for k, v in
                                        engine.model.state_dict().items()},
-                          plan=engine.plan, device="cpu")
+                          plan=engine.plan, algorithm=engine.algorithm,
+                          device="cpu")
     ref_logits = cpu.run_batch(images)
     engine_rel = ((singles.cpu() - ref_logits).abs().max()
                   / ref_logits.abs().max()).item()
@@ -431,9 +578,10 @@ def engine_phase(path, engine, images, counters):
     plan = engine.plan
     return {"phase": "engine", "path": path, "config": cfg.name,
             "img": cfg.extra["img"], "dtype": cfg.dtype,
-            "images": len(images),
-            "plan": sorted(Counter(plan.algorithms().values()).items()),
-            "fused_blocks": len(plan.block_choices),
+            "images": len(images), "algorithm": engine.algorithm,
+            "plan": sorted(Counter(plan.algorithms().values()).items())
+            if plan else None,
+            "fused_blocks": len(plan.block_choices) if plan else 0,
             "launches": launches, "launches_per_image": per_image,
             "max_rel_err_vs_cpu": engine_rel, "bound": ENGINE_REL_BOUND,
             "run_batch_bitwise_equal_run": bitwise,
@@ -448,10 +596,12 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.configs import get
+    from repro_torch.configs.resnet import PAPER_CONV_LAYERS
     from repro_torch.core import InferenceEngine, autotune
     from repro_torch.kernels import _build
-    from repro_torch.kernels import (depthwise_conv, fused_block, ilpm_conv,
-                                     pointwise_conv)
+    from repro_torch.kernels import (depthwise_conv, direct_conv, fused_block,
+                                     gemm, ilpm_conv, im2col_conv,
+                                     libdnn_conv, pointwise_conv)
     from repro_torch.models import mobilenet, resnet
     from repro_torch.models.spec import init_params
 
@@ -487,6 +637,16 @@ def main() -> None:
     for path, plan in plans.items():
         for key, n in shape_classes(plan).items():
             per_path.setdefault(key, {})[path] = n
+    for algorithm in FORCED:
+        for key, n in forced_classes(resnet.conv_specs(rcfg),
+                                     algorithm).items():
+            per_path.setdefault(key, {})[f"resnet18/{algorithm}"] = n
+    paper = {(layer.h, layer.c_in, layer.c_out, layer.r, layer.stride)
+             for layer in PAPER_CONV_LAYERS}
+    for kernel in ("im2col_unroll", "gemm", "libdnn_conv"):
+        shapes = {shape for k, shape in per_path if k == kernel}
+        require(shapes == paper, f"{kernel} classes {sorted(shapes)} are "
+                                 "not the paper's four layers")
     # no launch on the main paths: the 1x1 fused block of a ResNet-50
     # stage-0 bottleneck, and a depthwise conv with channel multiplier 2
     per_path.setdefault(("fused_residual_conv", (56, 64, 256, 1, 1)), {})
@@ -503,6 +663,7 @@ def main() -> None:
     bad = [(r["kernel"], r["dtype"], r["shape"]) for r in results
            if not r["max_rel_err"] <= r["tol"]]
     require(not bad, f"kernels disagree with their plain versions: {bad}")
+    emit(comparison(peaks))
 
     # ---- engine phases: the port's main paths --------------------------
     counters = {"ilpm_conv": ilpm_conv.ilpm_conv,
@@ -510,14 +671,32 @@ def main() -> None:
                 "fused_residual_conv": fused_block.fused_residual_conv,
                 "depthwise_conv": depthwise_conv.depthwise_conv,
                 "fused_inverted_residual":
-                    fused_block.fused_inverted_residual}
+                    fused_block.fused_inverted_residual,
+                "direct_conv": direct_conv.direct_conv,
+                "im2col_unroll": im2col_conv.im2col_unroll,
+                "gemm": gemm.gemm, "libdnn_conv": libdnn_conv.libdnn_conv}
+    require(set(counters) == set(KERNEL_INFO), "a kernel has no counter")
     images = np.random.default_rng(0).standard_normal(
         (ENGINE_IMAGES, 224, 224, 3)).astype(np.float32)
     launches = {}
-    line, _ = engine_phase("resnet18", InferenceEngine(rcfg, seed=0),
-                           images, counters)
+    line, tuned_logits = engine_phase(
+        "resnet18", InferenceEngine(rcfg, seed=0), images, counters)
     launches["resnet18"] = line["launches"]
     emit(line)
+    # the reference's forced-algorithm entry point, on the same weights
+    for algorithm in FORCED:
+        path = f"resnet18/{algorithm}"
+        line, forced_logits = engine_phase(
+            path, InferenceEngine(rcfg, seed=0, algorithm=algorithm),
+            images, counters)
+        line["vs_tuned_max_rel_err"] = (
+            (forced_logits - tuned_logits).abs().max()
+            / tuned_logits.abs().max()).item()
+        require(line["vs_tuned_max_rel_err"] <= ENGINE_REL_BOUND,
+                f"{path} vs tuned logits on the card: "
+                f"{line['vs_tuned_max_rel_err']}")
+        launches[path] = line["launches"]
+        emit(line)
     mparams = perturb_bn(init_params(mobilenet.model_specs(mcfg), 0,
                                      mcfg.param_dtype), seed=0)
     tuned = InferenceEngine(mcfg, params=mparams)

@@ -1,15 +1,17 @@
 """Public convolution entry point with algorithm selection
 (``repro/core/algorithms.py``).
 
-``conv2d(x, w, algorithm=...)`` routes one conv site: 'ilpm', 'pointwise'
-and 'depthwise' run their CUDA kernels; 'auto' asks the autotuner; an
-explicit ``choice`` (a plan's ``Choice``) pins the algorithm. 'xla' keeps
-the reference's name so plan JSON stays compatible: it is the escape
-hatch, ``ref.conv2d_reference`` plus ``ref.apply_epilogue``. As in the
-reference, strided sites forced onto im2col/libdnn/winograd fall back to
-ilpm, an inapplicable winograd site does too, and a grouped conv that is
-not depthwise takes the escape hatch; the algorithms whose kernels are not
-ported yet raise ``NotImplementedError`` from ``ops.dispatch``.
+``conv2d(x, w, algorithm=...)`` routes one conv site: 'ilpm', 'direct',
+'im2col' (unroll and gemm kernels, then the epilogue pass), 'libdnn',
+'pointwise' and 'depthwise' run their CUDA kernels; 'auto' asks the
+autotuner; an explicit ``choice`` (a plan's ``Choice``) pins the
+algorithm. 'xla' keeps the reference's name so plan JSON stays
+compatible: it is the escape hatch, ``ref.conv2d_reference`` plus
+``ref.apply_epilogue``. As in the reference, strided sites forced onto
+im2col/libdnn/winograd fall back to ilpm, an inapplicable winograd site
+does too, and a grouped conv that is not depthwise takes the escape
+hatch; winograd, whose kernels are not ported yet, raises
+``NotImplementedError`` from ``ops.dispatch``.
 
 The optional fused epilogue (``scale``/``bias``/``act``) rides into the
 kernel's output write. Layouts: NHWC images, HWIO filters.

@@ -40,6 +40,10 @@ SIGNATURES = {
     "fused_residual_conv_launch": [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "depthwise_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
     "fused_inverted_residual_launch": [_I] + [_P] * 11 + [_I] * 13 + [_P],
+    "direct_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
+    "libdnn_conv_launch": [_I] + [_P] * 5 + [_I] * 10 + [_P],
+    "im2col_unroll_launch": [_I] + [_P] * 2 + [_I] * 8 + [_P],
+    "gemm_launch": [_I] + [_P] * 3 + [_I] * 4 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

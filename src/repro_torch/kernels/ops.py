@@ -9,7 +9,8 @@ A kernel that fails to build or launch raises; nothing falls back.
 
 Every conv wrapper takes optional ``scale``/``bias`` ((K,) folded-BN
 vectors) and ``act`` ('relu' | 'relu6' | None), applied in the kernel's
-output write. The TPU tile sizes a plan carries (``block_k``, ``block_c``,
+output write (im2col applies it as a separate pass after its GEMM). The
+TPU tile sizes a plan carries (``block_k``, ``block_h``, ``block_c``,
 ``block_m``) are not in any signature, so ``kernel_params`` drops them:
 the Hopper kernels choose their own tiles.
 """
@@ -18,8 +19,12 @@ from __future__ import annotations
 import inspect
 
 from repro_torch.kernels import depthwise_conv as _dw
+from repro_torch.kernels import direct_conv as _dc
 from repro_torch.kernels import fused_block as _fb
+from repro_torch.kernels import gemm as _gm
 from repro_torch.kernels import ilpm_conv as _il
+from repro_torch.kernels import im2col_conv as _im
+from repro_torch.kernels import libdnn_conv as _lib
 from repro_torch.kernels import pointwise_conv as _pw
 from repro_torch.kernels import ref
 
@@ -40,6 +45,36 @@ def ilpm(x_padded, w, *, impl="auto", stride=1, scale=None, bias=None,
     """ILP-M dense conv on a SAME-padded NHWC image, stride 1 or 2."""
     fn = _il.ilpm_conv if _use_kernel(impl, x_padded) else ref.ilpm_conv
     return fn(x_padded, w, stride=stride, scale=scale, bias=bias, act=act)
+
+
+def direct(x_padded, w, *, impl="auto", stride=1, scale=None, bias=None,
+           act=None):
+    """Direct conv (filter bank on chip, pixel row bands) on a SAME-padded
+    NHWC image, stride 1 or 2."""
+    fn = _dc.direct_conv if _use_kernel(impl, x_padded) else ref.direct_conv
+    return fn(x_padded, w, stride=stride, scale=scale, bias=bias, act=act)
+
+
+def im2col(x_padded, w, *, impl="auto", scale=None, bias=None, act=None):
+    """Stride-1 im2col: the unroll kernel, the ``gemm`` kernel, then the
+    epilogue as a separate pass."""
+    fn = _im.im2col_conv if _use_kernel(impl, x_padded) \
+        else ref.im2col_conv
+    return fn(x_padded, w, scale=scale, bias=bias, act=act)
+
+
+def libdnn(x_padded, w, *, impl="auto", scale=None, bias=None, act=None):
+    """Stride-1 fused im2col: the patch tile built on chip per K tile."""
+    fn = _lib.libdnn_conv if _use_kernel(impl, x_padded) \
+        else ref.libdnn_conv
+    return fn(x_padded, w, scale=scale, bias=bias, act=act)
+
+
+def gemm(a, b, *, impl="auto"):
+    """a (M, Kc) or (batch, M, Kc) @ b (Kc, N), fp32 accumulation, in
+    ``a.dtype``."""
+    fn = _gm.gemm if _use_kernel(impl, a) else ref.gemm
+    return fn(a, b)
 
 
 def pointwise(x, w, *, impl="auto", stride=1, scale=None, bias=None,
@@ -78,7 +113,9 @@ def fused_residual_conv(x_padded, weights, *, impl="auto", res, act="relu"):
     return fn(x_padded, weights, res=res, act=act)
 
 
-ALGORITHMS = {"ilpm": ilpm, "pointwise": pointwise, "depthwise": depthwise}
+ALGORITHMS = {"ilpm": ilpm, "direct": direct, "im2col": im2col,
+              "libdnn": libdnn, "pointwise": pointwise,
+              "depthwise": depthwise}
 
 BLOCK_ALGORITHMS = {"fused_inverted_residual": fused_inverted_residual,
                     "fused_residual_conv": fused_residual_conv}
@@ -86,10 +123,7 @@ BLOCK_ALGORITHMS = {"fused_inverted_residual": fused_inverted_residual,
 # algorithms of the JAX package whose kernels are not ported yet, with the
 # ROADMAP item that ports them
 NOT_PORTED = {
-    "direct": "ROADMAP queue 2 row 6 (baselines slice)",
-    "im2col": "ROADMAP queue 2 rows 7-8 (baselines slice)",
-    "libdnn": "ROADMAP queue 2 row 9 (baselines slice)",
-    "winograd": "ROADMAP queue 2 rows 7, 10, 11 (baselines slice)",
+    "winograd": "ROADMAP queue 2 rows 10 and 11 (winograd slice)",
 }
 
 

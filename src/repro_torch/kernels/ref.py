@@ -2,12 +2,14 @@
 
 ``conv2d_reference`` is the ground truth and the escape hatch; the
 structural references mirror each kernel's arithmetic: fp32 accumulation
-over an R×S tap loop, the epilogue ``acc*scale + bias`` then the
-activation on the fp32 accumulator, and one cast on the write, as the
-kernels' output writes do (the JAX package's ``ops.<algo>(impl='jnp')``
-casts the conv output before its unfused epilogue, which differs only in
-the low-precision dtypes). They are what a CPU tensor runs and what the
-CUDA kernels are held against on the card.
+(over an R×S tap loop, or one product against the patch matrix), the
+epilogue ``acc*scale + bias`` then the activation on the fp32 accumulator,
+and one cast on the write, as the kernels' output writes do (the JAX
+package's ``ops.<algo>(impl='jnp')`` casts the conv output before its
+unfused epilogue, which differs only in the low-precision dtypes). im2col
+is the exception by its own contract: its GEMM writes the compute dtype
+and the epilogue is a separate pass, so it rounds twice. They are what a
+CPU tensor runs and what the CUDA kernels are held against on the card.
 
 Layouts: activations NHWC, filters HWIO (R, S, C, K).
 """
@@ -93,6 +95,62 @@ def ilpm_conv(x_padded, w, *, stride=1, scale=None, bias=None, act=None):
     """x_padded: (B, (H-1)*stride+R, (W-1)*stride+S, C); w: (R,S,C,K)
     -> (B,H,W,K), with the fused epilogue."""
     acc = _tap_loop(x_padded, w, stride)
+    return _epilogue(acc, scale, bias, act).to(x_padded.dtype)
+
+
+def _patches(x_padded, r, s, stride=1):
+    """(B, H, W, R*S*C): each output pixel's receptive field, columns
+    ordered ``(r*S + s)*C + c`` to match ``w.reshape(R*S*C, K)``."""
+    Hp, Wp = x_padded.shape[1], x_padded.shape[2]
+    H = (Hp - r) // stride + 1
+    W = (Wp - s) // stride + 1
+    return torch.cat([x_padded[:, i:i + (H - 1) * stride + 1:stride,
+                               j:j + (W - 1) * stride + 1:stride, :]
+                      for i in range(r) for j in range(s)], dim=-1)
+
+
+def _patch_product(x_padded, w, stride):
+    """fp32 (B, H, W, K): the patches against the flattened filter bank."""
+    R, S, C, K = w.shape
+    return (_patches(x_padded, R, S, stride).float()
+            @ w.reshape(R * S * C, K).float())
+
+
+def direct_conv(x_padded, w, *, stride=1, scale=None, bias=None, act=None):
+    """Direct conv: every output pixel against the whole filter bank,
+    stride 1 or 2; x_padded (B, (H-1)*stride+R, (W-1)*stride+S, C), w
+    (R,S,C,K) -> (B,H,W,K) with the fused epilogue, one cast."""
+    acc = _patch_product(x_padded, w, stride)
+    return _epilogue(acc, scale, bias, act).to(x_padded.dtype)
+
+
+def im2col_unroll(x_padded, r, s):
+    """The patch matrix (B, H*W, R*S*C) of a stride-1 conv, in
+    ``x_padded.dtype`` (a copy: no arithmetic)."""
+    p = _patches(x_padded, r, s)
+    return p.reshape(p.shape[0], -1, p.shape[-1])
+
+
+def gemm(a, b):
+    """a (..., M, Kc) @ b (Kc, N), accumulated in fp32, cast to
+    ``a.dtype``."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def im2col_conv(x_padded, w, *, scale=None, bias=None, act=None):
+    """Stride-1 im2col: unroll, then ``gemm`` (cast to the compute dtype),
+    then ``apply_epilogue`` as a separate pass (a second cast)."""
+    R, S, C, K = w.shape
+    B, Hp, Wp, _ = x_padded.shape
+    out = gemm(im2col_unroll(x_padded, R, S), w.reshape(R * S * C, K))
+    return apply_epilogue(out.reshape(B, Hp - R + 1, Wp - S + 1, K), scale,
+                          bias, act)
+
+
+def libdnn_conv(x_padded, w, *, scale=None, bias=None, act=None):
+    """Stride-1 fused im2col: the patches contracted at once, with the
+    fused epilogue and one cast."""
+    acc = _patch_product(x_padded, w, 1)
     return _epilogue(acc, scale, bias, act).to(x_padded.dtype)
 
 

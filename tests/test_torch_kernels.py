@@ -294,8 +294,7 @@ def test_conv2d_falls_back_to_ilpm(algorithm, stride, h):
                                       algorithm="ilpm"))
 
 
-@pytest.mark.parametrize("algorithm", ["direct", "im2col", "libdnn",
-                                       "winograd"])
+@pytest.mark.parametrize("algorithm", ["winograd"])
 def test_unported_algorithms_raise(algorithm):
     x = torch.from_numpy(_data(19, 1, 8, 8, 4))
     w = torch.from_numpy(_data(20, 3, 3, 4, 8))
