@@ -7,20 +7,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``src/repro_torch/_build/``), then, printing one JSON object per line:
 
 1. environment: the card's name and power limit, torch, nvcc, build time;
-2. kernel phase: each kernel at every shape class that the six paths
+2. kernel phase: each kernel at every shape class that the nine paths
    below launch (plus the 1x1 fused block ResNet-50 uses and a depthwise
    conv with channel multiplier 2), in fp32 and bf16, with non-zero
    folded-BN scales and biases, held against its plain PyTorch version on
    the same inputs within ``tolerance(dtype)`` (the im2col unroll, a copy,
    bitwise), with CUDA-event times of the kernel, the plain version and
    one PyTorch library call, and the least time the card could take for
-   the same work;
+   the same work; Winograd's classes are its input transform, its 16
+   products in one batched ``gemm`` (bf16 V against fp32 U, as the forced
+   path has it) and its output transform at 56²×64, 28²×128, 14²×256;
 3. a ``comparison`` line: the paper's algorithm comparison re-run on this
    card at its four ResNet layers (``PAPER_CONV_LAYERS``), fp32, with the
    folded-BN epilogue and ReLU: the device time of ilpm, direct and
    libdnn (one kernel each), im2col as its path runs it (unroll, gemm,
-   epilogue pass) and cuDNN, and the ratios to ilpm beside the paper's
-   figures, which are a mobile GPU's (Mali);
+   epilogue pass), winograd as its path runs it with U cached (input
+   transform, gemm, output transform; "n/a: odd H" at 7²) and cuDNN, and
+   the ratios to ilpm beside the paper's figures, which are a mobile
+   GPU's (Mali);
 4. engine phases, each on 4 numpy-seeded images through ``run`` and
    ``run_batch``, with the launch counters set to 0 just before and read
    just after: logits against the same engine and plan on the CPU,
@@ -39,10 +43,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    - ``InferenceEngine(get("resnet18"), algorithm=X)``, the reference's
      forced-algorithm entry point, on the tuned engine's weights, for X
      in direct (direct_conv 20), im2col (im2col_unroll 13, gemm 13,
-     ilpm_conv 7: the strided sites) and libdnn (libdnn_conv 13,
-     ilpm_conv 7); each also against the tuned engine's logits;
+     ilpm_conv 7: the strided sites), libdnn (libdnn_conv 13, ilpm_conv
+     7) and winograd (winograd_input_transform 10, gemm 10,
+     winograd_output_transform 10, ilpm_conv 10: the strided sites and
+     the odd 7² ones, U computed per call in fp32); each also against the
+     tuned engine's logits;
+   - ResNet-18 on the tuned plan with its blocks stripped and the 10
+     sites Winograd can run pinned to it (``resnet18/winograd_plan``: the
+     three Winograd kernels 10 each, ilpm_conv 7, pointwise_conv 3), with
+     the engine's U cache (10 entries), against the forced Winograd
+     engine's logits;
+   - the tuned ResNet-18 on int8 weights (``quant.quantize_params`` of
+     the tuned engine's, scales folded into the epilogue;
+     ``resnet18/int8``: 9 / 3 / 8 as the tuned path), with its top-1
+     agreement and max relative logit error against the fp32 engine;
 5. a ``kernels`` line with each kernel's launches, error and times summed
-   over one image of each path it runs on;
+   over one image of each path it runs on, and per path (``per_path``);
 6. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -92,6 +108,12 @@ KERNEL_INFO = {
     "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:32"),
     "libdnn_conv": ("src/repro_torch/csrc/libdnn_conv.cu",
                     "src/repro/kernels/libdnn_conv.py:43"),
+    "winograd_input_transform": (
+        "src/repro_torch/csrc/winograd_input_transform.cu",
+        "src/repro/kernels/winograd_conv.py:55"),
+    "winograd_output_transform": (
+        "src/repro_torch/csrc/winograd_output_transform.cu",
+        "src/repro/kernels/winograd_conv.py:97"),
 }
 # the plan algorithm each kernel serves
 KERNEL_OF = {"ilpm": "ilpm_conv", "pointwise": "pointwise_conv",
@@ -101,8 +123,13 @@ KERNEL_OF = {"ilpm": "ilpm_conv", "pointwise": "pointwise_conv",
 # the kernels a site forced onto an algorithm launches
 FORCED_KERNELS = {"ilpm": ("ilpm_conv",), "direct": ("direct_conv",),
                   "im2col": ("im2col_unroll", "gemm"),
-                  "libdnn": ("libdnn_conv",)}
-FORCED = ("direct", "im2col", "libdnn")
+                  "libdnn": ("libdnn_conv",),
+                  "winograd": ("winograd_input_transform", "gemm",
+                               "winograd_output_transform")}
+FORCED = ("direct", "im2col", "libdnn", "winograd")
+# Winograd's shape classes: ("winograd", H, C, K) of a 3x3/1 site
+WINOGRAD_CLASSES = {("winograd", 56, 64, 64), ("winograd", 28, 128, 128),
+                    ("winograd", 14, 256, 256)}
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -121,6 +148,14 @@ EXPECTED_PER_IMAGE = {
     "resnet18/im2col": {**NO_LAUNCHES, "im2col_unroll": 13, "gemm": 13,
                         "ilpm_conv": 7},
     "resnet18/libdnn": {**NO_LAUNCHES, "libdnn_conv": 13, "ilpm_conv": 7},
+    "resnet18/winograd": {**NO_LAUNCHES, "winograd_input_transform": 10,
+                          "gemm": 10, "winograd_output_transform": 10,
+                          "ilpm_conv": 10},
+    "resnet18/winograd_plan": {**NO_LAUNCHES, "winograd_input_transform": 10,
+                               "gemm": 10, "winograd_output_transform": 10,
+                               "ilpm_conv": 7, "pointwise_conv": 3},
+    "resnet18/int8": {**NO_LAUNCHES, "ilpm_conv": 9, "pointwise_conv": 3,
+                      "fused_residual_conv": 8},
 }
 
 
@@ -196,12 +231,53 @@ def strip_blocks(plan):
     return plan
 
 
+def routed(algorithm, spec):
+    """The algorithm the router runs at a site asked for ``algorithm``:
+    im2col, libdnn and winograd have no strided kernel, and Winograd
+    F(2,3) needs a 3x3 filter and an even output; those sites run ilpm."""
+    if spec.stride != 1 and algorithm in ("im2col", "libdnn", "winograd"):
+        return "ilpm"
+    if algorithm == "winograd" and (spec.r != 3 or spec.s != 3
+                                    or spec.h % 2 or spec.w % 2):
+        return "ilpm"
+    return algorithm
+
+
+def site_classes(algorithm, spec):
+    """(kernel, shape) of each launch at one site run by ``algorithm``."""
+    if algorithm == "winograd":
+        return [(kernel, ("winograd", spec.h, spec.c, spec.k))
+                for kernel in FORCED_KERNELS["winograd"]]
+    if algorithm == "depthwise":
+        return [(KERNEL_OF[algorithm], (spec.h, spec.c,
+                                        spec.channel_multiplier, spec.r,
+                                        spec.stride))]
+    shape = (spec.h, spec.c, spec.k, spec.r, spec.stride)
+    kernels = FORCED_KERNELS.get(algorithm) or (KERNEL_OF[algorithm],)
+    return [(kernel, shape) for kernel in kernels]
+
+
+def pin_winograd(plan, specs):
+    """``plan`` without its fused blocks, every site that Winograd can run
+    pinned to it."""
+    from repro_torch.core import Choice
+
+    plan = strip_blocks(plan)
+    for name, spec in specs:
+        if routed("winograd", spec) == "winograd":
+            ch = plan.choices[name]
+            plan.choices[name] = Choice("winograd", (), ch.est_time,
+                                        ch.est_bytes, ch.est_flops, ch.vmem)
+    return plan
+
+
 def shape_classes(plan):
     """Counter of (kernel, shape) -> launches per image, from a plan's
     sites; a fused block's sites run in its block. Shapes: (H, C, K, R,
     stride) for the dense and pointwise kernels, (H, C, M, R, stride) for
     depthwise, (H, Cin, mid, Cout, R, stride, residual) for the inverted
-    residual; H is the input size."""
+    residual, ("winograd", H, C, K) for Winograd's three kernels; H is the
+    input size."""
     classes = Counter()
     fused = set()
     for name, bspec in plan.block_specs.items():
@@ -218,30 +294,21 @@ def shape_classes(plan):
     for name, spec in plan.specs.items():
         if name in fused:
             continue
-        algo = plan.choices[name].algorithm
-        require(algo in KERNEL_OF, f"site {name} tuned to {algo}, which "
-                                   "the port does not run yet")
-        if algo == "depthwise":
-            shape = (spec.h, spec.c, spec.channel_multiplier, spec.r,
-                     spec.stride)
-        else:
-            shape = (spec.h, spec.c, spec.k, spec.r, spec.stride)
-        classes[(KERNEL_OF[algo], shape)] += 1
+        algo = routed(plan.choices[name].algorithm, spec)
+        require(algo in KERNEL_OF or algo == "winograd",
+                f"site {name} tuned to {algo}, which the smoke run does "
+                "not expect")
+        classes.update(site_classes(algo, spec))
     return classes
 
 
 def forced_classes(specs, algorithm):
     """Counter of (kernel, shape) -> launches per image of a network whose
-    every conv site is forced onto ``algorithm``: im2col and libdnn have no
-    strided kernel, so their strided sites run ilpm, as the router sends
-    them. Shapes as in ``shape_classes``."""
+    every conv site is forced onto ``algorithm``, each site run where the
+    router sends it (``routed``). Shapes as in ``shape_classes``."""
     classes = Counter()
     for _, spec in specs:
-        algo = algorithm if spec.stride == 1 or algorithm == "direct" \
-            else "ilpm"
-        for kernel in FORCED_KERNELS[algo]:
-            classes[(kernel, (spec.h, spec.c, spec.k, spec.r,
-                              spec.stride))] += 1
+        classes.update(site_classes(routed(algorithm, spec), spec))
     return classes
 
 
@@ -262,7 +329,8 @@ def kernel_setup(kernel, shape, dtype, gen):
     inputs the function must read, its operations and its shape line."""
     from repro_torch.kernels import (depthwise_conv, direct_conv, fused_block,
                                      gemm, ilpm_conv, im2col_conv,
-                                     libdnn_conv, pointwise_conv, ref)
+                                     libdnn_conv, pointwise_conv, ref,
+                                     winograd_conv)
 
     dev = "cuda"
 
@@ -276,6 +344,55 @@ def kernel_setup(kernel, shape, dtype, gen):
 
     def vec(v):  # an epilogue vector broadcast over an NCHW view
         return v.to(dtype).view(1, -1, 1, 1)
+
+    if shape[0] == "winograd":
+        _, H, C, K = shape
+        th, nt = H // 2, (H // 2) ** 2
+        line = {"shape": {"algorithm": "winograd", "H": H, "C": C, "K": K,
+                          "tiles": nt}}
+        if kernel == "winograd_input_transform":
+            xp = ref.pad_same(randn(1, H, H, C), 3, 3)
+            bt = ref._BT.to(dev, dtype)
+            Hp = H + 2
+
+            def library():  # the stride-2 4x4 windows, then Bᵀ d B
+                d = torch.as_strided(xp, (1, th, th, 4, 4, C),
+                                     (Hp * Hp * C, 2 * Hp * C, 2 * C,
+                                      Hp * C, C, 1))
+                return torch.einsum("ar,bijrsc,es->baeijc", bt, d, bt)
+            # add/sub: 4 x 4 on the rows, 4 x 4 on the columns
+            return dict(line, fn=winograd_conv.winograd_input_transform,
+                        plain=winograd_conv.plain_input_transform,
+                        args=(xp, H, H), kw={}, library=library,
+                        inputs=[xp], flops=32 * nt * C)
+        if kernel == "winograd_output_transform":
+            m = randn(1, 4, 4, nt, K, scale=3.0)
+            scale, bias = bn(K)
+            at = ref._AT.to(dev, dtype)
+            s_lib, b_lib = scale.to(dtype), bias.to(dtype)
+
+            def library():  # Aᵀ m A, the 2x2 scatter, the epilogue
+                y = torch.einsum("ar,brstk,es->btaek", at, m, at)
+                y = y.reshape(1, th, th, 2, 2, K).permute(0, 1, 3, 2, 4, 5)
+                return torch.relu(y.reshape(1, H, H, K) * s_lib + b_lib)
+            # 16 add/sub on the rows, 8 on the columns, a multiply-add
+            # and the activation on each of the 4 outputs
+            return dict(line, fn=winograd_conv.winograd_output_transform,
+                        plain=winograd_conv.plain_output_transform,
+                        args=(m, H, H),
+                        kw=dict(scale=scale, bias=bias, act="relu"),
+                        library=library, inputs=[m, scale, bias],
+                        flops=36 * nt * K)
+        # the 16 products of one image: V (16, nt, C) against fp32 U
+        a = randn(16, nt, C)
+        b = (torch.randn(16, C, K, device=dev, generator=gen)
+             * C ** -0.5)
+        b_lib = b.to(dtype)
+        line["shape"].update(M=nt, Kc=C, N=K, batch=16,
+                             b_dtype="float32")
+        return dict(line, fn=gemm.gemm, plain=gemm.plain, args=(a, b),
+                    kw={}, library=lambda: torch.bmm(a, b_lib),
+                    inputs=[a, b], flops=2 * 16 * nt * C * K)
 
     if kernel == "fused_inverted_residual":
         H, Cin, mid, Cout, R, stride, residual = shape
@@ -445,16 +562,22 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
     return line
 
 
+ODD_H = "n/a: odd H"
+
+
 def comparison(peaks):
     """The paper's algorithm comparison on this card: each
     ``PAPER_CONV_LAYERS`` shape in fp32 with the folded-BN epilogue and
     ReLU, the device time of every contender and its ratio to ilpm. Each
     contender's output is held against ilpm's within tolerance("float32"),
-    as they sum in other orders."""
+    as they sum in other orders. Winograd runs its three kernels with U
+    cached (the paper's §5.2 setting) where H is even; the sums over the
+    layers are taken over the three even layers for every contender
+    (``sum_even_ms``) and over all four for the rest (``sum_ms``)."""
     from repro_torch.configs.resnet import PAPER_CONV_LAYERS
     from repro_torch.core.dtypes import tolerance
     from repro_torch.kernels import (direct_conv, ilpm_conv, im2col_conv,
-                                     libdnn_conv, ref)
+                                     libdnn_conv, ref, winograd_conv)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     layers = []
@@ -477,6 +600,10 @@ def comparison(peaks):
             "cudnn": lambda: torch.relu(F.conv2d(x_lib, w_lib) * s_lib
                                         + b_lib).permute(0, 2, 3, 1),
         }
+        if H % 2 == 0:
+            u = ref.winograd_filter_transform(w)
+            runs["winograd"] = lambda: winograd_conv.winograd_conv(
+                xp, w, u=u, **ep)
         base = runs["ilpm"]()
         errs = {}
         for algo, fn in runs.items():
@@ -489,20 +616,30 @@ def comparison(peaks):
         ms = {algo: time_ms(fn) for algo, fn in runs.items()}
         flops = 2 * H * H * R * R * C * K
         nbytes = 4 * (xp.numel() + w.numel() + 2 * K + base.numel())
+        over = {a: t / ms["ilpm"] for a, t in ms.items() if a != "ilpm"}
+        if "winograd" not in runs:
+            ms["winograd"] = over["winograd"] = errs["winograd"] = ODD_H
         layers.append({
             "layer": layer.name, "H": H, "C": C, "K": K, "R": R,
-            "ms": ms, "max_rel_err_vs_ilpm": errs,
-            "over_ilpm": {a: t / ms["ilpm"] for a, t in ms.items()
-                          if a != "ilpm"},
+            "ms": ms, "max_rel_err_vs_ilpm": errs, "over_ilpm": over,
             "bound_ms": max(flops / peaks["float32"],
                             nbytes / peaks["mem_bw"]) * 1e3})
-    total = {algo: sum(r["ms"][algo] for r in layers)
-             for algo in layers[0]["ms"]}
+    algos = list(layers[0]["ms"])
+    even = [r for r in layers if r["H"] % 2 == 0]
+    total = {a: sum(r["ms"][a] for r in layers) for a in algos
+             if a != "winograd"}
+    total["winograd"] = ODD_H
+    total_even = {a: sum(r["ms"][a] for r in even) for a in algos}
     return {"phase": "comparison", "dtype": "float32",
             "epilogue": "folded BN + relu", "layers": layers,
             "sum_ms": total,
             "sum_over_ilpm": {a: t / total["ilpm"] for a, t in total.items()
-                              if a != "ilpm"},
+                              if a not in ("ilpm", "winograd")},
+            "even_layers": [r["layer"] for r in even],
+            "sum_even_ms": total_even,
+            "sum_even_over_ilpm": {a: t / total_even["ilpm"]
+                                   for a, t in total_even.items()
+                                   if a != "ilpm"},
             "paper_speedup_of_ilpm_mobile_gpu_mali": PAPER_SPEEDUP}
 
 
@@ -532,11 +669,18 @@ def perturb_bn(params, seed):
     return draw(params)
 
 
-def engine_phase(path, engine, images, counters):
+def rel_err(y, ref):
+    """max|y - ref| / max|ref|."""
+    return ((y - ref).abs().max() / ref.abs().max()).item()
+
+
+def engine_phase(path, engine, images, counters, results):
     """Drive one engine on ``images`` through ``run`` and ``run_batch``
     with the launch counters set to 0 just before; check the launches
     per image, the logits against the same engine and plan on the CPU,
-    and ``run_batch`` against ``run``. Returns (line, logits)."""
+    and ``run_batch`` against ``run``. The line also carries the device
+    time of one image's launches as the kernel phase measured them (fp32
+    class times, ``results``). Returns (line, logits)."""
     from repro_torch.core import InferenceEngine
 
     cfg = engine.cfg
@@ -585,7 +729,10 @@ def engine_phase(path, engine, images, counters):
             "launches": launches, "launches_per_image": per_image,
             "max_rel_err_vs_cpu": engine_rel, "bound": ENGINE_REL_BOUND,
             "run_batch_bitwise_equal_run": bitwise,
-            "ms_per_image_median": statistics.median(times)}, singles
+            "ms_per_image_median": statistics.median(times),
+            "kernel_ms_per_image_from_classes": sum(
+                r["kernel_ms"] * r["launches_per_image"].get(path, 0)
+                for r in results if r["dtype"] == "float32")}, singles
 
 
 def main() -> None:
@@ -601,9 +748,11 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import (depthwise_conv, direct_conv, fused_block,
                                      gemm, ilpm_conv, im2col_conv,
-                                     libdnn_conv, pointwise_conv)
+                                     libdnn_conv, pointwise_conv,
+                                     winograd_conv)
     from repro_torch.models import mobilenet, resnet
     from repro_torch.models.spec import init_params
+    from repro_torch.quant import quantize_params
 
     # fp32 means IEEE fp32 in every reference and library call
     torch.backends.cudnn.allow_tf32 = False
@@ -623,14 +772,17 @@ def main() -> None:
           "nvcc": nvcc_version, "build_s": build_s,
           "library": str(lib_path.relative_to(ROOT))})
 
-    # ---- the three main paths' plans -----------------------------------
+    # ---- the plans of the planned paths ---------------------------------
     rcfg, mcfg = get("resnet18"), get("mobilenet_v2")
     rplan = autotune.build_plan(resnet.conv_specs(rcfg), epilogue=True,
                                 block_specs=resnet.block_specs(rcfg))
     mplan = autotune.build_plan(mobilenet.conv_specs(mcfg), epilogue=True,
                                 block_specs=mobilenet.block_specs(mcfg))
     plans = {"resnet18": rplan, "mobilenet_v2": mplan,
-             "mobilenet_v2/per_layer": strip_blocks(mplan)}
+             "mobilenet_v2/per_layer": strip_blocks(mplan),
+             "resnet18/winograd_plan": pin_winograd(
+                 rplan, resnet.conv_specs(rcfg)),
+             "resnet18/int8": rplan}
 
     # ---- kernel phase --------------------------------------------------
     per_path = {}  # (kernel, shape) -> {path: launches per image}
@@ -644,17 +796,26 @@ def main() -> None:
     paper = {(layer.h, layer.c_in, layer.c_out, layer.r, layer.stride)
              for layer in PAPER_CONV_LAYERS}
     for kernel in ("im2col_unroll", "gemm", "libdnn_conv"):
-        shapes = {shape for k, shape in per_path if k == kernel}
+        shapes = {shape for k, shape in per_path
+                  if k == kernel and shape[0] != "winograd"}
         require(shapes == paper, f"{kernel} classes {sorted(shapes)} are "
                                  "not the paper's four layers")
+    for kernel in FORCED_KERNELS["winograd"]:
+        shapes = {shape for k, shape in per_path
+                  if k == kernel and shape[0] == "winograd"}
+        require(shapes == WINOGRAD_CLASSES, f"{kernel} classes "
+                f"{sorted(shapes)} are not ResNet-18's even 3x3/1 layers")
     # no launch on the main paths: the 1x1 fused block of a ResNet-50
     # stage-0 bottleneck, and a depthwise conv with channel multiplier 2
     per_path.setdefault(("fused_residual_conv", (56, 64, 256, 1, 1)), {})
     per_path.setdefault(("depthwise_conv", (14, 32, 2, 3, 2)), {})
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
-    for (kernel, shape), paths in sorted(per_path.items(),
-                                         key=lambda kv: repr(kv[0])):
+    # Winograd's classes last, so the earlier classes draw the inputs
+    # they drew before them
+    for (kernel, shape), paths in sorted(
+            per_path.items(),
+            key=lambda kv: (kv[0][1][0] == "winograd", repr(kv[0]))):
         for dtype in (torch.float32, torch.bfloat16):
             line = kernel_case(kernel, shape, dtype, gen, peaks)
             line["launches_per_image"] = dict(paths)
@@ -674,29 +835,62 @@ def main() -> None:
                     fused_block.fused_inverted_residual,
                 "direct_conv": direct_conv.direct_conv,
                 "im2col_unroll": im2col_conv.im2col_unroll,
-                "gemm": gemm.gemm, "libdnn_conv": libdnn_conv.libdnn_conv}
+                "gemm": gemm.gemm, "libdnn_conv": libdnn_conv.libdnn_conv,
+                "winograd_input_transform":
+                    winograd_conv.winograd_input_transform,
+                "winograd_output_transform":
+                    winograd_conv.winograd_output_transform}
     require(set(counters) == set(KERNEL_INFO), "a kernel has no counter")
     images = np.random.default_rng(0).standard_normal(
         (ENGINE_IMAGES, 224, 224, 3)).astype(np.float32)
     launches = {}
-    line, tuned_logits = engine_phase(
-        "resnet18", InferenceEngine(rcfg, seed=0), images, counters)
+    tuned_engine = InferenceEngine(rcfg, seed=0)
+    require(tuned_engine.plan.to_json() == rplan.to_json(), "resnet18: plan")
+    line, tuned_logits = engine_phase("resnet18", tuned_engine, images,
+                                      counters, results)
     launches["resnet18"] = line["launches"]
     emit(line)
     # the reference's forced-algorithm entry point, on the same weights
+    forced = {}
     for algorithm in FORCED:
         path = f"resnet18/{algorithm}"
-        line, forced_logits = engine_phase(
+        line, forced[algorithm] = engine_phase(
             path, InferenceEngine(rcfg, seed=0, algorithm=algorithm),
-            images, counters)
-        line["vs_tuned_max_rel_err"] = (
-            (forced_logits - tuned_logits).abs().max()
-            / tuned_logits.abs().max()).item()
+            images, counters, results)
+        line["vs_tuned_max_rel_err"] = rel_err(forced[algorithm],
+                                               tuned_logits)
         require(line["vs_tuned_max_rel_err"] <= ENGINE_REL_BOUND,
                 f"{path} vs tuned logits on the card: "
                 f"{line['vs_tuned_max_rel_err']}")
         launches[path] = line["launches"]
         emit(line)
+    # Winograd on a plan: the engine's U cache, one U per pinned site
+    path = "resnet18/winograd_plan"
+    engine = InferenceEngine(rcfg, seed=0, plan=plans[path])
+    require(len(engine.winograd_u) == 10, f"{path}: "
+            f"{len(engine.winograd_u)} cached filter transforms, want 10")
+    line, logits = engine_phase(path, engine, images, counters, results)
+    line["winograd_u_sites"] = len(engine.winograd_u)
+    line["vs_forced_winograd_max_rel_err"] = rel_err(logits,
+                                                     forced["winograd"])
+    require(line["vs_forced_winograd_max_rel_err"] <= ENGINE_REL_BOUND,
+            f"{path} vs the forced Winograd engine on the card: "
+            f"{line['vs_forced_winograd_max_rel_err']}")
+    launches[path] = line["launches"]
+    emit(line)
+    # the tuned path on int8 weights, the scales folded into the epilogue
+    path = "resnet18/int8"
+    qparams, report = quantize_params(tuned_engine.params)
+    require(len(report) == 20, f"{path}: {len(report)} quantized sites")
+    line, logits = engine_phase(
+        path, InferenceEngine(rcfg, params=qparams, plan=plans[path]),
+        images, counters, results)
+    line["quantized_sites"] = len(report)
+    line["vs_fp32_max_rel_err"] = rel_err(logits, tuned_logits)
+    line["vs_fp32_top1_agreement"] = (
+        logits.argmax(-1) == tuned_logits.argmax(-1)).float().mean().item()
+    launches[path] = line["launches"]
+    emit(line)
     mparams = perturb_bn(init_params(mobilenet.model_specs(mcfg), 0,
                                      mcfg.param_dtype), seed=0)
     tuned = InferenceEngine(mcfg, params=mparams)
@@ -707,7 +901,8 @@ def main() -> None:
             ("mobilenet_v2/per_layer",
              InferenceEngine(mcfg, params=mparams,
                              plan=plans["mobilenet_v2/per_layer"]))):
-        line, logits[path] = engine_phase(path, engine, images, counters)
+        line, logits[path] = engine_phase(path, engine, images, counters,
+                                          results)
         launches[path] = line["launches"]
         if path == "mobilenet_v2/per_layer":
             a, b = logits["mobilenet_v2"], logits[path]
@@ -725,9 +920,10 @@ def main() -> None:
         rows = [r for r in results if r["kernel"] == name]
         fp32 = [r for r in rows if r["dtype"] == "float32"]
 
-        def per_image_sum(key, rows=fp32):
+        def per_image_sum(key, rows=fp32, path=None):
             return sum(r[key] * n for r in rows
-                       for n in r["launches_per_image"].values())
+                       for p, n in r["launches_per_image"].items()
+                       if path in (None, p))
         t_ops = per_image_sum("flops") / peaks["float32"]
         t_bytes = per_image_sum("bytes") / peaks["mem_bw"]
         by_path = {path: n[name] for path, n in launches.items() if n[name]}
@@ -742,7 +938,11 @@ def main() -> None:
             "plain_ms": per_image_sum("plain_ms"),
             "bound_ms": per_image_sum("bound_ms"),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": per_image_sum("library_ms")})
+            "library_ms": per_image_sum("library_ms"),
+            "per_path": {path: {
+                key: per_image_sum(key, path=path)
+                for key in ("kernel_ms", "bound_ms", "plain_ms",
+                            "library_ms")} for path in by_path}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -3,15 +3,16 @@
 
 ``conv2d(x, w, algorithm=...)`` routes one conv site: 'ilpm', 'direct',
 'im2col' (unroll and gemm kernels, then the epilogue pass), 'libdnn',
+'winograd' (input transform, gemm and output transform kernels),
 'pointwise' and 'depthwise' run their CUDA kernels; 'auto' asks the
 autotuner; an explicit ``choice`` (a plan's ``Choice``) pins the
 algorithm. 'xla' keeps the reference's name so plan JSON stays
 compatible: it is the escape hatch, ``ref.conv2d_reference`` plus
 ``ref.apply_epilogue``. As in the reference, strided sites forced onto
 im2col/libdnn/winograd fall back to ilpm, an inapplicable winograd site
-does too, and a grouped conv that is not depthwise takes the escape
-hatch; winograd, whose kernels are not ported yet, raises
-``NotImplementedError`` from ``ops.dispatch``.
+(not 3x3, or an odd output size) does too, and a grouped conv that is not
+depthwise takes the escape hatch. ``u=`` carries a Winograd site's cached
+filter transform and reaches the kernel only where Winograd runs.
 
 The optional fused epilogue (``scale``/``bias``/``act``) rides into the
 kernel's output write. Layouts: NHWC images, HWIO filters.
@@ -39,7 +40,7 @@ def _escape_hatch(x, w, stride, padding, groups, ep):
 
 
 def conv2d(x, w, *, stride=1, padding="SAME", algorithm="auto", impl="auto",
-           choice=None, scale=None, bias=None, act=None):
+           choice=None, scale=None, bias=None, act=None, u=None):
     """x: (B,H,W,C) NHWC; w: (R,S,C/groups,K) HWIO -> (B,H',W',K)."""
     R, S, Cg, K = w.shape
     C = x.shape[-1]
@@ -103,6 +104,8 @@ def conv2d(x, w, *, stride=1, padding="SAME", algorithm="auto", impl="auto",
         H, W = xp.shape[1] - R + 1, xp.shape[2] - S + 1
         if (R, S) != (3, 3) or H % 2 or W % 2:
             algorithm = "ilpm"  # winograd F(2,3) inapplicable
+        elif u is not None:
+            params["u"] = u
     return ops.dispatch(algorithm, xp, w, impl=impl, stride=stride,
                         **ep, **params)
 

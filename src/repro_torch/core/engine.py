@@ -10,6 +10,11 @@ The paper's tune-once/run-many flow:
      the JSON is the reference package's, so a plan tuned by either
      package deploys on the other.
 
+Weights are frozen at inference, so each Winograd site's filter transform
+U = G g Gᵀ is computed once per build (``winograd_u``) and every forward
+reuses it; a forced engine has no plan and computes U per call, in fp32,
+as the reference does.
+
 The engine runs on the card unless the caller passes ``device="cpu"``,
 where every kernel site runs its plain PyTorch version.
 """
@@ -24,6 +29,7 @@ from torch import nn
 from repro_torch.core import autotune
 from repro_torch.core.autotune import TuningPlan
 from repro_torch.core.convspec import ConvSpec
+from repro_torch.kernels import ref
 
 log = logging.getLogger(__name__)
 
@@ -88,6 +94,7 @@ class InferenceEngine:
             plan = self.tune(mode=tune_mode)
         self.plan = plan
         self.reports = self._reports_from_plan(plan) if plan else []
+        self.winograd_u = self._winograd_cache(plan) if plan else {}
         # per-conv choices plus the block-fusion decisions; `<block>.block`
         # keys are disjoint from conv-site keys
         self._choices = {**plan.choices, **plan.block_choices} \
@@ -108,6 +115,25 @@ class InferenceEngine:
         return autotune.build_plan(self._conv_specs(), mode=mode,
                                    epilogue=True,
                                    block_specs=self._block_specs())
+
+    def _winograd_cache(self, plan: TuningPlan) -> dict:
+        """U = G g Gᵀ for each plan site whose choice is winograd, on the
+        engine's device, cast to ``w.dtype`` (the transform computes in
+        fp32) so U streams at the engine's element width."""
+        cache = {}
+        with torch.no_grad():
+            for name, ch in plan.choices.items():
+                if ch.algorithm != "winograd":
+                    continue
+                node = self.params
+                try:
+                    for part in name.split("."):
+                        node = node[part]
+                    w = node["w"]
+                except (KeyError, TypeError):
+                    continue  # plan site not in this param tree: skip
+                cache[name] = ref.winograd_filter_transform(w).to(w.dtype)
+        return cache
 
     def _validate_plan(self, plan: TuningPlan) -> None:
         """A deployed plan must match this network's conv geometry and
@@ -156,7 +182,8 @@ class InferenceEngine:
         with torch.inference_mode():
             return self._model.forward(self.params, self.cfg, x[None],
                                        algorithm=self.algorithm,
-                                       plan=self._choices)[0]
+                                       plan=self._choices,
+                                       winograd_u=self.winograd_u)[0]
 
     def run_batch(self, images):
         """images: (B, H, W, 3) -> logits (B, classes). Each element runs

@@ -9,7 +9,8 @@ A kernel that fails to build or launch raises; nothing falls back.
 
 Every conv wrapper takes optional ``scale``/``bias`` ((K,) folded-BN
 vectors) and ``act`` ('relu' | 'relu6' | None), applied in the kernel's
-output write (im2col applies it as a separate pass after its GEMM). The
+output write (im2col applies it as a separate pass after its GEMM).
+``winograd`` also takes ``u``, the cached filter transform. The
 TPU tile sizes a plan carries (``block_k``, ``block_h``, ``block_c``,
 ``block_m``) are not in any signature, so ``kernel_params`` drops them:
 the Hopper kernels choose their own tiles.
@@ -27,6 +28,7 @@ from repro_torch.kernels import im2col_conv as _im
 from repro_torch.kernels import libdnn_conv as _lib
 from repro_torch.kernels import pointwise_conv as _pw
 from repro_torch.kernels import ref
+from repro_torch.kernels import winograd_conv as _wg
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -70,9 +72,20 @@ def libdnn(x_padded, w, *, impl="auto", scale=None, bias=None, act=None):
     return fn(x_padded, w, scale=scale, bias=bias, act=act)
 
 
+def winograd(x_padded, w, *, impl="auto", u=None, scale=None, bias=None,
+             act=None):
+    """Winograd F(2x2,3x3), stride 1, even H and W: the input-transform
+    kernel, the 16 products in one ``gemm`` launch, the output-transform
+    kernel with the epilogue. ``u`` is the cached filter transform
+    U = G g Gᵀ (4,4,C,K); without it U is computed per call."""
+    fn = _wg.winograd_conv if _use_kernel(impl, x_padded) \
+        else ref.winograd_conv
+    return fn(x_padded, w, u=u, scale=scale, bias=bias, act=act)
+
+
 def gemm(a, b, *, impl="auto"):
-    """a (M, Kc) or (batch, M, Kc) @ b (Kc, N), fp32 accumulation, in
-    ``a.dtype``."""
+    """a (M, Kc) or (batch, M, Kc) @ b (Kc, N) or (batch_b, Kc, N), fp32
+    accumulation, in ``a.dtype``."""
     fn = _gm.gemm if _use_kernel(impl, a) else ref.gemm
     return fn(a, b)
 
@@ -114,27 +127,17 @@ def fused_residual_conv(x_padded, weights, *, impl="auto", res, act="relu"):
 
 
 ALGORITHMS = {"ilpm": ilpm, "direct": direct, "im2col": im2col,
-              "libdnn": libdnn, "pointwise": pointwise,
-              "depthwise": depthwise}
+              "libdnn": libdnn, "winograd": winograd,
+              "pointwise": pointwise, "depthwise": depthwise}
 
 BLOCK_ALGORITHMS = {"fused_inverted_residual": fused_inverted_residual,
                     "fused_residual_conv": fused_residual_conv}
-
-# algorithms of the JAX package whose kernels are not ported yet, with the
-# ROADMAP item that ports them
-NOT_PORTED = {
-    "winograd": "ROADMAP queue 2 rows 10 and 11 (winograd slice)",
-}
 
 
 def _lookup(table, algorithm):
     """Look ``algorithm`` up at call time, so tests can replace entries."""
     if algorithm in table:
         return table[algorithm]
-    if algorithm in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} is not ported yet: "
-            f"{NOT_PORTED[algorithm]}")
     raise KeyError(f"unknown algorithm {algorithm!r}")
 
 

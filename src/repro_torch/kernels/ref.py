@@ -8,12 +8,16 @@ and one cast on the write, as the kernels' output writes do (the JAX
 package's ``ops.<algo>(impl='jnp')`` casts the conv output before its
 unfused epilogue, which differs only in the low-precision dtypes). im2col
 is the exception by its own contract: its GEMM writes the compute dtype
-and the epilogue is a separate pass, so it rounds twice. They are what a
-CPU tensor runs and what the CUDA kernels are held against on the card.
+and the epilogue is a separate pass, so it rounds twice; Winograd writes
+its transformed input and its 16 products in the compute dtype, as the
+Pallas composition does. They are what a CPU tensor runs and what the
+CUDA kernels are held against on the card.
 
 Layouts: activations NHWC, filters HWIO (R, S, C, K).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -133,7 +137,13 @@ def im2col_unroll(x_padded, r, s):
 
 def gemm(a, b):
     """a (..., M, Kc) @ b (Kc, N), accumulated in fp32, cast to
-    ``a.dtype``."""
+    ``a.dtype``. A batched ``b`` (batch_b, Kc, N) pairs with a
+    (batch, M, Kc) whose element z reads ``b[z % batch_b]``; ``b`` may be
+    fp32 under a low-precision ``a``."""
+    if b.dim() == 3:
+        batch, M, Kc = a.shape
+        out = a.float().reshape(-1, b.shape[0], M, Kc) @ b.float()
+        return out.reshape(batch, M, -1).to(a.dtype)
     return (a.float() @ b.float()).to(a.dtype)
 
 
@@ -152,6 +162,99 @@ def libdnn_conv(x_padded, w, *, scale=None, bias=None, act=None):
     fused epilogue and one cast."""
     acc = _patch_product(x_padded, w, 1)
     return _epilogue(acc, scale, bias, act).to(x_padded.dtype)
+
+
+# Winograd F(2x2, 3x3): V = Bᵀ d B over stride-2 4x4 windows, 16 products
+# M = V U against U = G g Gᵀ, Y = Aᵀ M A scattered as 2x2 output tiles.
+
+_BT = torch.tensor([[1, 0, -1, 0],
+                    [0, 1, 1, 0],
+                    [0, -1, 1, 0],
+                    [0, 1, 0, -1]], dtype=torch.float32)
+_G = torch.tensor([[1, 0, 0],
+                   [0.5, 0.5, 0.5],
+                   [0.5, -0.5, 0.5],
+                   [0, 0, 1]], dtype=torch.float32)
+_AT = torch.tensor([[1, 1, 1, 0],
+                    [0, 1, -1, -1]], dtype=torch.float32)
+
+
+def _bt_combine(d0, d1, d2, d3):
+    """One axis of Bᵀ d B: add/sub only, in this order."""
+    return [d0 - d2, d1 + d2, d2 - d1, d1 - d3]
+
+
+def _at_combine(m0, m1, m2, m3):
+    """One axis of Aᵀ m A: add/sub only, left to right."""
+    return [m0 + m1 + m2, m1 - m2 - m3]
+
+
+@functools.lru_cache(maxsize=None)
+def _g_on(device):
+    return _G.to(device)
+
+
+def winograd_filter_transform(w):
+    """(3,3,C,K) -> U (4,4,C,K), computed in fp32 and returned in fp32
+    (the JAX package's einsum against fp32 G promotes a bf16 ``w``)."""
+    g = _g_on(w.device)
+    return torch.einsum("ar,rsck,bs->abck", g, w.float(), g)
+
+
+def winograd_input_transform(x_padded, H, W):
+    """x_padded (B, H+2, W+2, C) -> V (B, 4, 4, nt, C) with nt =
+    (H/2)(W/2) tiles, row-major over (tile row, tile column): Bᵀ d B of
+    each stride-2 4x4 window, rows then columns, in fp32, cast once to
+    ``x_padded.dtype``."""
+    B, C = x_padded.shape[0], x_padded.shape[-1]
+    th, tw = H // 2, W // 2
+    # (B, th, tw, C, r, s): window (i, j) is x_padded[:, 2i+r, 2j+s]
+    d = x_padded.float().unfold(1, 4, 2).unfold(2, 4, 2)
+    rows = _bt_combine(*(d[..., r, :] for r in range(4)))
+    v = torch.stack([torch.stack(_bt_combine(*(t[..., s] for s in range(4))))
+                     for t in rows])  # (4, 4, B, th, tw, C)
+    return v.permute(2, 0, 1, 3, 4, 5).reshape(B, 4, 4, th * tw, C).to(
+        x_padded.dtype)
+
+
+def winograd_output_transform(m, H, W, *, scale=None, bias=None, act=None):
+    """m (B, 4, 4, nt, K), read as fp32 -> (B, H, W, K) in ``m.dtype``:
+    Aᵀ m A per tile, rows then columns, the epilogue on the fp32 result
+    and one cast; tile t = i*(W/2) + j writes the 2x2 block at (2i, 2j)."""
+    B, K = m.shape[0], m.shape[-1]
+    th, tw = H // 2, W // 2
+    mf = m.float()
+    rows = _at_combine(*(mf[:, i] for i in range(4)))  # 2 x (B, 4, nt, K)
+    y = torch.stack([torch.stack(_at_combine(*(t[:, j] for j in range(4))))
+                     for t in rows])  # (2a, 2b, B, nt, K)
+    y = y.permute(2, 3, 0, 1, 4).reshape(B, th, tw, 2, 2, K)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, K)
+    return _epilogue(y, scale, bias, act).to(m.dtype)
+
+
+def winograd_conv(x_padded, w, *, u=None, scale=None, bias=None, act=None):
+    """F(2x2,3x3) on x_padded (B, H+2, W+2, C), w (3,3,C,K), even H and
+    W -> (B, H, W, K), at the cast points of the JAX package's Pallas
+    composition: V in the input dtype, the 16 products accumulated in
+    fp32 and written in V's dtype, the output transform reading M as fp32
+    with the epilogue fused and one cast. (Its jnp path casts M, then
+    applies the epilogue as a second pass: the difference shows only in
+    the low-precision dtypes.) ``u`` is the cached U; without it U is
+    computed here, in fp32."""
+    R, S, C, K = w.shape
+    if (R, S) != (3, 3):
+        raise ValueError(f"winograd F(2,3) is 3x3-only, got {R}x{S}")
+    B, Hp, Wp, _ = x_padded.shape
+    H, W = Hp - 2, Wp - 2
+    if H % 2 or W % 2 or H < 2 or W < 2:
+        raise ValueError(f"winograd F(2,3) needs even output dims, got "
+                         f"{H}x{W}")
+    if u is None:
+        u = winograd_filter_transform(w)
+    v = winograd_input_transform(x_padded, H, W)
+    m = gemm(v.reshape(B * 16, -1, C), u.reshape(16, C, K))
+    return winograd_output_transform(m.reshape(B, 4, 4, -1, K), H, W,
+                                     scale=scale, bias=bias, act=act)
 
 
 def pointwise_conv(x, w, *, stride=1, scale=None, bias=None, act=None):

@@ -102,22 +102,24 @@ def block_specs(cfg):
 
 
 def forward(params, cfg, images, *, algorithm="auto", plan=None,
-            impl="auto"):
+            impl="auto", winograd_u=None):
     """images: (B,H,W,3) NHWC -> logits (B, classes); an unbatched
     (H,W,3) image maps to (classes,). ``plan`` maps site names to
     ``Choice``s, overriding ``algorithm`` where present; a
     ``<block>.block`` entry runs the block as one fused dispatch.
     Activations are ReLU6 in each conv's epilogue; projections are
     linear, and a block with ``stride == 1 and cin == cout`` adds its
-    input in the compute dtype."""
+    input in the compute dtype. ``winograd_u`` maps site names to cached
+    Winograd filter transforms; the stem is the only 3x3 dense site."""
     single = images.dim() == 3
     if single:
         images = images[None]
     images = images.to(torch_dtype(cfg.dtype)).contiguous()
     plan = plan or {}
     conv = resnet._conv
+    wu = winograd_u or {}
     x = conv(params["stem"], images, 2, algorithm, choice=plan.get("stem"),
-             act="relu6", impl=impl)
+             act="relu6", impl=impl, u=wu.get("stem"))
     for name, cin, mid, cout, stride in _blocks(cfg):
         p = params[name]
         residual = stride == 1 and cin == cout

@@ -128,13 +128,15 @@ def block_specs(cfg):
     return specs
 
 
-def _conv(p, x, stride, algorithm, choice=None, act=None, impl="auto"):
+def _conv(p, x, stride, algorithm, choice=None, act=None, impl="auto",
+          u=None):
     return algorithms.conv2d(x, p["w"], stride=stride, algorithm=algorithm,
                              choice=choice, scale=p["scale"],
-                             bias=p["bias"], act=act, impl=impl)
+                             bias=p["bias"], act=act, impl=impl, u=u)
 
 
-def _block(p, x, bottleneck, stride, algorithm, name, plan, impl):
+def _block(p, x, bottleneck, stride, algorithm, name, plan, impl, wu):
+    """``wu`` maps site names to cached Winograd filter transforms."""
     idn = x
     if "proj" in p:
         idn = _conv(p["proj"], x, stride, algorithm,
@@ -144,16 +146,19 @@ def _block(p, x, bottleneck, stride, algorithm, name, plan, impl):
         h = _conv(p["c1"], x, 1, algorithm, choice=plan.get(f"{name}.c1"),
                   act="relu", impl=impl)
         h = _conv(p["c2"], h, stride, algorithm,
-                  choice=plan.get(f"{name}.c2"), act="relu", impl=impl)
+                  choice=plan.get(f"{name}.c2"), act="relu", impl=impl,
+                  u=wu.get(f"{name}.c2"))
         last, site = p["c3"], f"{name}.c3"
     else:
         h = _conv(p["c1"], x, stride, algorithm,
-                  choice=plan.get(f"{name}.c1"), act="relu", impl=impl)
+                  choice=plan.get(f"{name}.c1"), act="relu", impl=impl,
+                  u=wu.get(f"{name}.c1"))
         last, site = p["c2"], f"{name}.c2"
     if bch is not None:
         return algorithms.block_residual_conv(h, last, bch, res=idn,
                                               impl=impl)
-    h = _conv(last, h, 1, algorithm, choice=plan.get(site), impl=impl)
+    h = _conv(last, h, 1, algorithm, choice=plan.get(site), impl=impl,
+              u=wu.get(site))
     return torch.clamp_min(h + idn, 0)
 
 
@@ -167,24 +172,27 @@ def max_pool_same(x):
 
 
 def forward(params, cfg, images, *, algorithm="ilpm", plan=None,
-            impl="auto"):
+            impl="auto", winograd_u=None):
     """images: (B,H,W,3) NHWC -> logits (B, classes); an unbatched
     (H,W,3) image maps to (classes,). ``params`` is a nested dict of
     tensors; ``plan`` maps site names to ``Choice``s (``<block>.block``
-    entries fuse a block), overriding ``algorithm`` where present."""
+    entries fuse a block), overriding ``algorithm`` where present;
+    ``winograd_u`` maps site names to cached filter transforms
+    U = G g Gᵀ (the engine computes them once per build)."""
     single = images.dim() == 3
     if single:
         images = images[None]
     images = images.to(torch_dtype(cfg.dtype)).contiguous()
     plan = plan or {}
+    wu = winograd_u or {}
     bottleneck = cfg.extra["bottleneck"]
     x = _conv(params["stem"], images, 2, algorithm, choice=plan.get("stem"),
-              act="relu", impl=impl)
+              act="relu", impl=impl, u=wu.get("stem"))
     x = max_pool_same(x)
     for si, bi, stride in _stage_blocks(cfg):
         name = f"s{si}b{bi}"
         x = _block(params[name], x, bottleneck, stride, algorithm, name,
-                   plan, impl)
+                   plan, impl, wu)
     x = x.mean(dim=(1, 2))
     logits = x @ params["fc"]["w"] + params["fc"]["b"]
     return logits[0] if single else logits

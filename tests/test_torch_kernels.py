@@ -294,12 +294,14 @@ def test_conv2d_falls_back_to_ilpm(algorithm, stride, h):
                                       algorithm="ilpm"))
 
 
-@pytest.mark.parametrize("algorithm", ["winograd"])
-def test_unported_algorithms_raise(algorithm):
+@pytest.mark.parametrize("algorithm", ["nope", "Winograd"])
+def test_unknown_algorithm_raises_key_error(algorithm):
     x = torch.from_numpy(_data(19, 1, 8, 8, 4))
     w = torch.from_numpy(_data(20, 3, 3, 4, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="unknown algorithm"):
         talg.conv2d(x, w, algorithm=algorithm)
+    with pytest.raises(KeyError, match="unknown algorithm"):
+        ops.kernel_params(algorithm, {})
 
 
 @pytest.mark.parametrize("stride", [1, 2])
