@@ -57,9 +57,28 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      the tuned engine's, scales folded into the epilogue;
      ``resnet18/int8``: 9 / 3 / 8 as the tuned path), with its top-1
      agreement and max relative logit error against the fp32 engine;
-5. a ``kernels`` line with each kernel's launches, error and times summed
-   over one image of each path it runs on, and per path (``per_path``);
-6. the card's name and power limit as ``nvidia-smi`` gives them, then
+5. the Mamba-2 LM path (``repro_torch.launch.serve.generate``: one
+   prefill, then greedy decode steps) on ``mamba2-370m`` at full width (48
+   layers, random weights from seed 0):
+   - ``causal_conv1d``, the kernel of its prefill, at the model's shapes
+     (the xBC slice of the in-projection, read in place: rows 4384
+     elements apart, C = 2304, K = 4) of both paths below and at the edge
+     lengths L = 1, 2, 3, 513, in fp32 and bf16, against its plain version
+     within ``tolerance(dtype)``, with the same times as the kernel phase
+     and ``F.conv1d(groups=C)`` as the library call;
+   - ``mamba2_370m``, serving at the published dtype (bf16): batch 4,
+     prompt 1024 (4 SSD chunks), 32 new tokens; exactly 48
+     ``causal_conv1d`` launches in the prefill and none in the decode
+     steps; prefill ms, decode ms per token, tokens/s, a profile of one
+     prefill and one decode step, and the prefill logits against the same
+     model with the conv's plain version (``impl="torch"``) on the card;
+   - ``mamba2_370m/fp32``: batch 1, prompt 300 (across a chunk boundary),
+     8 greedy decode steps; the logits of the prefill and of every step
+     against the port on the CPU fed the same tokens;
+6. a ``kernels`` line with each kernel's launches, error and times summed
+   over one image (one prefill for ``causal_conv1d``) of each path it runs
+   on, and per path (``per_path``);
+7. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises: the script exits non-zero and never prints the
@@ -114,6 +133,8 @@ KERNEL_INFO = {
     "winograd_output_transform": (
         "src/repro_torch/csrc/winograd_output_transform.cu",
         "src/repro/kernels/winograd_conv.py:97"),
+    "causal_conv1d": ("src/repro_torch/csrc/causal_conv1d.cu",
+                      "src/repro/kernels/causal_conv1d.py:34"),
 }
 # the plan algorithm each kernel serves
 KERNEL_OF = {"ilpm": "ilpm_conv", "pointwise": "pointwise_conv",
@@ -157,6 +178,15 @@ EXPECTED_PER_IMAGE = {
     "resnet18/int8": {**NO_LAUNCHES, "ilpm_conv": 9, "pointwise_conv": 3,
                       "fused_residual_conv": 8},
 }
+
+
+# The Mamba-2 LM paths and their compute dtypes; causal_conv1d launches
+# once per layer in a prefill and never in a decode step.
+LM_CONFIG = "mamba2-370m"
+LM_PATHS = {"mamba2_370m": "bfloat16", "mamba2_370m/fp32": "float32"}
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
+PARITY_PROMPT, PARITY_STEPS = 300, 8
+EDGE_LENGTHS = (1, 2, 3, 513)
 
 
 class CheckFailed(RuntimeError):
@@ -327,16 +357,34 @@ def kernel_setup(kernel, shape, dtype, gen):
     """The call of one shape class: the wrapper, its plain version, their
     arguments, a PyTorch library call computing the same function, the
     inputs the function must read, its operations and its shape line."""
-    from repro_torch.kernels import (depthwise_conv, direct_conv, fused_block,
-                                     gemm, ilpm_conv, im2col_conv,
-                                     libdnn_conv, pointwise_conv, ref,
-                                     winograd_conv)
+    from repro_torch.kernels import (causal_conv1d, depthwise_conv,
+                                     direct_conv, fused_block, gemm,
+                                     ilpm_conv, im2col_conv, libdnn_conv,
+                                     pointwise_conv, ref, winograd_conv)
 
     dev = "cuda"
 
     def randn(*dims, scale=1.0):
         return (torch.randn(*dims, device=dev, generator=gen) * scale).to(
             dtype)
+
+    if kernel == "causal_conv1d":
+        B, L, C, K, row, lo = shape
+        # the xBC slice of a wider in-projection output, as the model
+        # passes it: rows `row` elements apart
+        x = randn(B, L, row)[..., lo:lo + C]
+        w = randn(K, C, scale=K ** -0.5)
+        b = randn(C, scale=0.1)
+        w_lib = w.t()[:, None]
+
+        def library():
+            return F.conv1d(x.transpose(1, 2), w_lib, b, padding=K - 1,
+                            groups=C)[..., :L]
+        # K multiplies and K adds (the bias's included) per output
+        return dict(fn=causal_conv1d.causal_conv1d, plain=causal_conv1d.plain,
+                    args=(x, w, b), kw={}, library=library,
+                    inputs=[x, w, b], flops=2 * K * B * L * C,
+                    shape={"B": B, "L": L, "C": C, "K": K, "row_stride": row})
 
     def bn(n):  # folded BN: non-zero scale and bias
         return (torch.rand(n, device=dev, generator=gen) + 0.5,
@@ -735,6 +783,266 @@ def engine_phase(path, engine, images, counters, results):
                 for r in results if r["dtype"] == "float32")}, singles
 
 
+def conv1d_classes(cfg):
+    """causal_conv1d's shape classes, (B, L, C, K, row stride, channel
+    offset) -> {path: launches per prefill}: the prefill of each LM path
+    (one launch a layer, on the xBC slice of the in-projection) and the
+    edge lengths at the same width, which no path launches."""
+    from repro_torch.models import ssm
+
+    d_inner, G, N, P, H, Hg, conv_ch = ssm._dims(cfg)
+    row = 2 * d_inner + 2 * G * N + H  # the in-projection's width
+    K, layers = cfg.ssm_conv_k, cfg.num_layers
+    classes = {
+        (SERVE_BATCH, SERVE_PROMPT, conv_ch, K, row, d_inner):
+            {"mamba2_370m": layers},
+        (1, PARITY_PROMPT, conv_ch, K, row, d_inner):
+            {"mamba2_370m/fp32": layers}}
+    for L in EDGE_LENGTHS:
+        classes.setdefault((1, L, conv_ch, K, row, d_inner), {})
+    return classes
+
+
+def zero_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def vocab_logits(logits, cfg):
+    """The logits of the real vocab in fp32 (the padding is masked)."""
+    return logits[..., :cfg.vocab_size].float()
+
+
+def host_ms(fn):
+    """Host-clock ms of one ``fn()`` that ends in a synchronize; returns
+    (ms, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def device_profile(fn, top=8):
+    """One ``fn()`` under torch.profiler: its host-clock ms, the device's
+    busy ms (the sum of its kernels' and copies' times), the idle share
+    of the call (profiler on, so an upper bound) and the ``top`` kernels
+    by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = host_ms(fn)
+    ms, calls = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms[e.name] += e.time_range.elapsed_us() / 1e3
+            calls[e.name] += 1
+    busy = sum(ms.values())
+    return {"wall_ms_profiled": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall if ms else "not measured",
+            "device_launches": sum(calls.values()),
+            "top": [{"name": name[:100], "ms": t, "launches": calls[name]}
+                    for name, t in ms.most_common(top)]}
+
+
+def serve_phase(cfg, params, counters):
+    """``generate`` on mamba2-370m at bf16: batch 4, prompt 1024, 32 new
+    tokens, greedy. The counters are set to 0 before a prefill-only run
+    (max_new=1) and before the full run, and read after each: both must
+    show one causal_conv1d launch per layer, so the 31 decode steps
+    launch none. Then the timings, a profile, and the prefill logits
+    against the conv's plain version on the card."""
+    import numpy as np
+
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.launch import serve, steps
+
+    path = "mamba2_370m"
+    expected = {**NO_LAUNCHES, "causal_conv1d": cfg.num_layers}
+    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+
+    def run(max_new):
+        return serve.generate(cfg, params, prompts, max_new=max_new,
+                              cache_len=S + max_new)
+    zero_counts(counters)
+    first = run(1)
+    torch.cuda.synchronize()
+    prefill_launches = read_counts(counters)
+    zero_counts(counters)
+    tokens = run(new)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    require(prefill_launches == expected,
+            f"{path}: prefill launches {prefill_launches}, want {expected}")
+    require(launches == expected, f"{path}: launches over the prefill and "
+            f"{new - 1} decode steps {launches}, want {expected}")
+    require(tuple(tokens.shape) == (B, new) and tokens.dtype == torch.int32
+            and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+            f"{path}: bad tokens {tuple(tokens.shape)} {tokens.dtype}")
+    require(torch.equal(tokens[:, :1], first), f"{path}: first token "
+            "differs between max_new=1 and max_new=32")
+    generate_ms = [host_ms(lambda: run(new))[0] for _ in range(3)]
+    with torch.inference_mode():
+        prefill_ms = []
+        for _ in range(3):
+            t, (logits, caches) = host_ms(lambda: steps.prefill_step(
+                params, cfg, prompts, cache_len=S + new))
+            prefill_ms.append(t)
+        tok = vocab_logits(logits[:, -1], cfg).argmax(-1)[:, None]
+        decode_ms = []
+        for i in range(new - 1):
+            t, (step_logits, caches) = host_ms(
+                lambda: steps.decode_step(params, cfg, tok, caches, S + i))
+            decode_ms.append(t)
+            tok = vocab_logits(step_logits[:, -1], cfg).argmax(-1)[:, None]
+        profiles = {
+            "prefill": device_profile(lambda: steps.prefill_step(
+                params, cfg, prompts, cache_len=S + new)),
+            "decode_step": device_profile(lambda: steps.decode_step(
+                params, cfg, tok, caches, S + new - 1))}
+        plain, _ = steps.prefill_step(params, cfg, prompts, impl="torch")
+    kernel_logits = vocab_logits(logits, cfg)
+    require(bool(torch.isfinite(kernel_logits).all()),
+            f"{path}: non-finite prefill logits")
+    rel = rel_err(kernel_logits, vocab_logits(plain, cfg))
+    require(rel <= tolerance("bfloat16"), f"{path}: prefill logits with the "
+            f"kernel vs the plain conv on the card: {rel}")
+    total_ms = statistics.median(generate_ms)
+    return {"phase": "lm", "path": path, "config": cfg.name,
+            "entry": "repro_torch.launch.serve.generate", "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "batch": B, "prompt": S, "new_tokens": new,
+            "greedy": True, "launches": launches,
+            "launches_prefill": prefill_launches,
+            "launches_per_decode_step": {
+                k: (launches[k] - prefill_launches[k]) / (new - 1)
+                for k in launches},
+            "prefill_ms_median": statistics.median(prefill_ms),
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_token_median": statistics.median(decode_ms),
+            "decode_ms_per_token_mean": statistics.mean(decode_ms),
+            "generate_ms_median": total_ms, "generate_ms": generate_ms,
+            "tokens_per_s": B * new / total_ms * 1e3,
+            "prefill_tokens_per_s": B * S / statistics.median(prefill_ms)
+            * 1e3,
+            "vs_plain_conv_max_rel_err": rel,
+            "vs_plain_conv_bitwise_equal": torch.equal(
+                kernel_logits, vocab_logits(plain, cfg)),
+            "tol": tolerance("bfloat16"), "profile": profiles,
+            "sample_tokens": tokens[0, :8].tolist()}
+
+
+def parity_phase(cfg, params, counters):
+    """mamba2-370m in fp32 at full width: batch 1, prompt 300, 8 greedy
+    decode steps on the card, the counters set to 0 before and read after;
+    the logits of the prefill and of every step against the port on the
+    CPU fed the same tokens, within ENGINE_REL_BOUND; ``generate`` on the
+    card gives the same tokens."""
+    import numpy as np
+
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.spec import flatten, unflatten
+
+    path = "mamba2_370m/fp32"
+    cfg = cfg.replace(dtype="float32")
+    expected = {**NO_LAUNCHES, "causal_conv1d": cfg.num_layers}
+    S = PARITY_PROMPT
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, S)))
+    card, fed, step_ms = [], [], []
+    zero_counts(counters)
+    with torch.inference_mode():
+        t, (logits, caches) = host_ms(lambda: steps.prefill_step(
+            params, cfg, prompts.cuda(), cache_len=S + PARITY_STEPS))
+        step_ms.append(t)
+        card.append(logits)
+        for i in range(PARITY_STEPS):
+            fed.append(vocab_logits(logits[:, -1], cfg).argmax(-1)[:, None])
+            t, (logits, caches) = host_ms(lambda: steps.decode_step(
+                params, cfg, fed[-1], caches, S + i))
+            step_ms.append(t)
+            card.append(logits)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    require(launches == expected, f"{path}: launches {launches}, want "
+            f"{expected}")
+    greedy = torch.cat(
+        fed + [vocab_logits(logits[:, -1], cfg).argmax(-1)[:, None]], dim=1)
+    tokens = serve.generate(cfg, params, prompts.cuda(),
+                            max_new=PARITY_STEPS + 1,
+                            cache_len=S + PARITY_STEPS + 1)
+    require(torch.equal(tokens.long(), greedy),
+            f"{path}: generate's tokens differ from the steps' greedy ones")
+    cpu_params = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, caches = steps.prefill_step(cpu_params, cfg, prompts,
+                                            cache_len=S + PARITY_STEPS)
+        cpu = [logits]
+        for i, tok in enumerate(fed):
+            logits, caches = steps.decode_step(cpu_params, cfg, tok.cpu(),
+                                               caches, S + i)
+            cpu.append(logits)
+    cpu_s = time.perf_counter() - t0
+    errs = [rel_err(vocab_logits(a.cpu(), cfg), vocab_logits(b, cfg))
+            for a, b in zip(card, cpu)]
+    require(all(bool(torch.isfinite(vocab_logits(a, cfg)).all())
+                for a in card), f"{path}: non-finite logits")
+    require(max(errs) <= ENGINE_REL_BOUND, f"{path}: card vs cpu logits "
+            f"{errs} > {ENGINE_REL_BOUND}")
+    return {"phase": "lm", "path": path, "config": cfg.name,
+            "entry": "repro_torch.launch.steps prefill_step / decode_step, "
+                     "and serve.generate", "dtype": cfg.dtype,
+            "layers": cfg.num_layers, "batch": 1, "prompt": S,
+            "decode_steps": PARITY_STEPS, "launches": launches,
+            "max_rel_err_vs_cpu": max(errs),
+            "rel_err_vs_cpu_per_step": errs, "bound": ENGINE_REL_BOUND,
+            "prefill_ms": step_ms[0],
+            "decode_ms_per_token_median": statistics.median(step_ms[1:]),
+            "cpu_s": cpu_s, "tokens": greedy[0].tolist()}
+
+
+def conv1d_summary(rows, launches, peaks):
+    """The ``kernels`` entry of causal_conv1d: each LM path's class in the
+    path's dtype times its launches per prefill, summed over the paths
+    and per path; ``launches`` counts the paths' main-path runs."""
+    source, replaces = KERNEL_INFO["causal_conv1d"]
+
+    def per_prefill_sum(key, path=None):
+        return sum(r[key] * n for r in rows
+                   for p, n in r["launches_per_prefill"].items()
+                   if r["dtype"] == LM_PATHS[p] and path in (None, p))
+    t_ops = sum(r["flops"] * n / peaks[r["dtype"]] for r in rows
+                for p, n in r["launches_per_prefill"].items()
+                if r["dtype"] == LM_PATHS[p])
+    t_bytes = per_prefill_sum("bytes") / peaks["mem_bw"]
+    return {
+        "name": "causal_conv1d", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(n["causal_conv1d"] for n in launches.values()),
+        "launches_per_prefill": {
+            path: n["causal_conv1d"] for path, n in launches.items()},
+        "parity": "ok", "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_prefill_sum("kernel_ms"),
+        "plain_ms": per_prefill_sum("plain_ms"),
+        "bound_ms": per_prefill_sum("bound_ms"),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": per_prefill_sum("library_ms"),
+        "per_path": {path: {
+            key: per_prefill_sum(key, path=path)
+            for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms")}
+            for path in launches}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -746,17 +1054,20 @@ def main() -> None:
     from repro_torch.configs.resnet import PAPER_CONV_LAYERS
     from repro_torch.core import InferenceEngine, autotune
     from repro_torch.kernels import _build
-    from repro_torch.kernels import (depthwise_conv, direct_conv, fused_block,
-                                     gemm, ilpm_conv, im2col_conv,
-                                     libdnn_conv, pointwise_conv,
-                                     winograd_conv)
+    from repro_torch.kernels import (causal_conv1d, depthwise_conv,
+                                     direct_conv, fused_block, gemm,
+                                     ilpm_conv, im2col_conv, libdnn_conv,
+                                     pointwise_conv, winograd_conv)
+    from repro_torch.launch import steps
     from repro_torch.models import mobilenet, resnet
     from repro_torch.models.spec import init_params
     from repro_torch.quant import quantize_params
 
-    # fp32 means IEEE fp32 in every reference and library call
+    # fp32 means IEEE fp32 in every reference and library call, and a
+    # bf16 matrix product accumulates in fp32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
@@ -839,7 +1150,8 @@ def main() -> None:
                 "winograd_input_transform":
                     winograd_conv.winograd_input_transform,
                 "winograd_output_transform":
-                    winograd_conv.winograd_output_transform}
+                    winograd_conv.winograd_output_transform,
+                "causal_conv1d": causal_conv1d.causal_conv1d}
     require(set(counters) == set(KERNEL_INFO), "a kernel has no counter")
     images = np.random.default_rng(0).standard_normal(
         (ENGINE_IMAGES, 224, 224, 3)).astype(np.float32)
@@ -914,9 +1226,34 @@ def main() -> None:
                     f"{line['vs_tuned_max_rel_err']}")
         emit(line)
 
-    # ---- summary: each kernel over one image of each path (fp32) -------
+    # ---- the Mamba-2 LM path: its kernel, serving, fp32 parity ---------
+    lcfg = get(LM_CONFIG)
+    conv_gen = torch.Generator(device="cuda").manual_seed(2)
+    conv_results = []
+    for shape, paths in conv1d_classes(lcfg).items():
+        for dtype in (torch.float32, torch.bfloat16):
+            line = kernel_case("causal_conv1d", shape, dtype, conv_gen, peaks)
+            line["launches_per_prefill"] = dict(paths)
+            emit(line)
+            conv_results.append(line)
+    bad = [(r["dtype"], r["shape"]) for r in conv_results
+           if not r["max_rel_err"] <= r["tol"]]
+    require(not bad, f"causal_conv1d disagrees with its plain version: {bad}")
+    lparams = steps.init_state(lcfg, 0, "cuda")["params"]
+    lm_launches = {}
+    for line in (serve_phase(lcfg, lparams, counters),
+                 parity_phase(lcfg, lparams, counters)):
+        lm_launches[line["path"]] = line["launches"]
+        emit(line)
+    del lparams
+
+    # ---- summary: each kernel over one image of each path (fp32), and
+    # causal_conv1d over one prefill of each LM path in its dtype ---------
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
+        if name == "causal_conv1d":
+            kernels.append(conv1d_summary(conv_results, lm_launches, peaks))
+            continue
         rows = [r for r in results if r["kernel"] == name]
         fp32 = [r for r in rows if r["dtype"] == "float32"]
 

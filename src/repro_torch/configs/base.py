@@ -1,8 +1,11 @@
-"""Architecture configs: the CNN subset of ``repro/configs/base.py``.
+"""Architecture configs: the CNN and LM-trunk subset of
+``repro/configs/base.py``.
 
-Only the fields a CNN reads are here; the LM configs come with their
-slice. Field names and defaults match the reference so a config names the
-same network in both packages.
+The fields a CNN reads, and those the decoder-only LM path (embeddings,
+norms, layer planning, Mamba-2) reads, under the reference's names and
+defaults, so a config names the same network in both packages. The
+attention, MoE and encoder-decoder hyperparameters that only later
+slices read are not here yet.
 """
 from __future__ import annotations
 
@@ -14,16 +17,73 @@ from typing import Any
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # cnn (the LM families come with a later slice)
+    family: str  # dense | moe | ssm | hybrid | vlm | audio | cnn
+
+    # --- transformer trunk ---
     num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
     vocab_size: int = 0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    pos_emb: str = "rope"  # rope | learned | none
+
+    # --- attention ---
+    attn_impl: str = "gqa"  # gqa | mla | none
+    attn_chunk: int = 2048  # kv/q chunk for online-softmax attention
+
+    # --- MoE (the layer plan reads these) ---
+    num_experts: int = 0
+    moe_layer_period: int = 1  # MoE every k-th layer
+    moe_layer_offset: int = 0
+    first_dense_layers: int = 0
+
+    # --- SSM (Mamba-2 / SSD) ---
+    ssm_state: int = 0
+    ssm_conv_k: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_ngroups: int = 1
+    ssd_chunk: int = 256
+
+    # --- hybrid interleave (Jamba) ---
+    attn_layer_period: int = 0  # 1 attention layer per this many layers
+    attn_layer_offset: int = 0
+
+    # --- encoder/decoder and modality frontend ---
+    is_encoder_decoder: bool = False
+    frontend: str = "none"  # none | vit_stub | audio_stub
+
+    # --- numerics / policy ---
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"  # stored dtype
+    remat: str = "full"  # none | full
+    param_sharding: str = "fsdp"  # fsdp | tp | replicated
+    supports_500k: bool = False  # sub-quadratic decode path exists
     use_ilpm_conv: bool = False  # paper technique applies to this arch
+
     extra: dict[str, Any] = field(default_factory=dict)
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_head_dim else 0
+
+    def num_params(self) -> int:
+        """Parameter count from the spec tree."""
+        from repro_torch.models import registry
+
+        return registry.count_params(self)
 
 
 _REGISTRY: dict[str, ArchConfig] = {}
@@ -42,4 +102,3 @@ def get(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
-

@@ -24,6 +24,7 @@ MOBILENET_V2 = register(ArchConfig(
     num_layers=53,
     vocab_size=1000,  # ImageNet classes
     use_ilpm_conv=True,
+    param_sharding="replicated",
     dtype="float32",
     extra={"arch": "mobilenet", "img": 224, "stem": 32, "head": 1280,
            "settings": MOBILENET_V2_SETTINGS},

@@ -34,6 +34,7 @@ RESNET18 = register(ArchConfig(
     num_layers=18,
     vocab_size=1000,  # ImageNet classes
     use_ilpm_conv=True,
+    param_sharding="replicated",
     dtype="float32",
     extra={"blocks": (2, 2, 2, 2), "bottleneck": False, "img": 224},
 ))
@@ -44,6 +45,7 @@ RESNET50 = register(ArchConfig(
     num_layers=50,
     vocab_size=1000,
     use_ilpm_conv=True,
+    param_sharding="replicated",
     dtype="float32",
     extra={"blocks": (3, 4, 6, 3), "bottleneck": True, "img": 224},
 ))

@@ -32,7 +32,7 @@ LIB_NAME = "libilpm_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every exported entry point: dtype code, pointers, ints, stream
 SIGNATURES = {
     "ilpm_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
@@ -46,6 +46,8 @@ SIGNATURES = {
     "gemm_launch": [_I] * 2 + [_P] * 3 + [_I] * 5 + [_P],
     "winograd_input_transform_launch": [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "winograd_output_transform_launch": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "causal_conv1d_launch": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I]
+    + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

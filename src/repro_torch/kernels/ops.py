@@ -13,12 +13,14 @@ output write (im2col applies it as a separate pass after its GEMM).
 ``winograd`` also takes ``u``, the cached filter transform. The
 TPU tile sizes a plan carries (``block_k``, ``block_h``, ``block_c``,
 ``block_m``) are not in any signature, so ``kernel_params`` drops them:
-the Hopper kernels choose their own tiles.
+the Hopper kernels choose their own tiles. ``causal_conv1d``, the Mamba
+conv stem, takes ``block_l`` and drops it for the same reason.
 """
 from __future__ import annotations
 
 import inspect
 
+from repro_torch.kernels import causal_conv1d as _cc
 from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import direct_conv as _dc
 from repro_torch.kernels import fused_block as _fb
@@ -124,6 +126,16 @@ def fused_residual_conv(x_padded, weights, *, impl="auto", res, act="relu"):
     fn = _fb.fused_residual_conv if _use_kernel(impl, x_padded) \
         else ref.fused_residual_conv
     return fn(x_padded, weights, res=res, act=act)
+
+
+def causal_conv1d(x, w, b=None, *, impl="auto", block_l=None):
+    """Depthwise causal 1-D conv (the Mamba stem): x (B, L, C), w (K, C),
+    b (C,) or None -> (B, L, C). ``x`` may be a view with strided rows.
+    ``block_l``, the TPU kernel's sequence tile, is accepted and
+    dropped."""
+    del block_l
+    fn = _cc.causal_conv1d if _use_kernel(impl, x) else ref.causal_conv1d
+    return fn(x, w, b)
 
 
 ALGORITHMS = {"ilpm": ilpm, "direct": direct, "im2col": im2col,

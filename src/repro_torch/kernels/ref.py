@@ -13,7 +13,8 @@ its transformed input and its 16 products in the compute dtype, as the
 Pallas composition does. They are what a CPU tensor runs and what the
 CUDA kernels are held against on the card.
 
-Layouts: activations NHWC, filters HWIO (R, S, C, K).
+Layouts: activations NHWC, filters HWIO (R, S, C, K); the causal 1-D
+conv of the Mamba stem takes (B, L, C) and (K, C).
 """
 from __future__ import annotations
 
@@ -317,3 +318,20 @@ def fused_inverted_residual(x, weights, *, stride=1, residual=False,
     h = pointwise_conv(h, weights["w2"], scale=weights.get("s2"),
                        bias=weights.get("b2"), act=out_act)
     return h + x if residual else h
+
+
+def causal_conv1d(x, w, b=None):
+    """Depthwise causal 1-D conv: x (B, L, C), w (K, C), b (C,) or None
+    -> (B, L, C) in ``x.dtype``. Output t sums ``x[t-K+1+j] * w[j]`` over
+    the K taps in order, zeros before t = 0, as separate fp32 multiplies
+    and adds, then the bias, then one cast. Any L, and ``x`` may be a view
+    whose rows are strided (the slice of the in-projection)."""
+    k, L = w.shape[0], x.shape[1]
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(k):
+        shift = k - 1 - j
+        xs = F.pad(x, (0, 0, shift, 0))[:, :L]
+        acc = acc + xs.float() * w[j].float()
+    if b is not None:
+        acc = acc + b.float()
+    return acc.to(x.dtype)

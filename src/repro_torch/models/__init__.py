@@ -1,1 +1,1 @@
-"""Model definitions (the CNN family)."""
+"""Model definitions: the CNN families and the decoder-only LM."""

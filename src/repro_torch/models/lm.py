@@ -1,0 +1,250 @@
+"""Decoder-only LM assembly (``repro/models/lm.py``): layer planning,
+segments of stacked layers, caches, forward and decode.
+
+A config's layers are planned as (mixer, ffn) pairs, then grouped into
+repeating segments whose parameters are stacked along a leading layer
+axis. The reference scans a segment with ``jax.lax.scan``; here a Python
+loop over the layer index runs it, and the per-layer caches are stacked
+back along the same axis. This slice runs the Mamba mixer with no ffn
+(the ssm family); attention (gqa, mla) and the dense and MoE ffns come
+with later slices.
+
+``LM`` is the network as an ``nn.Module``: its ``state_dict()`` keys are
+the reference's parameter paths (``embed.table``,
+``seg0.sub0.mamba.in_proj`` with its stacked (layers, ...) shape,
+``ln_f.w``), so ``convert.params_from_reference`` carries the weights
+across unchanged.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.dtypes import torch_dtype
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models.module import SpecNetwork
+from repro_torch.models.spec import stack_tree
+
+Plan = tuple  # (mixer, ffn)
+
+LATER = "(ROADMAP queue 1: the rest of the LM substrate)"
+
+
+def _not_ported(what):
+    return NotImplementedError(f"{what} comes with a later slice {LATER}")
+
+
+# ----------------------------------------------------------------------
+# layer planning
+
+
+def layer_plan(cfg) -> list[Plan]:
+    plans = []
+    for i in range(cfg.num_layers):
+        if cfg.family == "ssm":
+            mixer = "mamba"
+        elif cfg.family == "hybrid":
+            mixer = ("gqa" if cfg.attn_layer_period and
+                     i % cfg.attn_layer_period == cfg.attn_layer_offset
+                     else "mamba")
+        else:
+            mixer = cfg.attn_impl
+        if cfg.family == "ssm":
+            ffn = "none"
+        elif (cfg.num_experts and i >= cfg.first_dense_layers
+              and i % cfg.moe_layer_period == cfg.moe_layer_offset):
+            ffn = "moe"
+        elif cfg.d_ff:
+            ffn = "dense"
+        else:
+            ffn = "none"
+        plans.append((mixer, ffn))
+    return plans
+
+
+def segments(cfg) -> list[tuple[tuple[Plan, ...], int]]:
+    """Group the layer plan into (period_body, repeat_count) segments."""
+    plans = layer_plan(cfg)
+    pre = cfg.first_dense_layers
+    out = [((p,), 1) for p in plans[:pre]]
+    body = plans[pre:]
+    if not body:
+        return out
+    m = len(body)
+    for p in range(1, m + 1):
+        if m % p == 0 and all(body[i] == body[i % p] for i in range(m)):
+            out.append((tuple(body[:p]), m // p))
+            return out
+    out.append((tuple(body), 1))
+    return out
+
+
+# ----------------------------------------------------------------------
+# per-layer block
+
+
+def _check_plan(plan: Plan) -> None:
+    mixer, ffn_kind = plan
+    if mixer != "mamba":
+        raise _not_ported(f"the {mixer!r} mixer")
+    if ffn_kind != "none":
+        raise _not_ported(f"the {ffn_kind!r} ffn")
+
+
+def block_specs(cfg, plan: Plan):
+    _check_plan(plan)
+    return {"ln1": L.norm_spec(cfg.d_model), "mamba": S.mamba_specs(cfg)}
+
+
+def cache_spec(cfg, plan: Plan, batch: int, max_seq: int):
+    """Decode-cache entry for one layer: {name: (shape, dtype, axes)}.
+    A Mamba layer's cache does not grow with ``max_seq``."""
+    _check_plan(plan)
+    dt = torch_dtype(cfg.dtype)
+    d_inner, G, N, P, H, Hg, conv_ch = S._dims(cfg)
+    return {"conv": ((batch, cfg.ssm_conv_k - 1, conv_ch), dt,
+                     ("batch", None, "ssm_inner")),
+            "state": ((batch, G, Hg, P, N), dt,
+                      ("batch", None, "ssm_heads", None, None))}
+
+
+def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
+                impl="auto"):
+    """One layer. mode: train | prefill | decode. Returns (x, cache, aux)."""
+    _check_plan(plan)
+    h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        out, new_cache = S.mamba_decode(p["mamba"], cfg, h, cache, pos)
+    else:
+        out, new_cache = S.mamba_forward(p["mamba"], cfg, h,
+                                         want_cache=(mode == "prefill"),
+                                         impl=impl)
+    return x + out, new_cache, torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+
+# ----------------------------------------------------------------------
+# model-level specs and forward
+
+
+def model_specs(cfg):
+    sp = {"embed": L.embed_specs(cfg), "ln_f": L.norm_spec(cfg.d_model)}
+    for si, (body, n) in enumerate(segments(cfg)):
+        subs = {f"sub{j}": block_specs(cfg, pl) for j, pl in enumerate(body)}
+        sp[f"seg{si}"] = stack_tree(subs, n) if n > 1 else subs
+    return sp
+
+
+def cache_struct(cfg, batch: int, max_seq: int):
+    """Decode cache for the whole model, segment-structured, as
+    {name: (shape, dtype, axes)} leaves; a segment of n > 1 layers stacks
+    its entries along a leading layer axis."""
+    out = {}
+    for si, (body, n) in enumerate(segments(cfg)):
+        subs = {}
+        for j, pl in enumerate(body):
+            entry = cache_spec(cfg, pl, batch, max_seq)
+            if n > 1:
+                entry = {k: ((n, *shp), dt, ("layer", *ax))
+                         for k, (shp, dt, ax) in entry.items()}
+            subs[f"sub{j}"] = entry
+        out[f"seg{si}"] = subs
+    return out
+
+
+def _index(tree, i):
+    """Layer ``i`` of a tree of stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees):
+    """The per-layer trees stacked along a new leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _run_segment(p_seg, cfg, body, n, x, positions, *, mode, caches, pos,
+                 impl):
+    """Run one segment: a loop over its n layers when n > 1. ``caches``
+    holds the per-sub trees, stacked when n > 1."""
+    def one_period(x, p_period, cache_period):
+        new_caches = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, pl in enumerate(body):
+            c_in = cache_period.get(f"sub{j}") if cache_period else None
+            x, c_new, a = apply_block(p_period[f"sub{j}"], cfg, pl, x,
+                                      positions, mode=mode, cache=c_in,
+                                      pos=pos, impl=impl)
+            if c_new is not None:
+                new_caches[f"sub{j}"] = c_new
+            aux = aux + a
+        return x, new_caches, aux
+
+    if n == 1:
+        return one_period(x, p_seg, caches)
+    per_layer, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        x, c_new, a = one_period(x, _index(p_seg, i),
+                                 _index(caches, i) if caches else None)
+        per_layer.append(c_new)
+        aux = aux + a
+    return x, (_stack(per_layer) if per_layer[0] else {}), aux
+
+
+def forward(params, cfg, tokens, *, mode="train", prefix_embeds=None, pos=0,
+            caches=None, cache_len=0, impl="auto"):
+    """tokens: (B, S_text). prefix_embeds: (B, S_px, E) frontend output.
+
+    mode=train   -> (logits (B,S,V), None, aux)
+    mode=prefill -> (last-position logits (B,1,V), caches, aux)
+    mode=decode  -> (logits (B,1,V), caches, aux); tokens (B,1)
+
+    V is the padded vocab, its padding columns masked. ``cache_len`` is
+    the length an attention layer's prefill cache is padded to; Mamba
+    caches have a fixed size and ignore it. ``impl`` is the causal
+    conv's (``ops.causal_conv1d``)."""
+    del cache_len
+    x = L.embed(params["embed"], cfg, tokens,
+                positions=_positions(tokens, pos)
+                if cfg.pos_emb == "learned" else None)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    positions = _positions(x, pos)
+
+    new_caches = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, (body, n) in enumerate(segments(cfg)):
+        seg_caches = caches.get(f"seg{si}") if caches else None
+        x, c_new, a = _run_segment(params[f"seg{si}"], cfg, body, n, x,
+                                   positions, mode=mode, caches=seg_caches,
+                                   pos=pos, impl=impl)
+        if c_new:
+            new_caches[f"seg{si}"] = c_new
+        aux = aux + a
+
+    x = L.apply_norm(params["ln_f"], x, cfg.norm_eps)
+    if mode == "prefill":
+        x = x[:, -1:]
+    logits = L.unembed(params["embed"], cfg, x)
+    return logits, (new_caches or None), aux
+
+
+def _positions(x, pos):
+    B, S_ = x.shape[:2]
+    return pos + torch.arange(S_, dtype=torch.int64,
+                              device=x.device)[None].expand(B, S_)
+
+
+def decode_step(params, cfg, tokens, caches, pos, *, impl="auto"):
+    """One decode step: tokens (B,1), pos: the step's position."""
+    return forward(params, cfg, tokens, mode="decode", pos=pos,
+                   caches=caches, impl=impl)
+
+
+class LM(SpecNetwork):
+    """The LM as a module; ``forward(tokens, **kw)`` is ``lm.forward``."""
+    model_specs = staticmethod(model_specs)
+    forward_fn = staticmethod(forward)

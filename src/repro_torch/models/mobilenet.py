@@ -13,7 +13,7 @@ entry runs the whole block, identity add included, as one
 Config ``extra`` keys: ``settings``, MobileNetV2's (t, c, n, s) rows
 (expansion, output channels, repeats, first-block stride); ``stem`` and
 ``head`` widths; ``img``, the input size; ``arch: "mobilenet"`` routes the
-engine here. ``MobileNetV2`` is the family's ``models.module.CNN``.
+engine here. ``MobileNetV2`` is the family's ``models.module.SpecNetwork``.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.core import algorithms
 from repro_torch.core.convspec import ConvSpec, FusedBlockSpec
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import resnet
-from repro_torch.models.module import CNN
+from repro_torch.models.module import SpecNetwork
 from repro_torch.models.spec import ParamSpec
 
 
@@ -144,7 +144,7 @@ def forward(params, cfg, images, *, algorithm="auto", plan=None,
     return logits[0] if single else logits
 
 
-class MobileNetV2(CNN):
+class MobileNetV2(SpecNetwork):
     model_specs = staticmethod(model_specs)
     forward_fn = staticmethod(forward)
 

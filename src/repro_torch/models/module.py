@@ -1,9 +1,10 @@
-"""The ``nn.Module`` every CNN family's network is.
+"""The ``nn.Module`` every network of the port is.
 
 Its parameters mirror the family's spec tree, so ``state_dict()`` keys are
 the JAX parameter paths joined with '.' (``stem.w``, ``s1b0.dw.scale``,
-``fc.b``) and plan keys and parameters map one to one. A family subclasses
-``CNN`` and names its ``model_specs`` and ``forward``.
+``seg0.sub0.mamba.in_proj``) and plan keys and parameters map one to one.
+A family subclasses ``SpecNetwork`` and names its ``model_specs`` and
+``forward``.
 """
 from __future__ import annotations
 
@@ -23,13 +24,13 @@ def _tree_module(tree) -> nn.Module:
     return m
 
 
-class CNN(nn.Module):
+class SpecNetwork(nn.Module):
     """The network as a module. ``params`` is a nested dict of tensors or
     a flat ``state_dict`` with dotted keys; it must hold exactly the
     family's parameter paths."""
 
     model_specs = None  # cfg -> spec tree
-    forward_fn = None  # (params, cfg, images, **kw) -> logits
+    forward_fn = None  # (params, cfg, inputs, **kw) -> outputs
 
     def __init__(self, cfg, params):
         super().__init__()
@@ -49,5 +50,5 @@ class CNN(nn.Module):
         """The parameters as the nested dict ``forward`` takes."""
         return unflatten(dict(self.named_parameters()))
 
-    def forward(self, images, **kw):
-        return self.forward_fn(self.params(), self.cfg, images, **kw)
+    def forward(self, inputs, **kw):
+        return self.forward_fn(self.params(), self.cfg, inputs, **kw)

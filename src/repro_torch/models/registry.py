@@ -1,7 +1,9 @@
-"""Model registry: per-family dispatch (``repro/models/registry.py``)."""
+"""Model registry: per-family dispatch and parameter counting
+(``repro/models/registry.py``)."""
 from __future__ import annotations
 
-from repro_torch.models import mobilenet, resnet
+from repro_torch.models import lm, mobilenet, resnet
+from repro_torch.models import spec as pspec
 
 
 def cnn_module(cfg):
@@ -10,3 +12,33 @@ def cnn_module(cfg):
     ResNet is the default."""
     return mobilenet if cfg.extra.get("arch") == "mobilenet" else resnet
 
+
+def _lm_only(cfg):
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder models come with a later "
+            f"slice {lm.LATER}")
+
+
+def model_specs(cfg):
+    if cfg.family == "cnn":
+        return cnn_module(cfg).model_specs(cfg)
+    _lm_only(cfg)
+    return lm.model_specs(cfg)
+
+
+def forward_fn(cfg):
+    if cfg.family == "cnn":
+        return cnn_module(cfg).forward
+    _lm_only(cfg)
+    return lm.forward
+
+
+def cache_struct(cfg, batch, max_seq):
+    _lm_only(cfg)
+    return lm.cache_struct(cfg, batch, max_seq)
+
+
+def count_params(cfg) -> int:
+    """Parameter count from the spec tree."""
+    return pspec.count(model_specs(cfg))

@@ -6,7 +6,7 @@ activation as the kernel's fused epilogue, so the whole backbone runs
 under a TuningPlan. A ``<block>.block`` plan entry replaces a block's last
 conv and its shortcut add + ReLU with one fused-block dispatch.
 
-``ResNet`` is the family's ``models.module.CNN``, whose ``state_dict()``
+``ResNet`` is the family's ``models.module.SpecNetwork``, whose ``state_dict()``
 keys are the JAX parameter paths (``stem.w``, ``s1b0.proj.scale``,
 ``fc.b``); ``forward`` is the same function on a nested dict of tensors.
 """
@@ -21,7 +21,7 @@ from repro_torch.core import algorithms
 from repro_torch.core.convspec import ConvSpec, FusedBlockSpec
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ref
-from repro_torch.models.module import CNN
+from repro_torch.models.module import SpecNetwork
 from repro_torch.models.spec import ParamSpec
 
 WIDTHS = (64, 128, 256, 512)
@@ -198,7 +198,7 @@ def forward(params, cfg, images, *, algorithm="ilpm", plan=None,
     return logits[0] if single else logits
 
 
-class ResNet(CNN):
+class ResNet(SpecNetwork):
     model_specs = staticmethod(model_specs)
     forward_fn = staticmethod(forward)
 

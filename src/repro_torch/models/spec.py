@@ -1,4 +1,4 @@
-"""Parameter specification trees (``repro/models/spec.py``, CNN part).
+"""Parameter specification trees (``repro/models/spec.py``).
 
 A model declares a nested dict of ``ParamSpec`` leaves; ``init_params``
 materialises it as a nested dict of tensors. Each leaf draws from its own
@@ -29,6 +29,24 @@ class ParamSpec:
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def stack(spec: ParamSpec, n: int) -> ParamSpec:
+    """Add a leading stacked-layer dim (one slice per layer of a segment)."""
+    return ParamSpec((n, *spec.shape), ("layer", *spec.axes), spec.init,
+                     spec.scale, spec.dtype)
+
+
+def stack_tree(tree, n: int):
+    """``stack`` on every leaf of a spec tree."""
+    if isinstance(tree, dict):
+        return {k: stack_tree(v, n) for k, v in tree.items()}
+    return stack(tree, n)
+
+
+def count(spec_tree) -> int:
+    """Number of parameters in a spec tree."""
+    return sum(int(np.prod(s.shape)) for _, s in walk(spec_tree))
 
 
 def _fan_in(spec: ParamSpec) -> int:

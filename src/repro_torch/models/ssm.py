@@ -1,0 +1,190 @@
+"""Mamba-2 blocks (SSD, state-space duality), as in ``repro/models/ssm.py``.
+
+Prefill and training use the chunked SSD algorithm (an intra-chunk
+quadratic form plus an inter-chunk state pass, arXiv:2405.21060 §6);
+decode is the O(1) recurrent update. The depthwise causal conv of the
+full-sequence path runs through ``kernels.ops.causal_conv1d``, on the
+xBC slice of the in-projection as it lies (a view with strided rows);
+decode convolves its (B, k, C) window with an einsum, as the reference
+does. The cast points are the reference's: cumsums and exponents in
+fp32, the decay and score tensors and the states in the compute dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.dtypes import torch_dtype
+from repro_torch.kernels import ops
+from repro_torch.models.layers import norm_spec, rms_norm
+from repro_torch.models.spec import ParamSpec
+
+
+def _dims(cfg):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
+    H = d_inner // P
+    Hg = H // G
+    conv_ch = d_inner + 2 * G * N
+    return d_inner, G, N, P, H, Hg, conv_ch
+
+
+def mamba_specs(cfg):
+    E = cfg.d_model
+    d_inner, G, N, P, H, Hg, conv_ch = _dims(cfg)
+    d_in_proj = 2 * d_inner + 2 * G * N + H
+    return {
+        "in_proj": ParamSpec((E, d_in_proj), ("embed_fsdp", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.ssm_conv_k, conv_ch), ("conv_k", "ssm_inner"),
+                            scale=cfg.ssm_conv_k ** -0.5),
+        "conv_b": ParamSpec((conv_ch,), ("ssm_inner",), "zeros"),
+        "A_log": ParamSpec((H,), ("ssm_heads",), "zeros"),  # A = -exp(0) = -1
+        "D": ParamSpec((H,), ("ssm_heads",), "ones"),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), "zeros"),
+        "norm": norm_spec(d_inner),
+        "out_proj": ParamSpec((d_inner, E), ("ssm_inner", "embed_fsdp")),
+    }
+
+
+def _split_proj(cfg, zxbcdt):
+    """z, xBC, dt: views into the in-projection's output."""
+    d_inner, G, N, P, H, Hg, conv_ch = _dims(cfg)
+    z = zxbcdt[..., :d_inner]
+    xBC = zxbcdt[..., d_inner:d_inner + conv_ch]
+    dt = zxbcdt[..., d_inner + conv_ch:]
+    return z, xBC, dt
+
+
+def _softplus(v):
+    """log(1 + exp(v)), as ``jax.nn.softplus`` computes it (no threshold)."""
+    return torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def ssd_chunked(x, dt, A, Bm, C, chunk):
+    """Chunked SSD scan.
+
+    x: (B,L,G,Hg,P)  dt: (B,L,G,Hg)  A: (G,Hg) (negative)
+    Bm, C: (B,L,G,N).  Returns (y (B,L,G,Hg,P), final_state (B,G,Hg,P,N)).
+    """
+    Bsz, L, G, Hg, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+    if pad:  # zeros at the end of the sequence axis
+        x = F.pad(x, (0, 0, 0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    Q, xdt = chunk, x.dtype
+    xc = x.reshape(Bsz, nc, Q, G, Hg, P)
+    dtc = dt.reshape(Bsz, nc, Q, G, Hg).float()
+    Bc = Bm.reshape(Bsz, nc, Q, G, N)
+    Cc = C.reshape(Bsz, nc, Q, G, N)
+
+    dA = dtc * A.float()                      # (B,nc,Q,G,Hg), <= 0
+    cum = torch.cumsum(dA, dim=2)             # running log-decay in chunk
+
+    # intra-chunk (quadratic, attention-like) form: cumsums and exponents
+    # in fp32, the decay and score tensors in the compute dtype
+    CB = torch.einsum("bcign,bcjgn->bcijg", Cc.float(), Bc.float()).to(xdt)
+    decay = torch.exp(cum[:, :, :, None] - cum[:, :, None]).to(xdt)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    W = torch.where(tri[None, None, :, :, None, None],
+                    CB[..., None] * decay * dtc[:, :, None].to(xdt),
+                    torch.zeros((), dtype=xdt, device=x.device))
+    y_intra = torch.einsum("bcijgh,bcjghp->bcighp", W, xc)
+
+    # per-chunk end states
+    decay_end = torch.exp(cum[:, :, -1:] - cum)             # (B,nc,Q,G,Hg)
+    S = torch.einsum("bcjgh,bcjgn,bcjghp->bcghpn",
+                     (decay_end * dtc).to(xdt), Bc, xc)
+
+    # inter-chunk state pass as a lower-triangular (nc x nc) chunk-decay
+    # matrix contraction
+    a = torch.cumsum(cum[:, :, -1], dim=1)                   # (B,nc,G,Hg)
+    ld = cum[:, :, -1]
+    tri_c = torch.tril(torch.ones((nc, nc), dtype=torch.bool,
+                                  device=x.device), diagonal=-1)
+    expo = a[:, :, None] - ld[:, :, None] - a[:, None]       # (B,nc,nc,G,Hg)
+    T_s = torch.where(tri_c[None, :, :, None, None], torch.exp(expo),
+                      torch.zeros((), device=x.device))
+    s_start = torch.einsum("bcdgh,bdghpn->bcghpn", T_s.to(xdt), S)
+    # final state: inclusive decay to the end of the last chunk
+    T_f = torch.exp(a[:, -1:] - a)                           # (B,nc,G,Hg)
+    s_final = torch.einsum("bdgh,bdghpn->bghpn", T_f.to(xdt), S)
+
+    y_inter = torch.einsum("bcign,bcghpn,bcigh->bcighp",
+                           Cc, s_start, torch.exp(cum).to(xdt))
+    y = (y_intra + y_inter).reshape(Bsz, nc * Q, G, Hg, P)
+    return y[:, :L], s_final
+
+
+def mamba_forward(p, cfg, xres, *, want_cache=False, impl="auto"):
+    """Full-sequence Mamba-2 mixer. xres: (B,L,E), already normed.
+    ``impl`` is the causal conv's (``ops.causal_conv1d``)."""
+    dt_ = torch_dtype(cfg.dtype)
+    d_inner, G, N, P, H, Hg, conv_ch = _dims(cfg)
+    B_, L, E = xres.shape
+    zxbcdt = xres @ p["in_proj"].to(dt_)
+    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    xBC = ops.causal_conv1d(xBC, p["conv_w"].to(dt_), p["conv_b"].to(dt_),
+                            impl=impl)
+    xBC = F.silu(xBC)
+    x = xBC[..., :d_inner].reshape(B_, L, G, Hg, P)
+    Bm = xBC[..., d_inner:d_inner + G * N].reshape(B_, L, G, N)
+    C = xBC[..., d_inner + G * N:].reshape(B_, L, G, N)
+    dt = _softplus(dt.float() + p["dt_bias"].float()).reshape(B_, L, G, Hg)
+    A = -torch.exp(p["A_log"].float()).reshape(G, Hg)
+    y, s_final = ssd_chunked(x, dt, A, Bm, C, cfg.ssd_chunk)
+    y = y + p["D"].to(dt_).reshape(G, Hg)[..., None] * x
+    y = y.reshape(B_, L, d_inner)
+    y = rms_norm(y * F.silu(z), p["norm"]["w"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(dt_)
+    if want_cache:
+        tail = xBC_raw_tail(cfg, xres, p)  # conv window tail, pre-activation
+        return out, {"conv": tail, "state": s_final}
+    return out, None
+
+
+def xBC_raw_tail(cfg, xres, p):
+    """Last (k-1) pre-conv xBC values: the decode conv window."""
+    k = cfg.ssm_conv_k
+    tail_in = xres[:, -(k - 1):]
+    zxbcdt = tail_in @ p["in_proj"].to(torch_dtype(cfg.dtype))
+    _, xBC, _ = _split_proj(cfg, zxbcdt)
+    pad = (k - 1) - tail_in.shape[1]
+    if pad > 0:
+        xBC = F.pad(xBC, (0, 0, pad, 0))
+    return xBC
+
+
+def mamba_decode(p, cfg, xres, cache, pos):
+    """One-token recurrent update. xres: (B,1,E); cache: {conv:
+    (B,k-1,conv_ch), state: (B,G,Hg,P,N)}. ``pos`` is unused, as in the
+    reference: the state carries the position."""
+    dt_ = torch_dtype(cfg.dtype)
+    d_inner, G, N, P, H, Hg, conv_ch = _dims(cfg)
+    B_ = xres.shape[0]
+    zxbcdt = xres[:, 0] @ p["in_proj"].to(dt_)           # (B, d_in_proj)
+    z, xBC_new, dt = _split_proj(cfg, zxbcdt)
+
+    window = torch.cat([cache["conv"], xBC_new[:, None]], dim=1)  # (B,k,ch)
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(dt_)) \
+        + p["conv_b"].to(dt_)
+    xBC = F.silu(conv_out)
+    x = xBC[..., :d_inner].reshape(B_, G, Hg, P)
+    Bm = xBC[..., d_inner:d_inner + G * N].reshape(B_, G, N)
+    C = xBC[..., d_inner + G * N:].reshape(B_, G, N)
+    dt = _softplus(dt.float() + p["dt_bias"].float()).reshape(B_, G, Hg)
+    A = -torch.exp(p["A_log"].float()).reshape(G, Hg)
+
+    s = cache["state"]
+    dA = torch.exp(dt * A)[..., None, None].to(s.dtype)      # (B,G,Hg,1,1)
+    upd = torch.einsum("bgh,bgn,bghp->bghpn", dt.to(dt_), Bm, x)
+    s = s * dA + upd
+    y = torch.einsum("bgn,bghpn->bghp", C, s) \
+        + p["D"].to(dt_).reshape(G, Hg)[..., None] * x
+    y = y.reshape(B_, d_inner)
+    y = rms_norm(y * F.silu(z), p["norm"]["w"], cfg.norm_eps)
+    out = (y @ p["out_proj"].to(dt_))[:, None]               # (B,1,E)
+    return out, {"conv": window[:, 1:], "state": s}
