@@ -17,6 +17,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    the same work; Winograd's classes are its input transform, its 16
    products in one batched ``gemm`` (bf16 V against fp32 U, as the forced
    path has it) and its output transform at 56²×64, 28²×128, 14²×256;
+   then ``gemm`` in fp16 at each of its classes (the tensor cores; at
+   Winograd's, fp16 V against an fp16 plan's cached U) and at two ragged
+   products no path launches (197×2305 @ 2305×129 in fp32, M, Kc and N
+   multiples of no tile; 197×2304 @ 2304×256 in bf16, M ragged on the
+   tensor cores); each ``gemm`` line carries ``gemm.plan``'s tile, split
+   and CTAs;
 3. a ``comparison`` line: the paper's algorithm comparison re-run on this
    card at its four ResNet layers (``PAPER_CONV_LAYERS``), fp32, with the
    folded-BN epilogue and ReLU: the device time of ilpm, direct and
@@ -57,6 +63,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      the tuned engine's, scales folded into the epilogue;
      ``resnet18/int8``: 9 / 3 / 8 as the tuned path), with its top-1
      agreement and max relative logit error against the fp32 engine;
+   - two storage-only precision variants on the tuned engine's weights,
+     launches as the matching fp32 path's, fp32 logits:
+     ``resnet18/im2col/store_bf16`` (fp32 compute over bf16 weights,
+     forced im2col) within 1e-4 of the CPU engine, and
+     ``resnet18/bf16/store_fp32`` (bf16 compute over fp32 weights, tuned)
+     within ``tolerance("bfloat16")``, with its top-1 agreement and max
+     relative logit error against the fp32 engine;
 5. the Mamba-2 LM path (``repro_torch.launch.serve.generate``: one
    prefill, then greedy decode steps) on ``mamba2-370m`` at full width (48
    layers, random weights from seed 0):
@@ -77,7 +90,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      against the port on the CPU fed the same tokens;
 6. a ``kernels`` line with each kernel's launches, error and times summed
    over one image (one prefill for ``causal_conv1d``) of each path it runs
-   on, and per path (``per_path``);
+   on, each class in the path's compute dtype, and per path
+   (``per_path``); one ``gemm`` launch is two device kernels where its
+   plan splits the contraction;
 7. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -105,7 +120,7 @@ ROOT = Path(__file__).resolve().parent
 # cores, bf16 on the tensor cores, device-memory bandwidth.
 CARD_PEAKS = {
     "H100 80GB HBM3": {"float32": 67e12, "bfloat16": 989e12,
-                       "mem_bw": 3.35e12},  # H100 SXM
+                       "float16": 989e12, "mem_bw": 3.35e12},  # H100 SXM
 }
 
 KERNEL_INFO = {
@@ -151,6 +166,11 @@ FORCED = ("direct", "im2col", "libdnn", "winograd")
 # Winograd's shape classes: ("winograd", H, C, K) of a 3x3/1 site
 WINOGRAD_CLASSES = {("winograd", 56, 64, 64), ("winograd", 28, 128, 128),
                     ("winograd", 14, 256, 256)}
+# gemm products no path launches, (M, Kc, N) -> dtype: M, Kc and N
+# multiples of no tile on the CUDA-core path, and M ragged on the
+# tensor-core path
+RAGGED_GEMM = {("ragged", 197, 2305, 129): torch.float32,
+               ("ragged", 197, 2304, 256): torch.bfloat16}
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -178,6 +198,12 @@ EXPECTED_PER_IMAGE = {
     "resnet18/int8": {**NO_LAUNCHES, "ilpm_conv": 9, "pointwise_conv": 3,
                       "fused_residual_conv": 8},
 }
+# storage-only precision variants: launches as the matching path's
+EXPECTED_PER_IMAGE["resnet18/im2col/store_bf16"] = \
+    EXPECTED_PER_IMAGE["resnet18/im2col"]
+EXPECTED_PER_IMAGE["resnet18/bf16/store_fp32"] = EXPECTED_PER_IMAGE["resnet18"]
+# the compute dtype of a path, where it is not fp32
+PATH_DTYPE = {"resnet18/bf16/store_fp32": "bfloat16"}
 
 
 # The Mamba-2 LM paths and their compute dtypes; causal_conv1d launches
@@ -431,16 +457,28 @@ def kernel_setup(kernel, shape, dtype, gen):
                         kw=dict(scale=scale, bias=bias, act="relu"),
                         library=library, inputs=[m, scale, bias],
                         flops=36 * nt * K)
-        # the 16 products of one image: V (16, nt, C) against fp32 U
+        # the 16 products of one image: V (16, nt, C) against U, fp32 as
+        # the forced path has it; in fp16 the cached U of an fp16 plan
         a = randn(16, nt, C)
         b = (torch.randn(16, C, K, device=dev, generator=gen)
              * C ** -0.5)
         b_lib = b.to(dtype)
+        if dtype == torch.float16:
+            b = b_lib
         line["shape"].update(M=nt, Kc=C, N=K, batch=16,
-                             b_dtype="float32")
+                             b_dtype=str(b.dtype).removeprefix("torch."))
         return dict(line, fn=gemm.gemm, plain=gemm.plain, args=(a, b),
                     kw={}, library=lambda: torch.bmm(a, b_lib),
                     inputs=[a, b], flops=2 * 16 * nt * C * K)
+
+    if shape[0] == "ragged":  # a gemm product no path launches
+        _, M, Kc, N = shape
+        a = randn(1, M, Kc)
+        b = randn(Kc, N, scale=Kc ** -0.5)
+        return dict(fn=gemm.gemm, plain=gemm.plain, args=(a, b), kw={},
+                    library=lambda: torch.matmul(a, b), inputs=[a, b],
+                    flops=2 * M * Kc * N,
+                    shape={"algorithm": "ragged", "M": M, "Kc": Kc, "N": N})
 
     if kernel == "fused_inverted_residual":
         H, Cin, mid, Cout, R, stride, residual = shape
@@ -572,9 +610,21 @@ def kernel_setup(kernel, shape, dtype, gen):
                 inputs=[xp, w, scale, bias, res])
 
 
+def gemm_plan(a, b):
+    """``gemm.plan`` of one call, with its path and its CTAs."""
+    from repro_torch.kernels import gemm
+
+    batch, M, Kc = a.shape if a.dim() == 3 else (1, *a.shape)
+    N, batch_b = b.shape[-1], b.shape[0] if b.dim() == 3 else 1
+    tile, split = gemm.plan(M, N, Kc, batch_b, a.dtype, b.dtype)
+    return {"path": gemm.path(a.dtype, b.dtype), "tile": [tile, tile],
+            "split": split,
+            "ctas": -(-M // tile) * -(-N // tile) * batch * split}
+
+
 def kernel_case(kernel, shape, dtype, gen, peaks):
     """Run one shape class of one kernel; return its result line."""
-    from repro_torch.core.dtypes import tolerance
+    from repro_torch.core.dtypes import canonical, tolerance
 
     case = kernel_setup(kernel, shape, dtype, gen)
     fn, plain, args, kw = case["fn"], case["plain"], case["args"], case["kw"]
@@ -585,7 +635,7 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
     rel = err / p.float().abs().max().item()
     nbytes = sum(t.numel() * t.element_size() for t in case["inputs"]) \
         + y.numel() * y.element_size()
-    name = "float32" if dtype == torch.float32 else "bfloat16"
+    name = canonical(dtype)
     t_ops = case["flops"] / peaks[name]
     t_bytes = nbytes / peaks["mem_bw"]
     kernel_ms = time_ms(lambda: fn(*args, **kw))
@@ -602,6 +652,8 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
+    if kernel == "gemm":
+        line["plan"] = gemm_plan(*args)
     if kernel == "im2col_unroll":  # a copy: bitwise or wrong
         line["bitwise_equal"] = torch.equal(y, p)
         require(line["bitwise_equal"],
@@ -722,13 +774,19 @@ def rel_err(y, ref):
     return ((y - ref).abs().max() / ref.abs().max()).item()
 
 
-def engine_phase(path, engine, images, counters, results):
+def path_dtype(path) -> str:
+    return PATH_DTYPE.get(path, "float32")
+
+
+def engine_phase(path, engine, images, counters, results,
+                 bound=ENGINE_REL_BOUND):
     """Drive one engine on ``images`` through ``run`` and ``run_batch``
     with the launch counters set to 0 just before; check the launches
-    per image, the logits against the same engine and plan on the CPU,
-    and ``run_batch`` against ``run``. The line also carries the device
-    time of one image's launches as the kernel phase measured them (fp32
-    class times, ``results``). Returns (line, logits)."""
+    per image, the logits against the same engine and plan on the CPU
+    (within ``bound``), and ``run_batch`` against ``run``. The line also
+    carries the device time of one image's launches as the kernel phase
+    measured them (the class times in the path's compute dtype,
+    ``results``). Returns (line, logits)."""
     from repro_torch.core import InferenceEngine
 
     cfg = engine.cfg
@@ -757,9 +815,8 @@ def engine_phase(path, engine, images, counters, results):
     ref_logits = cpu.run_batch(images)
     engine_rel = ((singles.cpu() - ref_logits).abs().max()
                   / ref_logits.abs().max()).item()
-    require(engine_rel <= ENGINE_REL_BOUND,
-            f"{path}: cuda logits vs cpu: {engine_rel} > "
-            f"{ENGINE_REL_BOUND}")
+    require(engine_rel <= bound,
+            f"{path}: cuda logits vs cpu: {engine_rel} > {bound}")
     times = []
     for i in range(20):
         torch.cuda.synchronize()
@@ -770,17 +827,19 @@ def engine_phase(path, engine, images, counters, results):
     plan = engine.plan
     return {"phase": "engine", "path": path, "config": cfg.name,
             "img": cfg.extra["img"], "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype, "logits_dtype":
+            str(singles.dtype).removeprefix("torch."),
             "images": len(images), "algorithm": engine.algorithm,
             "plan": sorted(Counter(plan.algorithms().values()).items())
             if plan else None,
             "fused_blocks": len(plan.block_choices) if plan else 0,
             "launches": launches, "launches_per_image": per_image,
-            "max_rel_err_vs_cpu": engine_rel, "bound": ENGINE_REL_BOUND,
+            "max_rel_err_vs_cpu": engine_rel, "bound": bound,
             "run_batch_bitwise_equal_run": bitwise,
             "ms_per_image_median": statistics.median(times),
             "kernel_ms_per_image_from_classes": sum(
                 r["kernel_ms"] * r["launches_per_image"].get(path, 0)
-                for r in results if r["dtype"] == "float32")}, singles
+                for r in results if r["dtype"] == path_dtype(path))}, singles
 
 
 def conv1d_classes(cfg):
@@ -1053,6 +1112,7 @@ def main() -> None:
     from repro_torch.configs import get
     from repro_torch.configs.resnet import PAPER_CONV_LAYERS
     from repro_torch.core import InferenceEngine, autotune
+    from repro_torch.core.dtypes import tolerance
     from repro_torch.kernels import _build
     from repro_torch.kernels import (causal_conv1d, depthwise_conv,
                                      direct_conv, fused_block, gemm,
@@ -1085,6 +1145,10 @@ def main() -> None:
 
     # ---- the plans of the planned paths ---------------------------------
     rcfg, mcfg = get("resnet18"), get("mobilenet_v2")
+    # the storage-only precision variants: fp32 compute over bf16 weights,
+    # bf16 compute over fp32 weights
+    scfg = rcfg.replace(param_dtype="bfloat16")
+    bcfg = rcfg.replace(dtype="bfloat16")
     rplan = autotune.build_plan(resnet.conv_specs(rcfg), epilogue=True,
                                 block_specs=resnet.block_specs(rcfg))
     mplan = autotune.build_plan(mobilenet.conv_specs(mcfg), epilogue=True,
@@ -1093,7 +1157,10 @@ def main() -> None:
              "mobilenet_v2/per_layer": strip_blocks(mplan),
              "resnet18/winograd_plan": pin_winograd(
                  rplan, resnet.conv_specs(rcfg)),
-             "resnet18/int8": rplan}
+             "resnet18/int8": rplan,
+             "resnet18/bf16/store_fp32": autotune.build_plan(
+                 resnet.conv_specs(bcfg), epilogue=True,
+                 block_specs=resnet.block_specs(bcfg))}
 
     # ---- kernel phase --------------------------------------------------
     per_path = {}  # (kernel, shape) -> {path: launches per image}
@@ -1104,6 +1171,8 @@ def main() -> None:
         for key, n in forced_classes(resnet.conv_specs(rcfg),
                                      algorithm).items():
             per_path.setdefault(key, {})[f"resnet18/{algorithm}"] = n
+    for key, n in forced_classes(resnet.conv_specs(scfg), "im2col").items():
+        per_path.setdefault(key, {})["resnet18/im2col/store_bf16"] = n
     paper = {(layer.h, layer.c_in, layer.c_out, layer.r, layer.stride)
              for layer in PAPER_CONV_LAYERS}
     for kernel in ("im2col_unroll", "gemm", "libdnn_conv"):
@@ -1124,14 +1193,24 @@ def main() -> None:
     results = []
     # Winograd's classes last, so the earlier classes draw the inputs
     # they drew before them
-    for (kernel, shape), paths in sorted(
-            per_path.items(),
-            key=lambda kv: (kv[0][1][0] == "winograd", repr(kv[0]))):
+    ordered = sorted(per_path.items(),
+                     key=lambda kv: (kv[0][1][0] == "winograd", repr(kv[0])))
+    for (kernel, shape), paths in ordered:
         for dtype in (torch.float32, torch.bfloat16):
             line = kernel_case(kernel, shape, dtype, gen, peaks)
             line["launches_per_image"] = dict(paths)
             emit(line)
             results.append(line)
+    # then gemm in fp16 at each of its classes (the tensor cores; at
+    # Winograd's an fp16 plan's cached U), and its ragged products
+    extra = [(shape, paths, torch.float16) for (kernel, shape), paths
+             in ordered if kernel == "gemm"]
+    extra += [(shape, {}, dtype) for shape, dtype in RAGGED_GEMM.items()]
+    for shape, paths, dtype in extra:
+        line = kernel_case("gemm", shape, dtype, gen, peaks)
+        line["launches_per_image"] = dict(paths)
+        emit(line)
+        results.append(line)
     bad = [(r["kernel"], r["dtype"], r["shape"]) for r in results
            if not r["max_rel_err"] <= r["tol"]]
     require(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -1203,6 +1282,32 @@ def main() -> None:
         logits.argmax(-1) == tuned_logits.argmax(-1)).float().mean().item()
     launches[path] = line["launches"]
     emit(line)
+    # storage-only precision variants on the tuned engine's weights: conv
+    # filters cast to the compute dtype once at build, fp32 logits as the
+    # reference's head promotes them
+    path = "resnet18/im2col/store_bf16"
+    stored = {k: v.to(torch.bfloat16)
+              for k, v in tuned_engine.model.state_dict().items()}
+    line, logits = engine_phase(
+        path, InferenceEngine(scfg, params=stored, algorithm="im2col"),
+        images, counters, results)
+    line["vs_fp32_weights_max_rel_err"] = rel_err(logits, forced["im2col"])
+    launches[path] = line["launches"]
+    emit(line)
+    require(line["logits_dtype"] == "float32", f"{path}: logits "
+                                               f"{line['logits_dtype']}")
+    path = "resnet18/bf16/store_fp32"
+    engine = InferenceEngine(bcfg, params=tuned_engine.model)
+    require(engine.plan.to_json() == plans[path].to_json(), f"{path}: plan")
+    line, logits = engine_phase(path, engine, images, counters, results,
+                                bound=tolerance("bfloat16"))
+    line["vs_fp32_max_rel_err"] = rel_err(logits, tuned_logits)
+    line["vs_fp32_top1_agreement"] = (
+        logits.argmax(-1) == tuned_logits.argmax(-1)).float().mean().item()
+    launches[path] = line["launches"]
+    emit(line)
+    require(line["logits_dtype"] == "float32", f"{path}: logits "
+                                               f"{line['logits_dtype']}")
     mparams = perturb_bn(init_params(mobilenet.model_specs(mcfg), 0,
                                      mcfg.param_dtype), seed=0)
     tuned = InferenceEngine(mcfg, params=mparams)
@@ -1255,13 +1360,16 @@ def main() -> None:
             kernels.append(conv1d_summary(conv_results, lm_launches, peaks))
             continue
         rows = [r for r in results if r["kernel"] == name]
-        fp32 = [r for r in rows if r["dtype"] == "float32"]
 
-        def per_image_sum(key, rows=fp32, path=None):
+        def per_image_sum(key, rows=rows, path=None):
+            """Over one image of each path (or of ``path``), each class
+            in the path's compute dtype."""
             return sum(r[key] * n for r in rows
                        for p, n in r["launches_per_image"].items()
-                       if path in (None, p))
-        t_ops = per_image_sum("flops") / peaks["float32"]
+                       if path in (None, p) and r["dtype"] == path_dtype(p))
+        t_ops = sum(r["flops"] * n / peaks[r["dtype"]] for r in rows
+                    for p, n in r["launches_per_image"].items()
+                    if r["dtype"] == path_dtype(p))
         t_bytes = per_image_sum("bytes") / peaks["mem_bw"]
         by_path = {path: n[name] for path, n in launches.items() if n[name]}
         kernels.append({

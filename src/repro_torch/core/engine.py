@@ -15,6 +15,15 @@ U = G g Gᵀ is computed once per build (``winograd_u``) and every forward
 reuses it; a forced engine has no plan and computes U per call, in fp32,
 as the reference does.
 
+A storage-only precision variant (``param_dtype`` ≠ ``dtype``) keeps its
+weights as stored in ``model`` and casts each conv filter to the compute
+dtype once, at build, in ``params``: exact where storage is narrower, one
+rounding where it is wider (the reference's kernels promote such a site to
+fp32 instead and round on the write; the two differ within
+``tolerance(dtype)``). Folded-BN vectors stay as stored (the kernels read
+them as fp32), the classifier head promotes as jnp does, and the U cache
+is computed from the weights as stored.
+
 The engine runs on the card unless the caller passes ``device="cpu"``,
 where every kernel site runs its plain PyTorch version.
 """
@@ -29,6 +38,7 @@ from torch import nn
 from repro_torch.core import autotune
 from repro_torch.core.autotune import TuningPlan
 from repro_torch.core.convspec import ConvSpec
+from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ref
 
 log = logging.getLogger(__name__)
@@ -55,6 +65,20 @@ def resolve_device(device) -> torch.device:
             "no CUDA device: the engine runs on the card by default; pass "
             "device=\"cpu\" to run the plain PyTorch versions on the CPU")
     return torch.device("cuda")
+
+
+def compute_params(params, dtype):
+    """``params`` with every conv filter (a 4-D ``w``) in ``dtype``; other
+    leaves (folded-BN vectors, the classifier head) as stored."""
+    out = {}
+    for key, v in params.items():
+        if isinstance(v, dict):
+            out[key] = compute_params(v, dtype)
+        elif key == "w" and v.dim() == 4:
+            out[key] = v.to(dtype)
+        else:
+            out[key] = v
+    return out
 
 
 class InferenceEngine:
@@ -84,7 +108,8 @@ class InferenceEngine:
         elif isinstance(params, nn.Module):
             params = params.state_dict()
         self.model = self._model.Network(cfg, params).to(self.device)
-        self.params = self.model.params()
+        self.params = compute_params(self.model.params(),
+                                     torch_dtype(cfg.dtype))
         self.algorithm = algorithm
         if plan is not None and not isinstance(plan, TuningPlan):
             plan = TuningPlan.load(plan)  # a path: tune-once/deploy-many
@@ -118,21 +143,26 @@ class InferenceEngine:
 
     def _winograd_cache(self, plan: TuningPlan) -> dict:
         """U = G g Gᵀ for each plan site whose choice is winograd, on the
-        engine's device, cast to ``w.dtype`` (the transform computes in
-        fp32) so U streams at the engine's element width."""
+        engine's device, from the filter as stored and cast to its stored
+        dtype (the transform computes in fp32), as the reference has it;
+        then widened (exactly) where that is narrower than the compute
+        dtype. An fp32 U under a 16-bit compute dtype stays fp32."""
+        compute = torch_dtype(self.cfg.dtype)
+        stored = self.model.params()
         cache = {}
         with torch.no_grad():
             for name, ch in plan.choices.items():
                 if ch.algorithm != "winograd":
                     continue
-                node = self.params
+                node = stored
                 try:
                     for part in name.split("."):
                         node = node[part]
                     w = node["w"]
                 except (KeyError, TypeError):
                     continue  # plan site not in this param tree: skip
-                cache[name] = ref.winograd_filter_transform(w).to(w.dtype)
+                u = ref.winograd_filter_transform(w).to(w.dtype)
+                cache[name] = u.to(torch.promote_types(w.dtype, compute))
         return cache
 
     def _validate_plan(self, plan: TuningPlan) -> None:

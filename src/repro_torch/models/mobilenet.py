@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.core import algorithms
 from repro_torch.core.convspec import ConvSpec, FusedBlockSpec
 from repro_torch.core.dtypes import torch_dtype
@@ -140,7 +142,9 @@ def forward(params, cfg, images, *, algorithm="auto", plan=None,
     x = conv(params["head"], x, 1, algorithm, choice=plan.get("head"),
              act="relu6", impl=impl)
     x = x.mean(dim=(1, 2))
-    logits = x @ params["fc"]["w"] + params["fc"]["b"]
+    fc = params["fc"]  # promoted as jnp promotes a mixed-dtype product
+    dt = torch.promote_types(x.dtype, fc["w"].dtype)
+    logits = x.to(dt) @ fc["w"].to(dt) + fc["b"]
     return logits[0] if single else logits
 
 

@@ -194,7 +194,9 @@ def forward(params, cfg, images, *, algorithm="ilpm", plan=None,
         x = _block(params[name], x, bottleneck, stride, algorithm, name,
                    plan, impl, wu)
     x = x.mean(dim=(1, 2))
-    logits = x @ params["fc"]["w"] + params["fc"]["b"]
+    fc = params["fc"]  # promoted as jnp promotes a mixed-dtype product
+    dt = torch.promote_types(x.dtype, fc["w"].dtype)
+    logits = x.to(dt) @ fc["w"].to(dt) + fc["b"]
     return logits[0] if single else logits
 
 

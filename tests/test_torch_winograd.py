@@ -447,5 +447,6 @@ def test_kernels_build_from_their_own_sources():
         assert CSRC / f"{name}.cu" in _build._sources()
     gemm_src = (CSRC / "gemm.cu").read_text()
     assert "batch_b" in gemm_src and "b_fp32" in gemm_src
-    # dtype, b_fp32; a, b, c; batch, batch_b, M, N, Kc; stream
-    assert len(_build.SIGNATURES["gemm_launch"]) == 11
+    # dtype, b_fp32; a, b, c; batch, batch_b, M, N, Kc, tile, split;
+    # workspace, stream
+    assert len(_build.SIGNATURES["gemm_launch"]) == 14
