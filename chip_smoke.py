@@ -21,8 +21,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    Winograd's, fp16 V against an fp16 plan's cached U) and at two ragged
    products no path launches (197×2305 @ 2305×129 in fp32, M, Kc and N
    multiples of no tile; 197×2304 @ 2304×256 in bf16, M ragged on the
-   tensor cores); each ``gemm`` line carries ``gemm.plan``'s tile, split
-   and CTAs;
+   tensor cores); then ``pointwise_conv`` and ``libdnn_conv``, which run
+   on ``gemm``'s split-K tile, in fp16 at each of their classes and at one
+   ragged class each that no path launches (a 15x17 image, C = 12,
+   K = 20, stride 2; a 9x11 image, C = 6, K = 20, 3x3) in fp32 and bf16;
+   each line of the three carries its launch plan (path, tile, split,
+   CTAs);
 3. a ``comparison`` line: the paper's algorithm comparison re-run on this
    card at its four ResNet layers (``PAPER_CONV_LAYERS``), fp32, with the
    folded-BN epilogue and ReLU: the device time of ilpm, direct and
@@ -171,6 +175,15 @@ WINOGRAD_CLASSES = {("winograd", 56, 64, 64), ("winograd", 28, 128, 128),
 # tensor-core path
 RAGGED_GEMM = {("ragged", 197, 2305, 129): torch.float32,
                ("ragged", 197, 2304, 256): torch.bfloat16}
+# the kernels on gemm's split-K tile (csrc/gemm_tile.cuh), whose lines
+# carry their launch plan
+TILE_KERNELS = ("gemm", "pointwise_conv", "libdnn_conv")
+# conv classes on that tile no path launches, ("ragged", H, W, C, K, R,
+# stride) -> kernel, in fp32 and bf16: H != W, C a multiple of no 16-byte
+# run (scalar loads; in bf16 the CUDA cores), K of no tile; libdnn's C = 6
+# puts 16-byte runs across taps
+RAGGED_CONV = {("ragged", 15, 17, 12, 20, 1, 2): "pointwise_conv",
+               ("ragged", 9, 11, 6, 20, 3, 1): "libdnn_conv"}
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -471,7 +484,7 @@ def kernel_setup(kernel, shape, dtype, gen):
                     kw={}, library=lambda: torch.bmm(a, b_lib),
                     inputs=[a, b], flops=2 * 16 * nt * C * K)
 
-    if shape[0] == "ragged":  # a gemm product no path launches
+    if shape[0] == "ragged" and kernel == "gemm":  # a product no path runs
         _, M, Kc, N = shape
         a = randn(1, M, Kc)
         b = randn(Kc, N, scale=Kc ** -0.5)
@@ -538,13 +551,18 @@ def kernel_setup(kernel, shape, dtype, gen):
             library=library, inputs=[xp, w, scale, bias],
             flops=2 * Ho * Ho * R * R * M * C,
             shape={"H": H, "C": C, "M": M, "R": R, "stride": stride})
-    H, C, K, R, stride = shape
-    x = randn(1, H, H, C)
+    if shape[0] == "ragged":  # a conv class no path launches: H != W
+        _, H, W, C, K, R, stride = shape
+        ragged = {"algorithm": "ragged", "W": W}
+    else:
+        (H, C, K, R, stride), W, ragged = shape, shape[0], {}
+    x = randn(1, H, W, C)
     w = randn(R, R, C, K, scale=(R * R * C) ** -0.5)
     scale, bias = bn(K)
-    Ho = -(-H // stride)
-    line = dict(flops=2 * Ho * Ho * R * R * C * K,
-                shape={"H": H, "C": C, "K": K, "R": R, "stride": stride})
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    line = dict(flops=2 * Ho * Wo * R * R * C * K,
+                shape={**ragged, "H": H, "C": C, "K": K, "R": R,
+                       "stride": stride})
     if kernel == "gemm":  # im2col's product: (H*W, R*S*C) @ (R*S*C, K)
         a = randn(1, H * H, R * R * C)
         b = w.reshape(R * R * C, K)
@@ -610,15 +628,24 @@ def kernel_setup(kernel, shape, dtype, gen):
                 inputs=[xp, w, scale, bias, res])
 
 
-def gemm_plan(a, b):
-    """``gemm.plan`` of one call, with its path and its CTAs."""
-    from repro_torch.kernels import gemm
+def tile_plan(kernel, args, kw, y):
+    """The launch plan of one call of a kernel on gemm's split-K tile
+    (``TILE_KERNELS``): its path, tile, split and CTAs. ``y`` is the
+    call's output: (batch, M, N) for gemm, (B, Ho, Wo, K) for a conv."""
+    from repro_torch.kernels import gemm, libdnn_conv, pointwise_conv
 
-    batch, M, Kc = a.shape if a.dim() == 3 else (1, *a.shape)
-    N, batch_b = b.shape[-1], b.shape[0] if b.dim() == 3 else 1
-    tile, split = gemm.plan(M, N, Kc, batch_b, a.dtype, b.dtype)
-    return {"path": gemm.path(a.dtype, b.dtype), "tile": [tile, tile],
-            "split": split,
+    a, b = args
+    if kernel == "gemm":
+        batch, M, Kc = a.shape if a.dim() == 3 else (1, *a.shape)
+        N, batch_b = b.shape[-1], b.shape[0] if b.dim() == 3 else 1
+        kind = gemm.path(a.dtype, b.dtype)
+        tile, split = gemm.plan(M, N, Kc, batch_b, a.dtype, b.dtype)
+    else:
+        batch, M, N = y.shape[0], y.shape[1] * y.shape[2], y.shape[3]
+        kind = gemm.conv_path(a, b)
+        tile, split = pointwise_conv.plan(a, b, kw["stride"]) \
+            if kernel == "pointwise_conv" else libdnn_conv.plan(a, b)
+    return {"path": kind, "tile": [tile, tile], "split": split,
             "ctas": -(-M // tile) * -(-N // tile) * batch * split}
 
 
@@ -652,8 +679,8 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
-    if kernel == "gemm":
-        line["plan"] = gemm_plan(*args)
+    if kernel in TILE_KERNELS:
+        line["plan"] = tile_plan(kernel, args, kw, y)
     if kernel == "im2col_unroll":  # a copy: bitwise or wrong
         line["bitwise_equal"] = torch.equal(y, p)
         require(line["bitwise_equal"],
@@ -1202,12 +1229,21 @@ def main() -> None:
             emit(line)
             results.append(line)
     # then gemm in fp16 at each of its classes (the tensor cores; at
-    # Winograd's an fp16 plan's cached U), and its ragged products
-    extra = [(shape, paths, torch.float16) for (kernel, shape), paths
-             in ordered if kernel == "gemm"]
-    extra += [(shape, {}, dtype) for shape, dtype in RAGGED_GEMM.items()]
-    for shape, paths, dtype in extra:
-        line = kernel_case("gemm", shape, dtype, gen, peaks)
+    # Winograd's an fp16 plan's cached U) and its ragged products, then
+    # the convs on its tile in fp16 at each of their classes and at their
+    # ragged classes in fp32 and bf16
+    extra = [("gemm", shape, paths, torch.float16)
+             for (kernel, shape), paths in ordered if kernel == "gemm"]
+    extra += [("gemm", shape, {}, dtype)
+              for shape, dtype in RAGGED_GEMM.items()]
+    extra += [(kernel, shape, paths, torch.float16)
+              for (kernel, shape), paths in ordered
+              if kernel in TILE_KERNELS and kernel != "gemm"]
+    extra += [(kernel, shape, {}, dtype)
+              for shape, kernel in RAGGED_CONV.items()
+              for dtype in (torch.float32, torch.bfloat16)]
+    for kernel, shape, paths, dtype in extra:
+        line = kernel_case(kernel, shape, dtype, gen, peaks)
         line["launches_per_image"] = dict(paths)
         emit(line)
         results.append(line)

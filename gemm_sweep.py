@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time the port's ``gemm`` kernel on one CUDA card at every split of the
-contraction, at ResNet-18's product classes, beside ``gemm.plan``'s pick.
+"""Time the kernels on the port's split-K GEMM tile (``gemm``,
+``pointwise_conv``, ``libdnn_conv``) on one CUDA card at every split of
+the contraction, beside the plan's pick.
 
     python3 gemm_sweep.py
 
-For each class (im2col's four products and Winograd's three batched
-ones, 224² input) and each operand pairing (fp32; bf16 on the tensor
-cores; bf16 against an fp32 ``b`` on the CUDA cores), every split the
-kernel accepts is checked against the plain version within
-``tolerance(dtype)`` and timed as ``chip_smoke.time_ms`` times a kernel
-(a CUDA graph of 10 launches, CUDA events, the median of 15). One JSON
-line per class and pairing: the ms of each split, the plan's split and
-the fastest. The card's name and power limit come first. ``gemm.plan``'s
-constants (``MIN_CTAS``, ``MIN_SPLIT_CHUNKS``) are read from these lines.
+For each ``gemm`` class (ResNet-18's im2col products and Winograd's three
+batched ones, 224² input) and each operand pairing (fp32; bf16 on the
+tensor cores; bf16 against an fp32 ``b`` on the CUDA cores), and for each
+conv class (``pointwise_conv`` at every 1x1 layer of MobileNetV2 and
+ResNet-18, ``libdnn_conv`` at the paper's four 3x3 layers) in fp32 and
+bf16, every split the kernel accepts is checked against the plain version
+within ``tolerance(dtype)`` and timed as ``chip_smoke.time_ms`` times a
+kernel (a CUDA graph of 10 launches, CUDA events, the median of 15). One JSON line per class and dtype: the ms of
+each split, the plan's split and the fastest. The card's name and power
+limit come first. ``gemm.plan``'s constants (``MIN_CTAS``,
+``MIN_SPLIT_CHUNKS``), which the convs' ``gemm.conv_plan`` shares, are
+read from these lines.
 """
 from __future__ import annotations
 
@@ -32,18 +36,62 @@ PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
          (torch.bfloat16, torch.float32)]
 
 
+def conv_classes():
+    """(kernel, H, C, K, R, stride) at 224² input: every 1x1 layer of
+    ResNet-18 and MobileNetV2 (``pointwise_conv``), then every stride-1
+    3x3 layer of ResNet-18 (``libdnn_conv`` under forced libdnn), each
+    class once."""
+    from repro_torch.configs import get
+    from repro_torch.models import mobilenet, resnet
+
+    classes = set()
+    for name, model in (("resnet18", resnet), ("mobilenet_v2", mobilenet)):
+        for _, spec in model.conv_specs(get(name)):
+            if spec.groups == 1 and spec.r == 1:
+                classes.add(("pointwise_conv", spec.h, spec.c, spec.k, 1,
+                             spec.stride))
+            elif name == "resnet18" and spec.r == 3 and spec.stride == 1:
+                classes.add(("libdnn_conv", spec.h, spec.c, spec.k, 3, 1))
+    return sorted(classes, key=lambda c: (c[0] != "pointwise_conv", c))
+
+
+def sweep(call, kc, kind, planned_split, tol):
+    """ms by split of ``call()`` over a contraction ``kc`` deep on path
+    ``kind``, each split forced through ``gemm.plan`` and checked against
+    ``call(plain=True)`` within ``tol``; with the plan's split and the
+    fastest."""
+    import chip_smoke
+    from repro_torch.kernels import gemm
+
+    ref = call(plain=True).float()
+    chunks = -(-kc // gemm.CHUNK[kind])
+    planned, ms = gemm.plan, {}
+    try:
+        for split in (1, 2, 4, 8, 16):
+            if split > chunks:
+                break
+            gemm.plan = lambda *_, s=split: (gemm.TILE, s)
+            y = call().float()
+            rel = ((y - ref).abs().max() / ref.abs().max()).item()
+            chip_smoke.require(rel <= tol, f"split {split}: {rel} > {tol}")
+            ms[split] = chip_smoke.time_ms(call)
+    finally:
+        gemm.plan = planned
+    return {"ms_by_split": ms, "plan_split": planned_split,
+            "fastest_split": min(ms, key=ms.get)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("gemm_sweep: no CUDA card")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke
     from repro_torch.core.dtypes import tolerance
-    from repro_torch.kernels import gemm
+    from repro_torch.kernels import gemm, libdnn_conv, pointwise_conv, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.nvidia_smi(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    planned = gemm.plan
     for M, Kc, N, batch_b in CLASSES:
         for dt, bdt in PAIRS:
             if batch_b == 1 and bdt != dt:
@@ -53,28 +101,43 @@ def main() -> None:
             a, b = a.to(dt), (b * Kc ** -0.5).to(bdt)
             if batch_b == 1:
                 b = b[0]
-            ref = gemm.plain(a, b).float()
-            chunks = -(-Kc // gemm.CHUNK[gemm.path(dt, bdt)])
-            ms = {}
-            try:
-                for split in (1, 2, 4, 8, 16):
-                    if split > chunks:
-                        break
-                    gemm.plan = lambda *_, s=split: (gemm.TILE, s)
-                    y = gemm.gemm(a, b).float()
-                    rel = ((y - ref).abs().max() / ref.abs().max()).item()
-                    chip_smoke.require(
-                        rel <= tolerance(dt),
-                        f"gemm {M}x{Kc}x{N} split {split}: {rel}")
-                    ms[split] = chip_smoke.time_ms(lambda: gemm.gemm(a, b))
-            finally:
-                gemm.plan = planned
+
+            def call(plain=False, a=a, b=b):
+                return (gemm.plain if plain else gemm.gemm)(a, b)
+            line = sweep(call, Kc, gemm.path(dt, bdt),
+                         gemm.plan(M, N, Kc, batch_b, dt, bdt)[1],
+                         tolerance(dt))
             print(json.dumps({
-                "M": M, "Kc": Kc, "N": N, "batch_b": batch_b,
-                "a": str(dt).removeprefix("torch."),
-                "b": str(bdt).removeprefix("torch."), "ms_by_split": ms,
-                "plan_split": planned(M, N, Kc, batch_b, dt, bdt)[1],
-                "fastest_split": min(ms, key=ms.get)}), flush=True)
+                "kernel": "gemm", "M": M, "Kc": Kc, "N": N,
+                "batch_b": batch_b, "a": str(dt).removeprefix("torch."),
+                "b": str(bdt).removeprefix("torch."), **line}), flush=True)
+    for kernel, H, C, K, R, stride in conv_classes():
+        mod = pointwise_conv if kernel == "pointwise_conv" else libdnn_conv
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(1, H, H, C, device="cuda", generator=gen).to(dt)
+            w = (torch.randn(R, R, C, K, device="cuda", generator=gen)
+                 * (R * R * C) ** -0.5).to(dt)
+            scale = torch.rand(K, device="cuda", generator=gen) + 0.5
+            bias = torch.randn(K, device="cuda", generator=gen) * 0.1
+            kw = dict(scale=scale, bias=bias, act="relu")
+            if kernel == "pointwise_conv":
+                kw["stride"] = stride
+                split = mod.plan(x, w, stride)[1]
+            else:
+                x = ref.pad_same(x, R, R)
+                split = mod.plan(x, w)[1]
+
+            def call(plain=False, x=x, w=w, kw=kw, mod=mod, kernel=kernel):
+                fn = mod.plain if plain else getattr(mod, kernel)
+                return fn(x, w, **kw)
+            line = sweep(call, R * R * C, gemm.conv_path(x, w), split,
+                         tolerance(dt))
+            Ho = -(-H // stride)
+            print(json.dumps({
+                "kernel": kernel, "H": H, "C": C, "K": K, "R": R,
+                "stride": stride, "M": Ho * Ho, "Kc": R * R * C, "N": K,
+                "dtype": str(dt).removeprefix("torch."), **line}),
+                flush=True)
 
 
 if __name__ == "__main__":

@@ -1,138 +1,95 @@
 // libdnn-style fused im2col convolution for sm_90a: the Hopper counterpart
-// of the Pallas kernel `libdnn_conv` in src/repro/kernels/libdnn_conv.py.
+// of the Pallas kernel `libdnn_conv` in src/repro/kernels/libdnn_conv.py:43.
 //
 // x_padded (B, Hp, Wp, C), w (R, S, C, K) -> out (B, H, W, K) with
 // H = Hp - R + 1 (stride 1) and the fused epilogue act(acc * scale + bias),
 // converted once on the store.
 //
-// im2col and the product in one kernel. A CTA owns a flat run of 64 output
-// pixels and a 64-wide slab of output channels: grid (pixel tiles, K
-// tiles, batch). It walks the R*S*C contraction in chunks of 32 columns;
-// for each chunk it builds the patch tile (64 pixels x 32 columns) in
-// shared memory, gathering each element from the padded image with the
-// (r, s, c)-from-column index math, stages the filter chunk (32 rows x 64
-// channels), and contracts. The patch never reaches device memory, but
-// every K tile rebuilds it, gathers and index math included: that repeat
-// is the paper's critique of libdnn, and it stays.
+// im2col and the product in one kernel: a (H*W, R*S*C) @ (R*S*C, K)
+// product per image whose row q is the patch of pixel (oh, ow) = (q / W,
+// q % W), column k the element x_padded[oh + tap / S, ow + tap % S, c]
+// with tap = k / C and c = k % C, and w read as (R*S*C, K). It runs on the
+// split-K tile of gemm_tile.cuh (gemm's) with that patch as its A source:
+// each CTA gathers its own patch tile for each contraction chunk into
+// shared memory, so the patch never reaches device memory, but every K
+// tile rebuilds it, gathers and index math included: that repeat is the
+// paper's critique of libdnn, and it stays.
 //
 // What bounds it: at the paper's four layers a launch does 0.23 GFLOP
-// against 1-10 MB, so fp32 on CUDA cores is bound by the operations. Each
-// thread keeps 4 pixels x 4 channels in fp32 registers, one IEEE fmaf
-// chain per output in column order (never TF32).
-#include "common.cuh"
+// against 1-10 MB, so fp32 on CUDA cores is bound by the operations and
+// bf16 on the tensor cores by the bytes. The first kernel walked the whole
+// R*S*C contraction in each CTA of a 64 x 64 output tile: 8-16 CTAs at 7²
+// and 14², each 2304-4608 deep. The design:
+// - the contraction is split by `gemm.plan(H*W, K, R*S*C, 1, dtype,
+//   dtype)` (never by B), the partials summed in split order by the
+//   reduction, which applies the epilogue once;
+// - a thread computes its rows' pixel addresses once and the (r, s, c) of
+//   its column once a chunk, not once a load;
+// - where C is a multiple of 16 bytes' worth of elements (4 fp32, 8
+//   16-bit) and x is aligned, a 16-byte run of columns starting at a
+//   multiple of that count stays inside one tap: one cp.async. Else the
+//   loads are scalar and predicated;
+// - fp32 on the CUDA cores, IEEE fmaf, never TF32; bf16 and fp16 on the
+//   tensor cores (mma.sync) where C and K are multiples of 8 and x and w
+//   are 16-byte aligned, any other 16-bit shape on the CUDA cores.
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int TILE_P = 64;
-constexpr int TILE_K = 64;
-constexpr int CHUNK = 32;
-constexpr int THREADS = 256;
-
+// Row q of image z: the patch of pixel (q / W, q % W) of x_padded;
+// column k: tap k / C = r * S + s, channel k % C.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) libdnn_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    T* __restrict__ out, int Hp, int Wp, int C, int R, int S, int K, int H,
-    int W, int act) {
-  // +1 on the patch rows keeps the two rows a warp reads on different banks.
-  __shared__ float ps[TILE_P][CHUNK + 1];
-  __shared__ float ws[CHUNK][TILE_K];
-  const int P = H * W;
-  const int p0 = blockIdx.x * TILE_P;
-  const int k0 = blockIdx.y * TILE_K;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // channels k0 + tx + 16*j
-  const int ty = tid / 16;  // pixels p0 + ty + 16*i
-  const T* xb = x + (size_t)b * Hp * Wp * C;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int cols = R * S * C;
-  for (int j0 = 0; j0 < cols; j0 += CHUNK) {
-    const int jn = min(CHUNK, cols - j0);
-    for (int e = tid; e < TILE_P * CHUNK; e += THREADS) {
-      const int j = e % CHUNK;
-      const int p = e / CHUNK;
-      const int q = p0 + p;
-      float v = 0.f;
-      if (j < jn && q < P) {
-        const int col = j0 + j;
-        const int tap = col / C;
-        const int ih = q / W + tap / S;
-        const int iw = q % W + tap % S;
-        v = ilpm::to_f32(xb[((size_t)ih * Wp + iw) * C + col % C]);
-      }
-      ps[p][j] = v;
-    }
-    for (int e = tid; e < CHUNK * TILE_K; e += THREADS) {
-      const int k = e % TILE_K;
-      const int j = e / TILE_K;
-      float v = 0.f;
-      if (j < jn && k0 + k < K) v = ilpm::to_f32(w[(size_t)(j0 + j) * K + k0 + k]);
-      ws[j][k] = v;
-    }
-    __syncthreads();
-    for (int j = 0; j < jn; ++j) {
-      float pv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[ty + 16 * i][j];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) wv[jj] = ws[j][tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][jj] = fmaf(pv[i], wv[jj], acc[i][jj]);
-    }
-    __syncthreads();
+struct PatchRows {
+  const T* base;
+  int Hp, Wp, C, S, W;
+  __device__ size_t row(int z, int q) const {
+    return (((size_t)z * Hp + q / W) * Wp + q % W) * C;
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = p0 + ty + 16 * i;
-    if (q >= P) continue;
-    const size_t base = ((size_t)b * P + q) * K;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int k = k0 + tx + 16 * jj;
-      if (k >= K) continue;
-      const float y = fmaf(acc[i][jj], scale[k], bias[k]);
-      out[base + k] = ilpm::from_f32<T>(ilpm::apply_act(y, act));
-    }
+  __device__ int col(int k) const {
+    const int tap = k / C;
+    return (tap / S * Wp + tap % S) * C + (k - tap * C);
   }
-}
+};
 
 template <typename T>
 cudaError_t launch_libdnn(const void* x, const void* w, const void* scale,
                           const void* bias, void* out, int B, int Hp, int Wp,
                           int C, int R, int S, int K, int H, int W, int act,
+                          int tile, int split, void* ws,
                           cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || H != Hp - R + 1 || W != Wp - S + 1)
+  if (!x || !w || !scale || !bias || B < 1 || C < 1 || R < 1 || S < 1 ||
+      K < 1 || H < 1 || W < 1 || H != Hp - R + 1 || W != Wp - S + 1)
     return cudaErrorInvalidValue;
-  const dim3 grid((H * W + TILE_P - 1) / TILE_P, (K + TILE_K - 1) / TILE_K,
-                  B);
-  libdnn_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(out), Hp, Wp, C, R, S, K, H, W, act);
-  return cudaGetLastError();
+  const PatchRows<T> src{static_cast<const T*>(x), Hp, Wp, C, S, W};
+  const ScaleBiasAct epi{static_cast<const float*>(scale),
+                         static_cast<const float*>(bias), act};
+  constexpr int V = 16 / sizeof(T);
+  const bool vec_x = C % V == 0 && aligned16(x);
+  const bool vec_w = K % V == 0 && aligned16(w);
+  const bool tensor = sizeof(T) == 2 && vec_x && vec_w;
+  return launch_tile(tensor, src, vec_x, static_cast<const T*>(w), vec_w,
+                     static_cast<T*>(out), ws, B, 1, H * W, K, R * S * C,
+                     tile, split, epi, stream);
 }
 
 }  // namespace
 
+// tile: the CTA tile's rows and columns (64); split: the number of splits
+// of the R*S*C contraction (a power of two, at most 16, at most the number
+// of chunks of the path); ws: the fp32 workspace (split, B, H*W, K) when
+// split > 1. The tensor cores take a 16-bit x where C and K are multiples
+// of 8 and x and w are 16-byte aligned.
 extern "C" int libdnn_conv_launch(int dtype, const void* x, const void* w,
                                   const void* scale, const void* bias,
                                   void* out, int B, int Hp, int Wp, int C,
                                   int R, int S, int K, int H, int W, int act,
+                                  int tile, int split, void* ws,
                                   void* stream) {
+  if (act < ilpm::ACT_NONE || act > ilpm::ACT_RELU6)
+    return (int)cudaErrorInvalidValue;
   ILPM_DISPATCH_DTYPE(dtype, T,
       return (int)launch_libdnn<T>(x, w, scale, bias, out, B, Hp, Wp, C, R,
-                                   S, K, H, W, act,
+                                   S, K, H, W, act, tile, split, ws,
                                    static_cast<cudaStream_t>(stream)))
   return (int)cudaErrorInvalidValue;
 }

@@ -1,127 +1,88 @@
 // Pointwise (1x1) convolution for sm_90a: the Hopper counterpart of the
-// Pallas kernel `pointwise_conv` in src/repro/kernels/pointwise_conv.py.
+// Pallas kernel `pointwise_conv` in src/repro/kernels/pointwise_conv.py:51.
 //
 // x (B, H, W, C) unpadded, w (1, 1, C, K) -> out (B, Ho, Wo, K) with
 // Ho = ceil(H / stride); output pixel (oh, ow) reads x[oh*stride, ow*stride],
 // so a strided 1x1 (the ResNet projection shortcut) subsamples in the load
-// and reads only the pixels it uses. Epilogue act(acc * scale + bias).
+// and reads only the pixels it uses. Epilogue act(acc * scale + bias) on
+// the fp32 sum, converted once.
 //
-// A 1x1 conv is one (pixels, C) @ (C, K) product with no halo, so the
-// tile is a flat run of 64 output pixels by a 64-wide channel slab. The
-// CTA walks C in chunks of 32, staging the chunk's pixel rows and filter
-// rows in shared memory as fp32; each thread accumulates 4 pixels x 4
-// channels in fp32 registers on CUDA-core FMAs and the store converts
-// once. Blocks are independent: grid (pixel tiles, K slabs, batch).
-#include "common.cuh"
+// A 1x1 conv is one (Ho*Wo, C) @ (C, K) product per image whose row q is
+// the pixel x[(q / Wo)*s, (q % Wo)*s, :], so it runs on the split-K tile
+// of gemm_tile.cuh (gemm's), with that row as its A source, w[0, 0] as b,
+// the image as the grid's z and the folded-BN epilogue.
+//
+// What bounds it on the H100: MobileNetV2's and ResNet-18's 1x1 layers
+// are 0.002-0.1 GFLOP over 0.1-5 MB. In IEEE fp32 (CUDA cores) the deep
+// 7² and 14² layers (C 160-960) are bound by their operations, the wide
+// 112² and 56² ones by their bytes; in bf16 the bytes bound all of them.
+// The first kernel walked the whole C serially in each CTA of a 64 x 64
+// output tile: 3-8 CTAs at the deep layers. The design:
+// - the contraction is split by `gemm.plan(Ho*Wo, K, C, 1, dtype, dtype)`
+//   (never by B), the partials summed in split order by the reduction,
+//   which applies the epilogue once;
+// - fp32 on the CUDA cores, IEEE fmaf, never TF32; a pixel's channels are
+//   contiguous, so where C is a multiple of 4 and x is aligned a 16-byte
+//   run of channels is one cp.async, else the loads are scalar;
+// - bf16 and fp16 on the tensor cores (mma.sync) where C and K are
+//   multiples of 8 and x and w are 16-byte aligned (every ResNet-18 and
+//   MobileNetV2 layer); any other 16-bit shape on the CUDA cores of the
+//   same tile, w converted to fp32 as it is read.
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int TILE_P = 64;
-constexpr int TILE_K = 64;
-constexpr int CHUNK = 32;
-constexpr int THREADS = 256;
-
+// Row q of image z: the pixel ((q / Wo) * stride, (q % Wo) * stride) of x.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) pointwise_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    T* __restrict__ out, int H, int W, int C, int K, int Ho, int Wo,
-    int stride, int act) {
-  // +1 on the pixel rows keeps the two pixel rows a warp reads on
-  // different banks.
-  __shared__ float xs[TILE_P][CHUNK + 1];
-  __shared__ float ws[CHUNK][TILE_K];
-  const int P = Ho * Wo;
-  const int p0 = blockIdx.x * TILE_P;
-  const int k0 = blockIdx.y * TILE_K;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // channels k0 + tx + 16*j
-  const int ty = tid / 16;  // pixels p0 + ty + 16*i
-  const T* xb = x + (size_t)b * H * W * C;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CHUNK) {
-    const int cn = min(CHUNK, C - c0);
-    for (int e = tid; e < TILE_P * CHUNK; e += THREADS) {
-      const int c = e % CHUNK;
-      const int p = e / CHUNK;
-      const int q = p0 + p;
-      float v = 0.f;
-      if (c < cn && q < P) {
-        const int ih = (q / Wo) * stride;
-        const int iw = (q % Wo) * stride;
-        v = ilpm::to_f32(xb[((size_t)ih * W + iw) * C + c0 + c]);
-      }
-      xs[p][c] = v;
-    }
-    for (int e = tid; e < CHUNK * TILE_K; e += THREADS) {
-      const int k = e % TILE_K;
-      const int c = e / TILE_K;
-      float v = 0.f;
-      if (c < cn && k0 + k < K) v = ilpm::to_f32(w[(size_t)(c0 + c) * K + k0 + k]);
-      ws[c][k] = v;
-    }
-    __syncthreads();
-    for (int c = 0; c < cn; ++c) {
-      float xv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[ty + 16 * i][c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
+struct PixelRows {
+  const T* base;
+  int H, W, C, Wo, stride;
+  __device__ size_t row(int z, int q) const {
+    const int ih = q / Wo * stride, iw = q % Wo * stride;
+    return (((size_t)z * H + ih) * W + iw) * C;
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = p0 + ty + 16 * i;
-    if (q >= P) continue;
-    const size_t base = ((size_t)b * P + q) * K;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tx + 16 * j;
-      if (k >= K) continue;
-      const float y = fmaf(acc[i][j], scale[k], bias[k]);
-      out[base + k] = ilpm::from_f32<T>(ilpm::apply_act(y, act));
-    }
-  }
-}
+  __device__ int col(int k) const { return k; }
+};
 
 template <typename T>
 cudaError_t launch_pointwise(const void* x, const void* w, const void* scale,
-                             const void* bias, void* out, int B, int H, int W,
-                             int C, int K, int stride, int act,
+                             const void* bias, void* out, int B, int H,
+                             int W, int C, int K, int stride, int act,
+                             int tile, int split, void* ws,
                              cudaStream_t stream) {
-  const int Ho = (H + stride - 1) / stride;
-  const int Wo = (W + stride - 1) / stride;
-  const dim3 grid((Ho * Wo + TILE_P - 1) / TILE_P, (K + TILE_K - 1) / TILE_K, B);
-  pointwise_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(out), H, W, C, K, Ho, Wo, stride, act);
-  return cudaGetLastError();
+  if (!x || !w || !scale || !bias || B < 1 || H < 1 || W < 1 || C < 1 ||
+      K < 1 || stride < 1)
+    return cudaErrorInvalidValue;
+  const int Ho = (H + stride - 1) / stride, Wo = (W + stride - 1) / stride;
+  const PixelRows<T> src{static_cast<const T*>(x), H, W, C, Wo, stride};
+  const ScaleBiasAct epi{static_cast<const float*>(scale),
+                         static_cast<const float*>(bias), act};
+  constexpr int V = 16 / sizeof(T);
+  const bool vec_x = C % V == 0 && aligned16(x);
+  const bool vec_w = K % V == 0 && aligned16(w);
+  const bool tensor = sizeof(T) == 2 && vec_x && vec_w;
+  return launch_tile(tensor, src, vec_x, static_cast<const T*>(w), vec_w,
+                     static_cast<T*>(out), ws, B, 1, Ho * Wo, K, C, tile,
+                     split, epi, stream);
 }
 
 }  // namespace
 
+// tile: the CTA tile's rows and columns (64); split: the number of splits
+// of the C contraction (a power of two, at most 16, at most the number of
+// chunks of the path); ws: the fp32 workspace (split, B, Ho*Wo, K) when
+// split > 1. The tensor cores take a 16-bit x where C and K are multiples
+// of 8 and x and w are 16-byte aligned.
 extern "C" int pointwise_conv_launch(int dtype, const void* x, const void* w,
                                      const void* scale, const void* bias,
                                      void* out, int B, int H, int W, int C,
-                                     int K, int stride, int act,
-                                     void* stream) {
+                                     int K, int stride, int act, int tile,
+                                     int split, void* ws, void* stream) {
+  if (act < ilpm::ACT_NONE || act > ilpm::ACT_RELU6)
+    return (int)cudaErrorInvalidValue;
   ILPM_DISPATCH_DTYPE(dtype, T,
       return (int)launch_pointwise<T>(x, w, scale, bias, out, B, H, W, C, K,
-                                      stride, act,
+                                      stride, act, tile, split, ws,
                                       static_cast<cudaStream_t>(stream)))
   return (int)cudaErrorInvalidValue;
 }

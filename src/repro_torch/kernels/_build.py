@@ -36,12 +36,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every exported entry point: dtype code, pointers, ints, stream
 SIGNATURES = {
     "ilpm_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
-    "pointwise_conv_launch": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    "pointwise_conv_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P] * 2,
     "fused_residual_conv_launch": [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "depthwise_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
     "fused_inverted_residual_launch": [_I] + [_P] * 11 + [_I] * 13 + [_P],
     "direct_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
-    "libdnn_conv_launch": [_I] + [_P] * 5 + [_I] * 10 + [_P],
+    "libdnn_conv_launch": [_I] + [_P] * 5 + [_I] * 12 + [_P] * 2,
     "im2col_unroll_launch": [_I] + [_P] * 2 + [_I] * 8 + [_P],
     "gemm_launch": [_I] * 2 + [_P] * 3 + [_I] * 7 + [_P] * 2,
     "winograd_input_transform_launch": [_I] + [_P] * 2 + [_I] * 4 + [_P],

@@ -2,7 +2,11 @@
 and Winograd's 16 products.
 
 Replaces the Pallas kernel ``gemm`` in ``src/repro/kernels/gemm.py``; the
-source is ``csrc/gemm.cu``.
+source is ``csrc/gemm.cu``, an instantiation of the split-K tile of
+``csrc/gemm_tile.cuh`` with a plain row-major ``a`` and no epilogue.
+``pointwise_conv`` and ``libdnn_conv`` run on the same tile with their own
+A rows (a pixel, a gathered patch) and the folded-BN epilogue; this module
+plans all three (``plan``, ``conv_plan``).
 
 What bounds it on the H100: ResNet-18's im2col products do 0.23 GFLOP and
 must move 1-9 MB, so in fp32 (IEEE, on CUDA cores) the arithmetic bounds
@@ -37,7 +41,14 @@ CHUNK = {"fp32": 16, "tensor": 32}  # contraction depth of a chunk
 # and want about 4 a SM, the tensor cores' 4 warps about 1 (132 SMs);
 # measured with gemm_sweep.py
 MIN_CTAS = {"fp32": 512, "tensor": 128}
-MIN_SPLIT_CHUNKS = 4  # a split walks at least this many chunks
+# Chunks a split walks at least; while one image's grid has fewer CTAs
+# than the card has SMs (the 1x1 convs: 64-960 deep on 3-80 tiles), fewer:
+# one where the CUDA cores are slow to walk a chunk, two on the tensor
+# cores, where the second kernel of a split launch costs more than a
+# chunk; measured with gemm_sweep.py
+MIN_SPLIT_CHUNKS = 4
+MIN_SPLIT_CHUNKS_BELOW_SMS = {"fp32": 1, "tensor": 2}
+SMS = 132
 MAX_SPLIT = 16
 HALF = (torch.bfloat16, torch.float16)
 
@@ -53,16 +64,51 @@ def plan(M, N, Kc, batch_b, a_dtype, b_dtype) -> tuple[int, int]:
     the number of contraction splits, the smallest power of two that
     gives one image's grid, M tiles x N tiles x batch_b x split, the
     path's ``MIN_CTAS``, at most ``MAX_SPLIT`` and leaving each split
-    ``MIN_SPLIT_CHUNKS`` chunks. It never sees the number of images, so a
-    batch of images sums in the same order as one."""
+    ``MIN_SPLIT_CHUNKS`` chunks, or ``MIN_SPLIT_CHUNKS_BELOW_SMS`` while
+    the grid has fewer CTAs than the card has SMs. It never sees the
+    number of images, so a batch of images sums in the same order as
+    one."""
     kind = path(a_dtype, b_dtype)
     chunks = -(-Kc // CHUNK[kind])
     ctas = -(-M // TILE) * -(-N // TILE) * batch_b
     split = 1
-    while ctas * split < MIN_CTAS[kind] and 2 * split <= MAX_SPLIT \
-            and 2 * split * MIN_SPLIT_CHUNKS <= chunks:
+    while ctas * split < MIN_CTAS[kind] and 2 * split <= MAX_SPLIT:
+        floor = MIN_SPLIT_CHUNKS_BELOW_SMS[kind] if ctas * split < SMS \
+            else MIN_SPLIT_CHUNKS
+        if 2 * split * floor > chunks:
+            break
         split *= 2
     return TILE, split
+
+
+def conv_path(x, w) -> str:
+    """The path of a conv on ``gemm``'s tile (``pointwise_conv``,
+    ``libdnn_conv``), as their kernels decide it: ``"tensor"`` for a
+    16-bit x whose C and K (``x``'s and ``w``'s last dims) are multiples of
+    8, x and w 16-byte aligned; else ``"fp32"`` (the CUDA cores; a 16-bit
+    w is converted to fp32 as it is read)."""
+    tensor = x.dtype in HALF and x.shape[-1] % 8 == 0 \
+        and w.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 \
+        and w.data_ptr() % 16 == 0
+    return "tensor" if tensor else "fp32"
+
+
+def conv_plan(M, K, Kc, dtype, kind) -> tuple[int, int]:
+    """(tile, split) of one image's conv product (M, Kc) @ (Kc, K) on path
+    ``kind``: ``plan`` with ``batch_b`` 1 and the dtypes that select that
+    path (a 16-bit x on the CUDA cores plans as against an fp32 b). Like
+    ``plan`` it never sees the number of images."""
+    b_dtype = dtype if kind == "tensor" else torch.float32
+    return plan(M, K, Kc, 1, dtype, b_dtype)
+
+
+def workspace(split, batch, M, N, device):
+    """The fp32 split-K workspace (split, batch, M, N), or None where the
+    contraction is not split."""
+    if split == 1:
+        return None
+    return torch.empty((split, batch, M, N), dtype=torch.float32,
+                       device=device)
 
 
 def split_bounds(Kc, chunk, split) -> list[tuple[int, int]]:
@@ -106,8 +152,7 @@ def gemm(a, b):
                          f"Kc={Kc} N={N}")
     tile, split = plan(M, N, Kc, batch_b, dt, b.dtype)
     out = torch.empty((batch, M, N), dtype=dt, device=dev)
-    ws = torch.empty((split, batch, M, N), dtype=torch.float32, device=dev) \
-        if split > 1 else None
+    ws = workspace(split, batch, M, N, dev)
     err = _build.library().gemm_launch(
         code, int(b_fp32), a3.data_ptr(), b.data_ptr(), out.data_ptr(),
         batch, batch_b, M, N, Kc, tile, split,

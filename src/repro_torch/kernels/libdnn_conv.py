@@ -1,31 +1,50 @@
 """libdnn-style fused im2col convolution as a CUDA kernel for Hopper.
 
 Replaces the Pallas kernel ``libdnn_conv`` in ``src/repro/kernels/
-libdnn_conv.py``; the source is ``csrc/libdnn_conv.cu``.
+libdnn_conv.py``; the source is ``csrc/libdnn_conv.cu``, on the split-K
+tile of ``csrc/gemm_tile.cuh`` that ``gemm`` and ``pointwise_conv`` share.
 
 What bounds it on the H100: at the paper's four layers a launch does 0.23
-GFLOP and must move 1-10 MB, so in fp32 (IEEE, on CUDA cores) the
-arithmetic bounds it. im2col and the product run in one kernel: a block
-owns 64 output pixels by 64 output channels and walks the R·S·C
-contraction 32 columns at a time, building the patch tile in shared
-memory from the padded image (the ``(r, s, c)``-from-column index math)
-beside the filter chunk, then contracting it. The patch never reaches
-device memory, but every K tile rebuilds it: the paper's critique of
-libdnn, kept. Stride 1 only (the router sends strided sites to ilpm); the
-epilogue ``act(acc*scale + bias)`` runs on the fp32 accumulator and the
-store converts once.
+GFLOP and must move 1-10 MB, so in IEEE fp32 (CUDA cores) the arithmetic
+bounds it and in bf16 (tensor cores) the bytes do. im2col and the product
+run in one kernel: a (H·W, R·S·C) @ (R·S·C, K) product per image whose
+row q is the patch of pixel (q // W, q % W), gathered from the padded
+image chunk by chunk into shared memory (column k is tap k // C, channel
+k % C). The patch never reaches device memory, but every K tile rebuilds
+it: the paper's critique of libdnn, kept. The first kernel gave the 7² and
+14² layers 8-16 CTAs, each walking the whole contraction; now
+``gemm.conv_plan`` splits it by the product's shape and dtype (never by
+the number of images), the splits' fp32 partial tiles go to a workspace
+the wrapper allocates, and a second kernel of the same launch sums them
+in split order and applies the epilogue ``act(acc*scale + bias)`` once,
+with one cast. fp32 stays IEEE on the CUDA cores; bf16 and fp16 run on
+the tensor cores where C and K are multiples of 8 (``gemm.conv_path``),
+else on the CUDA cores. Stride 1 only (the router sends strided sites to
+ilpm).
 
 ``libdnn_conv`` runs the kernel for a CUDA tensor and the plain version
 (``ref.libdnn_conv``) for a CPU tensor; ``libdnn_conv.launches`` counts
-the kernel's launches.
+the wrapper's launches (one launch is two device kernels where the plan
+splits the contraction).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, gemm, ref
 
 plain = ref.libdnn_conv
+
+
+def plan(x_padded, w) -> tuple[int, int]:
+    """(tile, split) of a launch on ``x_padded`` (B, H+R-1, W+S-1, C) and
+    ``w`` (R, S, C, K): ``gemm.conv_plan`` of one image's product (H·W,
+    R·S·C) @ (R·S·C, K) on the path the kernel takes."""
+    _, Hp, Wp, C = x_padded.shape
+    R, S, _, K = w.shape
+    M = (Hp - R + 1) * (Wp - S + 1)
+    return gemm.conv_plan(M, K, R * S * C, x_padded.dtype,
+                          gemm.conv_path(x_padded, w))
 
 
 def libdnn_conv(x_padded, w, *, scale=None, bias=None, act=None):
@@ -47,11 +66,14 @@ def libdnn_conv(x_padded, w, *, scale=None, bias=None, act=None):
     _build.check_operand(name, "x_padded", x_padded, dev, dt)
     _build.check_operand(name, "w", w, dev, dt)
     sc, bi = _build.epilogue_vectors(scale, bias, K, dev)
+    tile, split = plan(x_padded, w)
     out = torch.empty((B, H, W, K), dtype=dt, device=dev)
+    ws = gemm.workspace(split, B, H * W, K, dev)
     err = _build.library().libdnn_conv_launch(
         code, x_padded.data_ptr(), w.data_ptr(), sc.data_ptr(),
         bi.data_ptr(), out.data_ptr(), B, Hp, Wp, C, R, S, K, H, W,
-        _build.act_code(act), _build.stream(dev))
+        _build.act_code(act), tile, split,
+        ws.data_ptr() if ws is not None else None, _build.stream(dev))
     _build.check(err, name)
     libdnn_conv.launches += 1
     return out

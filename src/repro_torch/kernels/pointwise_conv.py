@@ -1,29 +1,46 @@
 """Pointwise (1x1) convolution as a CUDA kernel for Hopper.
 
 Replaces the Pallas kernel ``pointwise_conv`` in ``src/repro/kernels/
-pointwise_conv.py``; the source is ``csrc/pointwise_conv.cu``.
+pointwise_conv.py``; the source is ``csrc/pointwise_conv.cu``, on the
+split-K tile of ``csrc/gemm_tile.cuh`` that ``gemm`` and ``libdnn_conv``
+share.
 
-What bounds it on the H100: each ResNet-18 projection shortcut does
-0.013 GFLOP and must move about 0.65 MB in fp32, so in fp32 (CUDA cores)
-the arithmetic and the bytes take about the same time and in bf16 the
-bytes bound it. A 1x1 conv has no halo, so the kernel tiles
-output pixels as a flat run (64 pixels x 64 channels a block) and stages
-32-channel chunks of pixel rows and filter rows in shared memory. A
-strided 1x1 reads only the pixels ``x[::s, ::s]`` it uses, in the load
-itself, with no gather pass. The epilogue ``act(acc*scale + bias)`` runs
-on the fp32 accumulator and the store converts once.
+What bounds it on the H100: MobileNetV2's and ResNet-18's 1x1 layers do
+0.002-0.1 GFLOP over 0.1-5 MB, so in IEEE fp32 (CUDA cores) the deep 7²
+and 14² layers are bound by their operations and the wide ones by their
+bytes; in bf16 the bytes bound them all. A 1x1 conv is one (Ho·Wo, C) @
+(C, K) product per image whose row q is the pixel ``x[(q // Wo)·s,
+(q % Wo)·s]``, so a strided 1x1 reads only the pixels it uses, in the
+load itself. The first kernel gave the deep layers 3-8 CTAs, each walking
+all of C; now ``gemm.conv_plan`` splits C by the product's shape and
+dtype (never by the number of images), the splits' fp32 partial tiles go
+to a workspace the wrapper allocates, and a second kernel of the same
+launch sums them in split order and applies the epilogue
+``act(acc*scale + bias)`` once, with one cast. fp32 stays IEEE on the
+CUDA cores; bf16 and fp16 run on the tensor cores where C and K are
+multiples of 8 (``gemm.conv_path``), else on the CUDA cores.
 
 ``pointwise_conv`` runs the kernel for a CUDA tensor and the plain
 version (``ref.pointwise_conv``) for a CPU tensor;
-``pointwise_conv.launches`` counts the kernel's launches.
+``pointwise_conv.launches`` counts the wrapper's launches (one launch is
+two device kernels where the plan splits C).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, gemm, ref
 
 plain = ref.pointwise_conv
+
+
+def plan(x, w, stride=1) -> tuple[int, int]:
+    """(tile, split) of a launch on ``x`` (B, H, W, C) and ``w`` (1, 1, C,
+    K): ``gemm.conv_plan`` of one image's product (Ho·Wo, C) @ (C, K) on
+    the path the kernel takes."""
+    _, H, W, C = x.shape
+    M = -(-H // stride) * -(-W // stride)
+    return gemm.conv_plan(M, w.shape[-1], C, x.dtype, gemm.conv_path(x, w))
 
 
 def pointwise_conv(x, w, *, stride=1, scale=None, bias=None, act=None):
@@ -43,12 +60,14 @@ def pointwise_conv(x, w, *, stride=1, scale=None, bias=None, act=None):
     _build.check_operand("pointwise_conv", "x", x, dev, dt)
     _build.check_operand("pointwise_conv", "w", w, dev, dt)
     sc, bi = _build.epilogue_vectors(scale, bias, K, dev)
-    out = torch.empty((B, -(-H // stride), -(-W // stride), K), dtype=dt,
-                      device=dev)
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    tile, split = plan(x, w, stride)
+    out = torch.empty((B, Ho, Wo, K), dtype=dt, device=dev)
+    ws = gemm.workspace(split, B, Ho * Wo, K, dev)
     err = _build.library().pointwise_conv_launch(
         code, x.data_ptr(), w.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-        out.data_ptr(), B, H, W, C, K, stride, _build.act_code(act),
-        _build.stream(dev))
+        out.data_ptr(), B, H, W, C, K, stride, _build.act_code(act), tile,
+        split, ws.data_ptr() if ws is not None else None, _build.stream(dev))
     _build.check(err, "pointwise_conv")
     pointwise_conv.launches += 1
     return out

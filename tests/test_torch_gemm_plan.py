@@ -114,7 +114,11 @@ def test_split_k_order_matches_reference(M, Kc, N):
 
 
 def test_kernel_source_uses_tensor_cores_for_16_bit_and_no_tf32():
+    """gemm.cu and the split-K tile it includes (gemm_tile.cuh, shared
+    with pointwise_conv and libdnn_conv)."""
     src = (CSRC / "gemm.cu").read_text()
+    assert '#include "gemm_tile.cuh"' in src
+    src += (CSRC / "gemm_tile.cuh").read_text()
     for t in ("bf16", "f16"):
         assert f"mma.sync.aligned.m16n8k16.row.col.f32.{t}.{t}.f32" in src
     assert "ldmatrix" in src and "cp.async" in src
