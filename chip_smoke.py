@@ -22,11 +22,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    products no path launches (197×2305 @ 2305×129 in fp32, M, Kc and N
    multiples of no tile; 197×2304 @ 2304×256 in bf16, M ragged on the
    tensor cores); then ``pointwise_conv`` and ``libdnn_conv``, which run
-   on ``gemm``'s split-K tile, in fp16 at each of their classes and at one
-   ragged class each that no path launches (a 15x17 image, C = 12,
-   K = 20, stride 2; a 9x11 image, C = 6, K = 20, 3x3) in fp32 and bf16;
-   each line of the three carries its launch plan (path, tile, split,
-   CTAs);
+   on ``gemm``'s split-K tile, and ``ilpm_conv`` and
+   ``fused_residual_conv``, which run on the halo-resident conv tile, in
+   fp16 at each of their classes and at one ragged class each that no
+   path launches (a 15x17 image, C = 12, K = 20, stride 2; a 9x11 image,
+   C = 6, K = 20, 3x3; a 13x10 image, C = 12, K = 20, 3x3 stride 2; an
+   11x9 image, C = 12, K = 20, 3x3) in fp32 and bf16; each line of these
+   five carries its launch plan (path, tile, split, CTAs; the conv tile's
+   also its chunk and filter-row split);
 3. a ``comparison`` line: the paper's algorithm comparison re-run on this
    card at its four ResNet layers (``PAPER_CONV_LAYERS``), fp32, with the
    folded-BN epilogue and ReLU: the device time of ilpm, direct and
@@ -175,15 +178,18 @@ WINOGRAD_CLASSES = {("winograd", 56, 64, 64), ("winograd", 28, 128, 128),
 # tensor-core path
 RAGGED_GEMM = {("ragged", 197, 2305, 129): torch.float32,
                ("ragged", 197, 2304, 256): torch.bfloat16}
-# the kernels on gemm's split-K tile (csrc/gemm_tile.cuh), whose lines
-# carry their launch plan
-TILE_KERNELS = ("gemm", "pointwise_conv", "libdnn_conv")
-# conv classes on that tile no path launches, ("ragged", H, W, C, K, R,
+# the kernels on gemm's split-K tile (csrc/gemm_tile.cuh) and on the conv
+# tile (csrc/conv_tile.cuh), whose lines carry their launch plan
+CONV_TILE_KERNELS = ("ilpm_conv", "fused_residual_conv")
+TILE_KERNELS = ("gemm", "pointwise_conv", "libdnn_conv", *CONV_TILE_KERNELS)
+# conv classes on those tiles no path launches, ("ragged", H, W, C, K, R,
 # stride) -> kernel, in fp32 and bf16: H != W, C a multiple of no 16-byte
 # run (scalar loads; in bf16 the CUDA cores), K of no tile; libdnn's C = 6
 # puts 16-byte runs across taps
 RAGGED_CONV = {("ragged", 15, 17, 12, 20, 1, 2): "pointwise_conv",
-               ("ragged", 9, 11, 6, 20, 3, 1): "libdnn_conv"}
+               ("ragged", 9, 11, 6, 20, 3, 1): "libdnn_conv",
+               ("ragged", 13, 10, 12, 20, 3, 2): "ilpm_conv",
+               ("ragged", 11, 9, 12, 20, 3, 1): "fused_residual_conv"}
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -616,7 +622,7 @@ def kernel_setup(kernel, shape, dtype, gen):
         return dict(line, fn=getattr(mod, kernel), plain=mod.plain,
                     args=(xp, w), kw=kw, library=library,
                     inputs=[x_read, w, scale, bias])
-    res = randn(1, H, H, K)
+    res = randn(1, H, W, K)
     res_lib = res.permute(0, 3, 1, 2)
 
     def library():
@@ -629,12 +635,25 @@ def kernel_setup(kernel, shape, dtype, gen):
 
 
 def tile_plan(kernel, args, kw, y):
-    """The launch plan of one call of a kernel on gemm's split-K tile
-    (``TILE_KERNELS``): its path, tile, split and CTAs. ``y`` is the
-    call's output: (batch, M, N) for gemm, (B, Ho, Wo, K) for a conv."""
-    from repro_torch.kernels import gemm, libdnn_conv, pointwise_conv
+    """The launch plan of one call of a kernel on gemm's split-K tile or on
+    the conv tile (``TILE_KERNELS``): its path, tile, split and CTAs (the
+    conv tile's: tile rows, columns and channels, chunk, channel-chunk
+    split, filter-row split and the parts the reduction adds). ``y`` is
+    the call's output: (batch, M, N) for gemm, (B, Ho, Wo, K) for a
+    conv."""
+    from repro_torch.kernels import gemm, ilpm_conv, libdnn_conv, \
+        pointwise_conv
 
     a, b = args
+    if kernel in CONV_TILE_KERNELS:
+        w = b["w"] if kernel == "fused_residual_conv" else b
+        p = ilpm_conv.plan(a, w, kw.get("stride", 1))
+        B, Ho, Wo, K = y.shape
+        return {"path": p.path, "tile": [p.tile, p.tile, ilpm_conv.TILE_K],
+                "chunk": p.chunk, "split": p.split, "rsplit": p.rsplit,
+                "parts": p.parts,
+                "ctas": -(-Ho // p.tile) * -(-Wo // p.tile)
+                * -(-K // ilpm_conv.TILE_K) * B * p.parts}
     if kernel == "gemm":
         batch, M, Kc = a.shape if a.dim() == 3 else (1, *a.shape)
         N, batch_b = b.shape[-1], b.shape[0] if b.dim() == 3 else 1
@@ -1230,8 +1249,8 @@ def main() -> None:
             results.append(line)
     # then gemm in fp16 at each of its classes (the tensor cores; at
     # Winograd's an fp16 plan's cached U) and its ragged products, then
-    # the convs on its tile in fp16 at each of their classes and at their
-    # ragged classes in fp32 and bf16
+    # the convs on its tile and on the conv tile in fp16 at each of their
+    # classes and at their ragged classes in fp32 and bf16
     extra = [("gemm", shape, paths, torch.float16)
              for (kernel, shape), paths in ordered if kernel == "gemm"]
     extra += [("gemm", shape, {}, dtype)

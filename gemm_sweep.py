@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the kernels on the port's split-K GEMM tile (``gemm``,
-``pointwise_conv``, ``libdnn_conv``) on one CUDA card at every split of
-the contraction, beside the plan's pick.
+``pointwise_conv``, ``libdnn_conv``) and on its conv tile (``ilpm_conv``,
+``fused_residual_conv``) on one CUDA card at every split of the
+contraction, beside the plan's pick.
 
     python3 gemm_sweep.py
 
@@ -12,11 +13,17 @@ conv class (``pointwise_conv`` at every 1x1 layer of MobileNetV2 and
 ResNet-18, ``libdnn_conv`` at the paper's four 3x3 layers) in fp32 and
 bf16, every split the kernel accepts is checked against the plain version
 within ``tolerance(dtype)`` and timed as ``chip_smoke.time_ms`` times a
-kernel (a CUDA graph of 10 launches, CUDA events, the median of 15). One JSON line per class and dtype: the ms of
-each split, the plan's split and the fastest. The card's name and power
-limit come first. ``gemm.plan``'s constants (``MIN_CTAS``,
-``MIN_SPLIT_CHUNKS``), which the convs' ``gemm.conv_plan`` shares, are
-read from these lines.
+kernel (a CUDA graph of 10 launches, CUDA events, the median of 15). Then
+the conv tile's classes (every ``ilpm_conv`` site of ResNet-18 on any of
+its paths and MobileNetV2's stem, every ``fused_residual_conv`` block of
+ResNet-18 and ResNet-50's 1x1 one) in fp32 and bf16, at every pair of a
+channel-chunk split and a filter-row split the kernels accept. One JSON
+line per class and dtype: the ms of each split (``"split x rsplit"`` on
+the conv tile), the plan's split and the fastest. The card's name and
+power limit come first. ``gemm.plan``'s constants (``MIN_CTAS``,
+``MIN_SPLIT_CHUNKS``), which the convs' ``gemm.conv_plan`` shares, and
+``ilpm_conv.plan``'s (``MIN_CTAS``, ``ROW_SPLIT_BELOW``) are read from
+these lines.
 """
 from __future__ import annotations
 
@@ -53,6 +60,57 @@ def conv_classes():
             elif name == "resnet18" and spec.r == 3 and spec.stride == 1:
                 classes.add(("libdnn_conv", spec.h, spec.c, spec.k, 3, 1))
     return sorted(classes, key=lambda c: (c[0] != "pointwise_conv", c))
+
+
+def conv_tile_classes():
+    """(kernel, H, C, K, R, stride) at 224² input of the conv tile: every
+    dense site of ResNet-18 but the stride-1 1x1s (ilpm on the tuned and
+    forced paths), MobileNetV2's stem, ResNet-18's fused residual blocks
+    and ResNet-50's 1x1 one, each class once."""
+    from repro_torch.configs import get
+    from repro_torch.models import mobilenet, resnet
+
+    classes = {("fused_residual_conv", 56, 64, 256, 1, 1)}
+    for name, model in (("resnet18", resnet), ("mobilenet_v2", mobilenet)):
+        for site, spec in model.conv_specs(get(name)):
+            if spec.groups != 1 or (spec.r == 1 and spec.stride == 1) or (
+                    name == "mobilenet_v2" and spec.c != 3):
+                continue
+            classes.add(("ilpm_conv", spec.h, spec.c, spec.k, spec.r,
+                         spec.stride))
+            if name == "resnet18" and spec.r == 3 and spec.stride == 1:
+                classes.add(("fused_residual_conv", spec.h, spec.c, spec.k,
+                             3, 1))
+    return sorted(classes)
+
+
+def conv_tile_sweep(call, planned, C, R, tol):
+    """ms by (split, rsplit) of ``call()`` on the conv tile, each pair
+    forced through ``ilpm_conv.plan`` (the plan's chunk kept) and checked
+    against ``call(plain=True)`` within ``tol``."""
+    import chip_smoke
+    from repro_torch.kernels import ilpm_conv
+
+    ref = call(plain=True).float()
+    chunks = -(-C // planned.chunk)
+    plan, ms = ilpm_conv.plan, {}
+    try:
+        for split in (1, 2, 4, 8, 16):
+            if split > chunks:
+                break
+            for rsplit in range(1, R + 1):
+                ilpm_conv.plan = lambda *_, s=split, r=rsplit: \
+                    planned._replace(split=s, rsplit=r)
+                y = call().float()
+                rel = ((y - ref).abs().max() / ref.abs().max()).item()
+                chip_smoke.require(rel <= tol, f"split {split}x{rsplit}: "
+                                               f"{rel} > {tol}")
+                ms[f"{split}x{rsplit}"] = chip_smoke.time_ms(call)
+    finally:
+        ilpm_conv.plan = plan
+    return {"ms_by_split": ms,
+            "plan_split": f"{planned.split}x{planned.rsplit}",
+            "fastest_split": min(ms, key=ms.get)}
 
 
 def sweep(call, kc, kind, planned_split, tol):
@@ -137,6 +195,43 @@ def main() -> None:
                 "kernel": kernel, "H": H, "C": C, "K": K, "R": R,
                 "stride": stride, "M": Ho * Ho, "Kc": R * R * C, "N": K,
                 "dtype": str(dt).removeprefix("torch."), **line}),
+                flush=True)
+    sweep_conv_tile(gen)
+
+
+def sweep_conv_tile(gen):
+    """The conv tile's lines (``conv_tile_classes``), inputs from ``gen``."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import fused_block, ilpm_conv, ref
+
+    for kernel, H, C, K, R, stride in conv_tile_classes():
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(1, H, H, C, device="cuda", generator=gen).to(dt)
+            w = (torch.randn(R, R, C, K, device="cuda", generator=gen)
+                 * (R * R * C) ** -0.5).to(dt)
+            scale = torch.rand(K, device="cuda", generator=gen) + 0.5
+            bias = torch.randn(K, device="cuda", generator=gen) * 0.1
+            xp = ref.pad_same(x, R, R, stride)
+            Ho = -(-H // stride)
+            if kernel == "ilpm_conv":
+                args = (xp, w)
+                kw = dict(stride=stride, scale=scale, bias=bias, act="relu")
+                mod = ilpm_conv
+            else:
+                args = (xp, {"w": w, "scale": scale, "bias": bias})
+                kw = dict(res=torch.randn(1, Ho, Ho, K, device="cuda",
+                                          generator=gen).to(dt), act="relu")
+                mod = fused_block
+
+            def call(plain=False, args=args, kw=kw, mod=mod, kernel=kernel):
+                fn = mod.plain if plain else getattr(mod, kernel)
+                return fn(*args, **kw)
+            planned = ilpm_conv.plan(xp, w, stride)
+            line = conv_tile_sweep(call, planned, C, R, tolerance(dt))
+            print(json.dumps({
+                "kernel": kernel, "H": H, "C": C, "K": K, "R": R,
+                "stride": stride, "dtype": str(dt).removeprefix("torch."),
+                "path": planned.path, "chunk": planned.chunk, **line}),
                 flush=True)
 
 

@@ -57,6 +57,11 @@
 // Rows and columns past M and N, and the tail of the contraction, are
 // filled with 0 by the copies (a zero source size), which adds nothing.
 //
+// conv_tile.cuh (ilpm_conv.cu, fused_residual_conv.cu) includes this
+// header for its copies, ldmatrix, mma.sync and split reduction; an
+// epilogue also gets the output's flat index, so the residual one can read
+// its shortcut.
+//
 // Everything here has internal linkage (an unnamed namespace): each
 // source that includes the header instantiates its own kernels.
 #pragma once
@@ -89,8 +94,10 @@ struct RowMajorA {
   __device__ int col(int k) const { return k; }
 };
 
+// An epilogue maps the fp32 sum v of output i (flat index), column n, to
+// the value stored; these two do not read i.
 struct Identity {
-  __device__ float operator()(float v, int) const { return v; }
+  __device__ float operator()(float v, int, size_t = 0) const { return v; }
 };
 
 // The convs' folded-BN epilogue: act(v * scale[n] + bias[n]) in fp32.
@@ -98,7 +105,7 @@ struct ScaleBiasAct {
   const float* scale;
   const float* bias;
   int act;
-  __device__ float operator()(float v, int n) const {
+  __device__ float operator()(float v, int n, size_t = 0) const {
     return ilpm::apply_act(fmaf(v, scale[n], bias[n]), act);
   }
 };
@@ -115,6 +122,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global -> shared, for a source with no aligned 16-byte runs; a
+// false `pred` writes 4 zero bytes.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -514,8 +530,8 @@ __global__ void __launch_bounds__(TC_THREADS) tile_tc_kernel(
 
 // ---- the split-K reduction ------------------------------------------------
 
-// c[i] = cast(epi(ws[0][i] + ws[1][i] + ... + ws[split-1][i])), in that
-// order; the column of i is i % N.
+// c[i] = cast(epi(ws[0][i] + ws[1][i] + ... + ws[split-1][i], i % N, i)),
+// the splits summed in that order.
 template <typename T, typename Epi>
 __global__ void splitk_reduce(const float* __restrict__ ws,
                               T* __restrict__ c, size_t total, int N,
@@ -524,8 +540,19 @@ __global__ void splitk_reduce(const float* __restrict__ ws,
        i += (size_t)gridDim.x * blockDim.x) {
     float v = ws[i];
     for (int s = 1; s < split; ++s) v += ws[s * total + i];
-    c[i] = ilpm::from_f32<T>(epi(v, (int)(i % N)));
+    c[i] = ilpm::from_f32<T>(epi(v, (int)(i % N), i));
   }
+}
+
+// The reduction of `split` fp32 partial outputs (split, total) into c.
+template <typename T, typename Epi>
+cudaError_t launch_splitk_reduce(const float* ws, T* c, size_t total, int N,
+                                 int split, const Epi& epi,
+                                 cudaStream_t stream) {
+  const unsigned blocks =
+      (unsigned)std::min<size_t>((total + 255) / 256, 132 * 16);
+  splitk_reduce<T><<<blocks, 256, 0, stream>>>(ws, c, total, N, split, epi);
+  return cudaGetLastError();
 }
 
 // ---- the launch -------------------------------------------------------
@@ -576,11 +603,8 @@ cudaError_t launch_tile(bool tensor, const ASrc& src, bool vec_a,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
-  const size_t total = (size_t)batch * M * N;
-  const unsigned blocks =
-      (unsigned)std::min<size_t>((total + 255) / 256, 132 * 16);
-  splitk_reduce<T><<<blocks, 256, 0, stream>>>(fws, c, total, N, split, epi);
-  return cudaGetLastError();
+  return launch_splitk_reduce(fws, c, (size_t)batch * M * N, N, split, epi,
+                              stream);
 }
 
 }  // namespace

@@ -35,9 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every exported entry point: dtype code, pointers, ints, stream
 SIGNATURES = {
-    "ilpm_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
+    "ilpm_conv_launch": [_I] + [_P] * 5 + [_I] * 15 + [_P] * 2,
     "pointwise_conv_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P] * 2,
-    "fused_residual_conv_launch": [_I] + [_P] * 6 + [_I] * 8 + [_P],
+    "fused_residual_conv_launch": [_I] + [_P] * 6 + [_I] * 12
+    + [_P] * 2,
     "depthwise_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
     "fused_inverted_residual_launch": [_I] + [_P] * 11 + [_I] * 13 + [_P],
     "direct_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],

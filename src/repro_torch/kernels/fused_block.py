@@ -3,15 +3,22 @@
 Replace the two Pallas kernels of ``src/repro/kernels/fused_block.py``:
 
 * ``fused_residual_conv`` (source ``csrc/fused_residual_conv.cu`` over the
-  halo'd-tile body in ``csrc/conv_tile.cuh``): a ResNet block's last conv
-  with the shortcut add and the outer activation in its output write. A
-  ResNet-18 block's second conv does 0.23 GFLOP per launch and must move
-  1-10 MB, so in fp32 (IEEE, on CUDA cores) the arithmetic bounds it and
-  in bf16 the bytes do. The tiling is ``ilpm_conv``'s: an 8x8-output
-  halo'd tile staged in shared memory chunk by chunk of C, reused over a
-  64-channel filter slab and every tap. The kernel converts
+  halo-resident, split conv tile of ``csrc/conv_tile.cuh``, which
+  ``ilpm_conv`` shares): a ResNet block's last conv with the shortcut add
+  and the outer activation in its output write. A ResNet-18 block's second
+  conv does 0.23 GFLOP per launch and must move 1-10 MB, so in IEEE fp32
+  (CUDA cores, 67 TFLOP/s) the arithmetic bounds it (the tuned path's 8
+  launches: 0.0276 ms per image) and in bf16 the bytes do. The tile and
+  its launch plan are ``ilpm_conv``'s (``ilpm_conv.plan`` at stride 1): an
+  8x8-output halo'd tile staged once per channel chunk with ``cp.async``,
+  every tap read from it against a 64-channel filter slab, the contraction
+  split over channel chunks (and filter rows) by shape and dtype alone so
+  the deep layers fill the card, ``mma.sync`` for bf16 and fp16 where C
+  and K are multiples of 8, IEEE ``fmaf`` otherwise. The epilogue converts
   ``acc*scale + bias`` to the compute dtype, adds ``res`` and applies the
-  activation, the op order of the unfused ``act(conv(x) + identity)``.
+  activation, the op order of the unfused ``act(conv(x) + identity)``;
+  after a split it runs once, in the reduction that sums the parts in
+  order.
 * ``fused_inverted_residual`` (source ``csrc/fused_inverted_residual.cu``):
   MobileNetV2's expand -> depthwise -> project block with the identity add,
   whose expanded tensor never reaches device memory. At MobileNetV2's
@@ -25,13 +32,13 @@ Replace the two Pallas kernels of ``src/repro/kernels/fused_block.py``:
 
 Each wrapper runs its kernel for a CUDA tensor and its plain version
 (``ref.<name>``) for a CPU tensor; ``<wrapper>.launches`` counts the
-kernel's launches.
+wrapper's launches (a split ``fused_residual_conv`` is two device kernels).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, gemm, ilpm_conv, ref
 
 plain = ref.fused_residual_conv
 plain_inverted_residual = ref.fused_inverted_residual
@@ -67,11 +74,13 @@ def fused_residual_conv(x_padded, weights, *, res, act="relu"):
     _build.check_operand(name, "res", res, dev, dt, (B, H, W, K))
     sc, bi = _build.epilogue_vectors(weights.get("scale"),
                                      weights.get("bias"), K, dev)
+    p = ilpm_conv.plan(x_padded, w, 1)
     out = torch.empty((B, H, W, K), dtype=dt, device=dev)
+    ws = gemm.workspace(p.parts, B, H * W, K, dev)
     err = _build.library().fused_residual_conv_launch(
         code, x_padded.data_ptr(), w.data_ptr(), sc.data_ptr(),
         bi.data_ptr(), res.data_ptr(), out.data_ptr(), B, Hp, Wp, C, R, S,
-        K, _build.act_code(act), _build.stream(dev))
+        K, _build.act_code(act), *ilpm_conv.launch_args(p, ws, dev))
     _build.check(err, name)
     fused_residual_conv.launches += 1
     return out
