@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``src/repro_torch/_build/``), then, printing one JSON object per line:
 
 1. environment: the card's name and power limit, torch, nvcc, build time;
-2. kernel phase: each kernel at every shape class that the nine paths
+2. kernel phase: each kernel at every shape class that the engine paths
    below launch (plus the 1x1 fused block ResNet-50 uses and a depthwise
    conv with channel multiplier 2), in fp32 and bf16, with non-zero
    folded-BN scales and biases, held against its plain PyTorch version on
@@ -22,14 +22,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    products no path launches (197×2305 @ 2305×129 in fp32, M, Kc and N
    multiples of no tile; 197×2304 @ 2304×256 in bf16, M ragged on the
    tensor cores); then ``pointwise_conv`` and ``libdnn_conv``, which run
-   on ``gemm``'s split-K tile, and ``ilpm_conv`` and
-   ``fused_residual_conv``, which run on the halo-resident conv tile, in
-   fp16 at each of their classes and at one ragged class each that no
-   path launches (a 15x17 image, C = 12, K = 20, stride 2; a 9x11 image,
-   C = 6, K = 20, 3x3; a 13x10 image, C = 12, K = 20, 3x3 stride 2; an
-   11x9 image, C = 12, K = 20, 3x3) in fp32 and bf16; each line of these
-   five carries its launch plan (path, tile, split, CTAs; the conv tile's
-   also its chunk and filter-row split);
+   on ``gemm``'s split-K tile, ``ilpm_conv`` and ``fused_residual_conv``,
+   which run on the halo-resident conv tile, and ``direct_conv`` and
+   ``fused_inverted_residual``, split kernels of their own, in fp16 at
+   each of their classes and at one ragged class each that no path
+   launches (a 15x17 image, C = 12, K = 20, stride 2; a 9x11 image, C =
+   6, K = 20, 3x3; a 13x10 image, C = 12, K = 20, 3x3 stride 2, for ilpm
+   and for direct; an 11x9 image, C = 12, K = 20, 3x3; an 11x9 image, Cin
+   12, mid 36, Cout 12, stride 1 with the identity add) in fp32 and bf16;
+   each line of these seven carries its launch plan (path, tile, split,
+   CTAs; the conv tile's also its chunk and filter-row split; direct's
+   its chunk, contraction slices and pixel tiles; the inverted
+   residual's its tile and parts of the mid width);
 3. a ``comparison`` line: the paper's algorithm comparison re-run on this
    card at its four ResNet layers (``PAPER_CONV_LAYERS``), fp32, with the
    folded-BN epilogue and ReLU: the device time of ilpm, direct and
@@ -76,7 +80,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      forced im2col) within 1e-4 of the CPU engine, and
      ``resnet18/bf16/store_fp32`` (bf16 compute over fp32 weights, tuned)
      within ``tolerance("bfloat16")``, with its top-1 agreement and max
-     relative logit error against the fp32 engine;
+     relative logit error against the fp32 engine; and
+     ``mobilenet_v2/bf16/store_fp32``, the same for tuned MobileNetV2
+     (launches as ``mobilenet_v2``);
 5. the Mamba-2 LM path (``repro_torch.launch.serve.generate``: one
    prefill, then greedy decode steps) on ``mamba2-370m`` at full width (48
    layers, random weights from seed 0):
@@ -178,18 +184,25 @@ WINOGRAD_CLASSES = {("winograd", 56, 64, 64), ("winograd", 28, 128, 128),
 # tensor-core path
 RAGGED_GEMM = {("ragged", 197, 2305, 129): torch.float32,
                ("ragged", 197, 2304, 256): torch.bfloat16}
-# the kernels on gemm's split-K tile (csrc/gemm_tile.cuh) and on the conv
-# tile (csrc/conv_tile.cuh), whose lines carry their launch plan
+# the kernels on gemm's split-K tile (csrc/gemm_tile.cuh), on the conv
+# tile (csrc/conv_tile.cuh) and the two split kernels of their own
+# (direct_conv.cu, fused_inverted_residual.cu), whose lines carry their
+# launch plan and which run in fp16 at every class
 CONV_TILE_KERNELS = ("ilpm_conv", "fused_residual_conv")
 TILE_KERNELS = ("gemm", "pointwise_conv", "libdnn_conv", *CONV_TILE_KERNELS)
-# conv classes on those tiles no path launches, ("ragged", H, W, C, K, R,
-# stride) -> kernel, in fp32 and bf16: H != W, C a multiple of no 16-byte
-# run (scalar loads; in bf16 the CUDA cores), K of no tile; libdnn's C = 6
-# puts 16-byte runs across taps
-RAGGED_CONV = {("ragged", 15, 17, 12, 20, 1, 2): "pointwise_conv",
-               ("ragged", 9, 11, 6, 20, 3, 1): "libdnn_conv",
-               ("ragged", 13, 10, 12, 20, 3, 2): "ilpm_conv",
-               ("ragged", 11, 9, 12, 20, 3, 1): "fused_residual_conv"}
+PLANNED_KERNELS = (*TILE_KERNELS, "direct_conv", "fused_inverted_residual")
+# classes of those kernels no path launches, (kernel, shape), in fp32 and
+# bf16: H != W, C a multiple of no 16-byte run (scalar loads; in bf16 the
+# CUDA cores), K of no tile; libdnn's C = 6 puts 16-byte runs across taps.
+# A conv's shape is ("ragged", H, W, C, K, R, stride); the inverted
+# residual's ("ragged", H, W, Cin, mid, Cout, R, stride, residual).
+RAGGED_CONV = (("pointwise_conv", ("ragged", 15, 17, 12, 20, 1, 2)),
+               ("libdnn_conv", ("ragged", 9, 11, 6, 20, 3, 1)),
+               ("ilpm_conv", ("ragged", 13, 10, 12, 20, 3, 2)),
+               ("fused_residual_conv", ("ragged", 11, 9, 12, 20, 3, 1)),
+               ("direct_conv", ("ragged", 13, 10, 12, 20, 3, 2)),
+               ("fused_inverted_residual",
+                ("ragged", 11, 9, 12, 36, 12, 3, 1, True)))
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -221,8 +234,11 @@ EXPECTED_PER_IMAGE = {
 EXPECTED_PER_IMAGE["resnet18/im2col/store_bf16"] = \
     EXPECTED_PER_IMAGE["resnet18/im2col"]
 EXPECTED_PER_IMAGE["resnet18/bf16/store_fp32"] = EXPECTED_PER_IMAGE["resnet18"]
+EXPECTED_PER_IMAGE["mobilenet_v2/bf16/store_fp32"] = \
+    EXPECTED_PER_IMAGE["mobilenet_v2"]
 # the compute dtype of a path, where it is not fp32
-PATH_DTYPE = {"resnet18/bf16/store_fp32": "bfloat16"}
+PATH_DTYPE = {"resnet18/bf16/store_fp32": "bfloat16",
+              "mobilenet_v2/bf16/store_fp32": "bfloat16"}
 
 
 # The Mamba-2 LM paths and their compute dtypes; causal_conv1d launches
@@ -500,8 +516,13 @@ def kernel_setup(kernel, shape, dtype, gen):
                     shape={"algorithm": "ragged", "M": M, "Kc": Kc, "N": N})
 
     if kernel == "fused_inverted_residual":
-        H, Cin, mid, Cout, R, stride, residual = shape
-        x = randn(1, H, H, Cin)
+        if shape[0] == "ragged":
+            _, H, W, Cin, mid, Cout, R, stride, residual = shape
+            ragged = {"algorithm": "ragged", "W": W}
+        else:
+            (H, Cin, mid, Cout, R, stride, residual), W, ragged = \
+                shape, shape[0], {}
+        x = randn(1, H, W, Cin)
         weights = {}
         if mid != Cin:
             weights["w1"] = randn(1, 1, Cin, mid, scale=Cin ** -0.5)
@@ -510,8 +531,8 @@ def kernel_setup(kernel, shape, dtype, gen):
         weights["sdw"], weights["bdw"] = bn(mid)
         weights["w2"] = randn(1, 1, mid, Cout, scale=mid ** -0.5)
         weights["s2"], weights["b2"] = bn(Cout)
-        OH = -(-H // stride)
-        lo, hi = _same_pads(H, R, stride)
+        OH, OW = -(-H // stride), -(-W // stride)
+        pads = (*_same_pads(W, R, stride), *_same_pads(H, R, stride))
         x_lib = x.permute(0, 3, 1, 2)
         lib = {k: _cl(v) if k[0] == "w" else vec(v)
                for k, v in weights.items()}
@@ -521,24 +542,24 @@ def kernel_setup(kernel, shape, dtype, gen):
             if "w1" in lib:
                 h = torch.clamp(F.conv2d(h, lib["w1"]) * lib["s1"]
                                 + lib["b1"], 0, 6)
-            if lo == hi:
-                h = F.conv2d(h, lib["wdw"], stride=stride, padding=lo,
+            if pads[0] == pads[1] == pads[2] == pads[3]:
+                h = F.conv2d(h, lib["wdw"], stride=stride, padding=pads[0],
                              groups=mid)
             else:
-                h = F.conv2d(F.pad(h, (lo, hi, lo, hi)), lib["wdw"],
-                             stride=stride, groups=mid)
+                h = F.conv2d(F.pad(h, pads), lib["wdw"], stride=stride,
+                             groups=mid)
             h = torch.clamp(h * lib["sdw"] + lib["bdw"], 0, 6)
             h = F.conv2d(h, lib["w2"]) * lib["s2"] + lib["b2"]
             return h + x_lib if residual else h
-        flops = 2 * (H * H * Cin * mid * ("w1" in weights)
-                     + OH * OH * mid * (R * R + Cout))
+        flops = 2 * (H * W * Cin * mid * ("w1" in weights)
+                     + OH * OW * mid * (R * R + Cout))
         return dict(
             fn=fused_block.fused_inverted_residual,
             plain=fused_block.plain_inverted_residual,
             args=(x, weights), kw=dict(stride=stride, residual=residual),
             library=library, inputs=[x, *weights.values()], flops=flops,
-            shape={"H": H, "Cin": Cin, "mid": mid, "Cout": Cout, "R": R,
-                   "stride": stride, "residual": residual})
+            shape={**ragged, "H": H, "Cin": Cin, "mid": mid, "Cout": Cout,
+                   "R": R, "stride": stride, "residual": residual})
     if kernel == "depthwise_conv":
         H, C, M, R, stride = shape
         x = randn(1, H, H, C)
@@ -635,16 +656,33 @@ def kernel_setup(kernel, shape, dtype, gen):
 
 
 def tile_plan(kernel, args, kw, y):
-    """The launch plan of one call of a kernel on gemm's split-K tile or on
-    the conv tile (``TILE_KERNELS``): its path, tile, split and CTAs (the
-    conv tile's: tile rows, columns and channels, chunk, channel-chunk
-    split, filter-row split and the parts the reduction adds). ``y`` is
-    the call's output: (batch, M, N) for gemm, (B, Ho, Wo, K) for a
-    conv."""
-    from repro_torch.kernels import gemm, ilpm_conv, libdnn_conv, \
-        pointwise_conv
+    """The launch plan of one call of a planned kernel
+    (``PLANNED_KERNELS``): its path, tile, split and CTAs (the conv
+    tile's: tile rows, columns and channels, chunk, channel-chunk split,
+    filter-row split and the parts the reduction adds; direct's: pixels
+    and channels of a tile, chunk, contraction slices and pixel tiles,
+    one a CTA; the inverted residual's: output tile side and parts of the
+    mid width, its 32-channel slabs, one a CTA). ``y`` is the call's output: (batch, M, N) for gemm, (B, Ho,
+    Wo, K) for a conv."""
+    from repro_torch.kernels import direct_conv, fused_block, gemm, \
+        ilpm_conv, libdnn_conv, pointwise_conv
 
     a, b = args
+    if kernel == "direct_conv":
+        p = direct_conv.plan(a, b, kw["stride"])
+        B, Ho, Wo, K = y.shape
+        tiles = -(-Ho * Wo // p.tile)
+        return {"path": p.path, "tile": [p.tile, direct_conv.TILE_K],
+                "chunk": p.chunk, "slices": p.slices, "tiles": tiles,
+                "ctas": -(-K // direct_conv.TILE_K) * p.slices * tiles * B}
+    if kernel == "fused_inverted_residual":
+        B, H, W, Cin = a.shape
+        R, S, _, mid = b["wdw"].shape
+        p = fused_block.plan(H, W, Cin, mid, y.shape[3], R, S,
+                             kw["stride"], "w1" in b, a.dtype)
+        return {"path": p.path, "tile": p.tile, "parts": p.parts,
+                "ctas": -(-y.shape[1] // p.tile) * -(-y.shape[2] // p.tile)
+                * p.parts * B}
     if kernel in CONV_TILE_KERNELS:
         w = b["w"] if kernel == "fused_residual_conv" else b
         p = ilpm_conv.plan(a, w, kw.get("stride", 1))
@@ -698,7 +736,7 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
-    if kernel in TILE_KERNELS:
+    if kernel in PLANNED_KERNELS:
         line["plan"] = tile_plan(kernel, args, kw, y)
     if kernel == "im2col_unroll":  # a copy: bitwise or wrong
         line["bitwise_equal"] = torch.equal(y, p)
@@ -1195,6 +1233,7 @@ def main() -> None:
     # bf16 compute over fp32 weights
     scfg = rcfg.replace(param_dtype="bfloat16")
     bcfg = rcfg.replace(dtype="bfloat16")
+    mbcfg = mcfg.replace(dtype="bfloat16")
     rplan = autotune.build_plan(resnet.conv_specs(rcfg), epilogue=True,
                                 block_specs=resnet.block_specs(rcfg))
     mplan = autotune.build_plan(mobilenet.conv_specs(mcfg), epilogue=True,
@@ -1206,7 +1245,10 @@ def main() -> None:
              "resnet18/int8": rplan,
              "resnet18/bf16/store_fp32": autotune.build_plan(
                  resnet.conv_specs(bcfg), epilogue=True,
-                 block_specs=resnet.block_specs(bcfg))}
+                 block_specs=resnet.block_specs(bcfg)),
+             "mobilenet_v2/bf16/store_fp32": autotune.build_plan(
+                 mobilenet.conv_specs(mbcfg), epilogue=True,
+                 block_specs=mobilenet.block_specs(mbcfg))}
 
     # ---- kernel phase --------------------------------------------------
     per_path = {}  # (kernel, shape) -> {path: launches per image}
@@ -1257,9 +1299,8 @@ def main() -> None:
               for shape, dtype in RAGGED_GEMM.items()]
     extra += [(kernel, shape, paths, torch.float16)
               for (kernel, shape), paths in ordered
-              if kernel in TILE_KERNELS and kernel != "gemm"]
-    extra += [(kernel, shape, {}, dtype)
-              for shape, kernel in RAGGED_CONV.items()
+              if kernel in PLANNED_KERNELS and kernel != "gemm"]
+    extra += [(kernel, shape, {}, dtype) for kernel, shape in RAGGED_CONV
               for dtype in (torch.float32, torch.bfloat16)]
     for kernel, shape, paths, dtype in extra:
         line = kernel_case(kernel, shape, dtype, gen, peaks)
@@ -1385,6 +1426,20 @@ def main() -> None:
                     f"tuned vs per-layer logits on the card: "
                     f"{line['vs_tuned_max_rel_err']}")
         emit(line)
+    # the tuned plan at bf16 over the same fp32 weights
+    path = "mobilenet_v2/bf16/store_fp32"
+    engine = InferenceEngine(mbcfg, params=tuned.model)
+    require(engine.plan.to_json() == plans[path].to_json(), f"{path}: plan")
+    line, blogits = engine_phase(path, engine, images, counters, results,
+                                 bound=tolerance("bfloat16"))
+    line["vs_fp32_max_rel_err"] = rel_err(blogits, logits["mobilenet_v2"])
+    line["vs_fp32_top1_agreement"] = (
+        blogits.argmax(-1) == logits["mobilenet_v2"].argmax(-1)
+    ).float().mean().item()
+    launches[path] = line["launches"]
+    emit(line)
+    require(line["logits_dtype"] == "float32", f"{path}: logits "
+                                               f"{line['logits_dtype']}")
 
     # ---- the Mamba-2 LM path: its kernel, serving, fp32 parity ---------
     lcfg = get(LM_CONFIG)

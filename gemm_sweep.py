@@ -20,10 +20,25 @@ ResNet-18 and ResNet-50's 1x1 one) in fp32 and bf16, at every pair of a
 channel-chunk split and a filter-row split the kernels accept. One JSON
 line per class and dtype: the ms of each split (``"split x rsplit"`` on
 the conv tile), the plan's split and the fastest. The card's name and
-power limit come first. ``gemm.plan``'s constants (``MIN_CTAS``,
-``MIN_SPLIT_CHUNKS``), which the convs' ``gemm.conv_plan`` shares, and
-``ilpm_conv.plan``'s (``MIN_CTAS``, ``ROW_SPLIT_BELOW``) are read from
-these lines.
+power limit come first. Then ``direct_conv`` at every class of forced
+ResNet-18 direct, at a ladder of slice counts (1, 2, 3, 4, 6, 8, 12, 16,
+24, 32, ... up to the chunks of the contraction, the least that fits
+shared memory first), beside the plan's pick; then
+``fused_inverted_residual`` at every block class of MobileNetV2 at every
+tile its kernel accepts (the tiles of ``fused_block.IR_TILES`` within
+``MAX_RECOMPUTE`` whose projection fits the accumulators and whose CTA
+fits shared memory), beside the plan's pick; both in fp32 and bf16, every
+option checked against the plain version. ``gemm.plan``'s constants
+(``MIN_CTAS``, ``MIN_SPLIT_CHUNKS``), which the convs' ``gemm.conv_plan``
+shares, ``ilpm_conv.plan``'s (``MIN_CTAS``, ``ROW_SPLIT_BELOW``),
+``direct_conv.plan``'s (``MIN_CTAS``, ``MAX_SLICES``) and
+``fused_block.plan``'s (``MAX_RECOMPUTE``, ``SLAB_COST``,
+``CTAS_PER_SM``) are read from these lines.
+
+    python3 gemm_sweep.py direct ir
+
+runs only the named parts (``gemm``, ``conv``, ``tile``, ``direct``,
+``ir``).
 """
 from __future__ import annotations
 
@@ -88,29 +103,16 @@ def conv_tile_sweep(call, planned, C, R, tol):
     """ms by (split, rsplit) of ``call()`` on the conv tile, each pair
     forced through ``ilpm_conv.plan`` (the plan's chunk kept) and checked
     against ``call(plain=True)`` within ``tol``."""
-    import chip_smoke
     from repro_torch.kernels import ilpm_conv
 
-    ref = call(plain=True).float()
     chunks = -(-C // planned.chunk)
-    plan, ms = ilpm_conv.plan, {}
-    try:
-        for split in (1, 2, 4, 8, 16):
-            if split > chunks:
-                break
-            for rsplit in range(1, R + 1):
-                ilpm_conv.plan = lambda *_, s=split, r=rsplit: \
-                    planned._replace(split=s, rsplit=r)
-                y = call().float()
-                rel = ((y - ref).abs().max() / ref.abs().max()).item()
-                chip_smoke.require(rel <= tol, f"split {split}x{rsplit}: "
-                                               f"{rel} > {tol}")
-                ms[f"{split}x{rsplit}"] = chip_smoke.time_ms(call)
-    finally:
-        ilpm_conv.plan = plan
-    return {"ms_by_split": ms,
+    options = {f"{split}x{rsplit}": {"split": split, "rsplit": rsplit}
+               for split in (1, 2, 4, 8, 16) if split <= chunks
+               for rsplit in range(1, R + 1)}
+    line = forced_sweep(call, ilpm_conv, planned, options, tol)
+    return {"ms_by_split": line["ms"],
             "plan_split": f"{planned.split}x{planned.rsplit}",
-            "fastest_split": min(ms, key=ms.get)}
+            "fastest_split": line["fastest"]}
 
 
 def sweep(call, kc, kind, planned_split, tol):
@@ -139,17 +141,39 @@ def sweep(call, kc, kind, planned_split, tol):
             "fastest_split": min(ms, key=ms.get)}
 
 
+PARTS = ("gemm", "conv", "tile", "direct", "ir")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("gemm_sweep: no CUDA card")
+    parts = sys.argv[1:] or PARTS
+    if set(parts) - set(PARTS):
+        raise SystemExit(f"gemm_sweep: parts are {PARTS}, got {parts}")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke
-    from repro_torch.core.dtypes import tolerance
-    from repro_torch.kernels import gemm, libdnn_conv, pointwise_conv, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(chip_smoke.nvidia_smi(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "gemm" in parts:
+        sweep_gemm(gen)
+    if "conv" in parts:
+        sweep_conv(gen)
+    if "tile" in parts:
+        sweep_conv_tile(gen)
+    if "direct" in parts:
+        sweep_direct(gen)
+    if "ir" in parts:
+        sweep_inverted_residual(gen)
+
+
+def sweep_gemm(gen):
+    """``gemm``'s lines (``CLASSES`` x ``PAIRS``), inputs from ``gen``."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import gemm
+
     for M, Kc, N, batch_b in CLASSES:
         for dt, bdt in PAIRS:
             if batch_b == 1 and bdt != dt:
@@ -169,6 +193,13 @@ def main() -> None:
                 "kernel": "gemm", "M": M, "Kc": Kc, "N": N,
                 "batch_b": batch_b, "a": str(dt).removeprefix("torch."),
                 "b": str(bdt).removeprefix("torch."), **line}), flush=True)
+
+
+def sweep_conv(gen):
+    """The split-K convs' lines (``conv_classes``), inputs from ``gen``."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import gemm, libdnn_conv, pointwise_conv, ref
+
     for kernel, H, C, K, R, stride in conv_classes():
         mod = pointwise_conv if kernel == "pointwise_conv" else libdnn_conv
         for dt in (torch.float32, torch.bfloat16):
@@ -196,7 +227,6 @@ def main() -> None:
                 "stride": stride, "M": Ho * Ho, "Kc": R * R * C, "N": K,
                 "dtype": str(dt).removeprefix("torch."), **line}),
                 flush=True)
-    sweep_conv_tile(gen)
 
 
 def sweep_conv_tile(gen):
@@ -232,6 +262,141 @@ def sweep_conv_tile(gen):
                 "kernel": kernel, "H": H, "C": C, "K": K, "R": R,
                 "stride": stride, "dtype": str(dt).removeprefix("torch."),
                 "path": planned.path, "chunk": planned.chunk, **line}),
+                flush=True)
+
+
+def forced_sweep(call, module, planned, options, tol):
+    """ms by option of ``call()``, each plan ``planned._replace(**option)``
+    forced through ``module.plan`` and checked against ``call(plain=True)``
+    within ``tol``; with the plan's option and the fastest. ``options``:
+    label -> the fields to replace."""
+    import chip_smoke
+
+    ref = call(plain=True).float()
+    plan, ms = module.plan, {}
+    try:
+        for label, fields in options.items():
+            module.plan = lambda *_, f=fields: planned._replace(**f)
+            y = call().float()
+            rel = ((y - ref).abs().max() / ref.abs().max()).item()
+            chip_smoke.require(rel <= tol, f"{label}: {rel} > {tol}")
+            ms[label] = chip_smoke.time_ms(call)
+    finally:
+        module.plan = plan
+    return {"ms": ms, "fastest": min(ms, key=ms.get)}
+
+
+def _ladder(lo, hi):
+    """1, 2, 3, 4, 6, 8, 12, 16, 24, ... within [lo, hi], and lo and hi."""
+    steps, v = {lo, hi}, 1
+    while v <= hi:
+        steps.update(u for u in (v, 3 * v // 2) if lo <= u <= hi)
+        v *= 2
+    return sorted(steps)
+
+
+def direct_classes():
+    """(H, C, K, R, stride) of every conv site of ResNet-18 at 224² input
+    (forced direct's 20 launches), each class once."""
+    from repro_torch.configs import get
+    from repro_torch.models import resnet
+
+    return sorted({(spec.h, spec.c, spec.k, spec.r, spec.stride)
+                   for _, spec in resnet.conv_specs(get("resnet18"))})
+
+
+def sweep_direct(gen):
+    """``direct_conv``'s lines (``direct_classes``), inputs from ``gen``."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import direct_conv, ref
+
+    for H, C, K, R, stride in direct_classes():
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(1, H, H, C, device="cuda", generator=gen).to(dt)
+            w = (torch.randn(R, R, C, K, device="cuda", generator=gen)
+                 * (R * R * C) ** -0.5).to(dt)
+            scale = torch.rand(K, device="cuda", generator=gen) + 0.5
+            bias = torch.randn(K, device="cuda", generator=gen) * 0.1
+            xp = ref.pad_same(x, R, R, stride)
+            kw = dict(stride=stride, scale=scale, bias=bias, act="relu")
+
+            def call(plain=False, xp=xp, w=w, kw=kw):
+                fn = direct_conv.plain if plain else direct_conv.direct_conv
+                return fn(xp, w, **kw)
+            p = direct_conv.plan(xp, w, stride)
+            chunks = -(-R * R * C // p.chunk)
+            least = 1
+            while direct_conv.smem_bytes(
+                    p.path, x.element_size(), p.chunk,
+                    direct_conv.slice_depth(chunks, p.chunk, least)) \
+                    > direct_conv.MAX_SMEM:
+                least += 1
+            options = {str(s): {"slices": s}
+                       for s in sorted({*_ladder(least, chunks), p.slices})}
+            line = forced_sweep(call, direct_conv, p, options, tolerance(dt))
+            print(json.dumps({
+                "kernel": "direct_conv", "H": H, "C": C, "K": K, "R": R,
+                "stride": stride, "dtype": str(dt).removeprefix("torch."),
+                "path": p.path, "chunk": p.chunk,
+                "plan": str(p.slices), **line}), flush=True)
+
+
+def inverted_residual_classes():
+    """(H, Cin, mid, Cout, R, stride, residual, expanded) of every block
+    of MobileNetV2 at 224² input, each class once."""
+    from repro_torch.configs import get
+    from repro_torch.models import mobilenet
+
+    return sorted({(b.h, b.cin, b.mid, b.cout, b.r, b.stride, b.residual,
+                    b.expanded)
+                   for _, b in mobilenet.block_specs(get("mobilenet_v2"))})
+
+
+def sweep_inverted_residual(gen):
+    """``fused_inverted_residual``'s lines, inputs from ``gen``."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import fused_block as fb
+
+    for H, Cin, mid, Cout, R, stride, residual, expanded in \
+            inverted_residual_classes():
+        for dt in (torch.float32, torch.bfloat16):
+            def randn(*dims, scale=1.0):
+                return (torch.randn(*dims, device="cuda", generator=gen)
+                        * scale).to(dt)
+
+            def bn(n):
+                return (torch.rand(n, device="cuda", generator=gen) + 0.5,
+                        torch.randn(n, device="cuda", generator=gen) * 0.1)
+            x = randn(1, H, H, Cin)
+            weights = {}
+            if expanded:
+                weights["w1"] = randn(1, 1, Cin, mid, scale=Cin ** -0.5)
+                weights["s1"], weights["b1"] = bn(mid)
+            weights["wdw"] = randn(R, R, 1, mid, scale=1 / R)
+            weights["sdw"], weights["bdw"] = bn(mid)
+            weights["w2"] = randn(1, 1, mid, Cout, scale=mid ** -0.5)
+            weights["s2"], weights["b2"] = bn(Cout)
+            kw = dict(stride=stride, residual=residual)
+
+            def call(plain=False, x=x, weights=weights, kw=kw):
+                fn = fb.plain_inverted_residual if plain \
+                    else fb.fused_inverted_residual
+                return fn(x, weights, **kw)
+            p = fb.plan(H, H, Cin, mid, Cout, R, R, stride, expanded, dt)
+            options = {
+                str(tile): {"tile": tile} for tile in fb.IR_TILES
+                if fb.recompute(tile, stride, R, R) <= fb.MAX_RECOMPUTE
+                and fb.acc_blocks(p.path, tile, Cout) <= fb.IR_MAX_ACC
+                and fb.ir_smem_bytes(p.path, x.element_size(), tile, stride,
+                                     R, R, Cin, Cout, expanded)
+                <= fb.MAX_SMEM}
+            line = forced_sweep(call, fb, p, options, tolerance(dt))
+            print(json.dumps({
+                "kernel": "fused_inverted_residual", "H": H, "Cin": Cin,
+                "mid": mid, "Cout": Cout, "stride": stride,
+                "residual": residual, "dtype": str(dt).removeprefix("torch."),
+                "path": p.path, "parts": p.parts, "plan": str(p.tile),
+                **line}),
                 flush=True)
 
 

@@ -40,8 +40,9 @@ SIGNATURES = {
     "fused_residual_conv_launch": [_I] + [_P] * 6 + [_I] * 12
     + [_P] * 2,
     "depthwise_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
-    "fused_inverted_residual_launch": [_I] + [_P] * 11 + [_I] * 13 + [_P],
-    "direct_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
+    "fused_inverted_residual_launch": [_I] + [_P] * 11 + [_I] * 13
+    + [_P] * 2,
+    "direct_conv_launch": [_I] + [_P] * 5 + [_I] * 13 + [_P] * 2,
     "libdnn_conv_launch": [_I] + [_P] * 5 + [_I] * 12 + [_P] * 2,
     "im2col_unroll_launch": [_I] + [_P] * 2 + [_I] * 8 + [_P],
     "gemm_launch": [_I] * 2 + [_P] * 3 + [_I] * 7 + [_P] * 2,

@@ -19,22 +19,38 @@ Replace the two Pallas kernels of ``src/repro/kernels/fused_block.py``:
   activation, the op order of the unfused ``act(conv(x) + identity)``;
   after a split it runs once, in the reduction that sums the parts in
   order.
-* ``fused_inverted_residual`` (source ``csrc/fused_inverted_residual.cu``):
-  MobileNetV2's expand -> depthwise -> project block with the identity add,
-  whose expanded tensor never reaches device memory. At MobileNetV2's
-  shapes its fp32 operations on CUDA cores bound it. One block owns a
-  ``tile`` x ``tile`` patch of output pixels, all output channels and one
-  image, and loops over 32-channel slabs of the expanded width; neighbouring
-  blocks recompute the expansion of their shared halo. ``choose_tile``
-  picks the tile (8, 4, 2 or 1) that minimises an estimate of the time per
-  launch, within a block's shared memory, so a 7x7 image still spreads
-  over many SMs.
+* ``fused_inverted_residual`` (source ``csrc/fused_inverted_residual.cu``,
+  on ``gemm_tile.cuh``'s copies, ``ldmatrix``, ``mma.sync`` and split
+  reduction): MobileNetV2's expand -> depthwise -> project block with the
+  identity add, whose expanded tensor never reaches device memory. The 17
+  blocks do 0.56 GFLOP per image, so in IEEE fp32 (CUDA cores) the
+  arithmetic bounds them (0.0084 ms per image). A CTA owns a ``tile`` x
+  ``tile`` patch of output pixels of one image and one 32-channel slab of
+  the mid width: it stages its input halo and the slab's weights with
+  ``cp.async``, expands the halo, runs the depthwise taps and projects the
+  slab into fp32 accumulators held in registers. The first kernel could
+  reach more CTAs only by shrinking the tile (49 CTAs at 14² and 7², each
+  re-expanding 4-9x its outputs' halo), multiplied with one column a
+  thread and kept the projection sum in shared memory; now the mid width
+  is split into its slabs, ``plan`` picks the tile from the shape and
+  dtype alone (never the number of images) with a halo recompute of at
+  most ``MAX_RECOMPUTE``, and a second kernel of the same launch sums the
+  slabs' fp32 partials in order, with the projection epilogue, the cast
+  and the identity add. A CTA walking several slabs was slower at every
+  MobileNetV2 block (``gemm_sweep.py``): fewer CTAs, each a chain of
+  dependent stages. fp32 runs IEEE ``fmaf`` on 4x4 register blocks;
+  bf16 and fp16 run the expand and the project on ``mma.sync`` where Cin,
+  mid and Cout are multiples of 8, the depthwise taps on the CUDA cores in
+  fp32.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain version
 (``ref.<name>``) for a CPU tensor; ``<wrapper>.launches`` counts the
-wrapper's launches (a split ``fused_residual_conv`` is two device kernels).
+wrapper's launches (a split launch of either is two device kernels).
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,11 +59,39 @@ from repro_torch.kernels import _build, gemm, ilpm_conv, ref
 plain = ref.fused_residual_conv
 plain_inverted_residual = ref.fused_inverted_residual
 
-# csrc/fused_inverted_residual.cu: the mid slab width, the rows a thread
-# carries in a block product, and a block's shared-memory limit on sm_90
+# csrc/fused_inverted_residual.cu: the mid slab width, threads and warps
+# of a CTA, the projection blocks a thread (CUDA cores: 4x4 outputs) or a
+# warp (tensor cores: 16x16) holds at most, and a block's shared-memory
+# limit on sm_90
 IR_SLAB = 32
-IR_GEMM_ROWS = 4
+IR_THREADS = 256
+IR_WARPS = 8
+IR_MAX_ACC = 8
 MAX_SMEM = 232448
+# The plan's search: output tile sides and the most halo recompute a tile
+# may cost. Its estimate of a launch: waves of CTAs (CTAS_PER_SM of a
+# path on one SM, 1 where the fp32 path holds more than 2 projection
+# blocks a thread; shared memory may allow fewer) times a slab's
+# multiply-adds plus SLAB_COST, the latency of a slab's three dependent
+# stages in multiply-adds. Read from gemm_sweep.py (``ir``, every tile at
+# MobileNetV2's 12 block classes, fp32 and bf16, one H100): the pick is
+# within 7% of the fastest at all 24, for SLAB_COST anywhere in 50k-1M;
+# 2 CTAs a SM on the tensor cores, as on the CUDA cores, put it 23% off
+# at the 112² stride-2 block.
+IR_TILES = (8, 7, 6, 5, 4, 3, 2, 1)
+MAX_RECOMPUTE = 2.3
+SLAB_COST = 380_000
+CTAS_PER_SM = {"fp32": 2, "tensor": 4}
+SM_SMEM = 233472  # shared memory of one SM, 1 KB a CTA reserved
+
+
+class IRPlan(NamedTuple):
+    """A launch plan of ``fused_inverted_residual``: its path (``"fp32"``:
+    CUDA cores, ``"tensor"``: mma.sync), output tile side and parts of the
+    mid width (its 32-channel slabs, one a CTA)."""
+    path: str
+    tile: int
+    parts: int
 
 
 def fused_residual_conv(x_padded, weights, *, res, act="relu"):
@@ -89,41 +133,111 @@ def fused_residual_conv(x_padded, weights, *, res, act="relu"):
 fused_residual_conv.launches = 0
 
 
-def ir_smem_bytes(tile, stride, r, s, cin, cout, expanded):
-    """Shared memory of one ``fused_inverted_residual`` block: the input
-    halo, the w1 slab, the expanded and depthwise slabs, the w2 slab and
-    the fp32 accumulator, all fp32."""
+def _up(v, m):
+    return -(-v // m) * m
+
+
+def ir_path(cin, mid, cout, dtype) -> str:
+    """``"tensor"`` (mma.sync) for a 16-bit block whose Cin, mid and Cout
+    are multiples of 8, else ``"fp32"`` (CUDA-core fmaf)."""
+    return "tensor" if dtype in gemm.HALF and cin % 8 == 0 \
+        and mid % 8 == 0 and cout % 8 == 0 else "fp32"
+
+
+def recompute(tile, stride, r, s) -> float:
+    """Halo pixels a CTA expands over the input pixels its outputs
+    cover: ((tile-1)·stride + R)·((tile-1)·stride + S) / (stride·tile)²."""
+    return ((tile - 1) * stride + r) * ((tile - 1) * stride + s) \
+        / (stride * tile) ** 2
+
+
+def _geometry(path, tile, stride, r, s, cin, cout):
+    """(npi, npo, npi_pad, npo_pad, kin, cout_pad) as the launcher derives
+    them: halo and output pixels, rows padded to the products' M granule
+    (16 on the tensor cores, 4 on the CUDA cores), Cin and Cout padded
+    to it."""
+    g = 16 if path == "tensor" else 4
     npi = ((tile - 1) * stride + r) * ((tile - 1) * stride + s)
     npo = tile * tile
-    return 4 * (npi * cin + (cin * IR_SLAB if expanded else 0)
-                + npi * IR_SLAB + npo * IR_SLAB + IR_SLAB * cout
-                + npo * cout)
+    return npi, npo, _up(npi, g), _up(npo, g), _up(cin, g), _up(cout, g)
 
 
-def choose_tile(h, w, cin, mid, cout, r, s, stride, expanded, *, batch=1,
-                sms=132):
-    """The output tile of ``fused_inverted_residual``: among 8, 4, 2 and 1,
-    within a block's shared memory, the one with the least estimated time,
-    the larger of one block's FMAs (the block products padded to 4 rows
-    and 32 columns, as the kernel computes them) and all blocks' FMAs over
-    ``sms``. A tie goes to the larger tile."""
-    def gemm(m, n, k):
-        return -(-m // IR_GEMM_ROWS) * IR_GEMM_ROWS * -(-n // 32) * 32 * k
+def ir_smem_bytes(path, itemsize, tile, stride, r, s, cin, cout, expanded):
+    """Shared memory of one CTA, as ``csrc/fused_inverted_residual.cu``
+    lays it out: the input halo, the slab's w1, wdw and w2 slices, the
+    expanded slab (fp32) and the depthwise slab (T on the tensor cores,
+    else fp32), rows padded as the kernel pads them."""
+    v = 16 // itemsize
+    npi, _, npi_pad, npo_pad, kin, cout_pad = _geometry(
+        path, tile, stride, r, s, cin, cout)
+    weights = (_up(kin * (IR_SLAB + v) * itemsize, 16) if expanded else 0) \
+        + _up(r * s * IR_SLAB * itemsize, 16) \
+        + _up(IR_SLAB * (_up(cout_pad, v) + v) * itemsize, 16)
+    d = npo_pad * (IR_SLAB + 8) * itemsize if path == "tensor" \
+        else npo_pad * (IR_SLAB + 4) * 4
+    return (_up(npi_pad * (_up(kin, v) + v) * itemsize, 16)
+            + weights + _up(npi * (IR_SLAB + 4) * 4, 16) + d)
 
+
+def acc_blocks(path, tile, cout) -> int:
+    """Projection blocks one thread (CUDA cores, 4x4) or warp (tensor
+    cores, 16x16) holds: at most ``IR_MAX_ACC``."""
+    _, _, _, npo_pad, _, cout_pad = _geometry(path, tile, 1, 1, 1, 1, cout)
+    if path == "tensor":
+        return -(-(npo_pad // 16 * (cout_pad // 16)) // IR_WARPS)
+    return -(-(npo_pad // 4 * (cout_pad // 4)) // IR_THREADS)
+
+
+def slab_work(path, tile, stride, r, s, cin, cout, expanded) -> int:
+    """Multiply-adds of one slab of one CTA, padded as the kernel pads
+    them: the expand over the halo, the depthwise taps, the project."""
+    _, npo, npi_pad, npo_pad, kin, cout_pad = _geometry(
+        path, tile, stride, r, s, cin, cout)
+    return ((npi_pad * IR_SLAB * kin if expanded else 0)
+            + npo * IR_SLAB * r * s + npo_pad * cout_pad * IR_SLAB)
+
+
+def ctas_per_sm(path, itemsize, tile, stride, r, s, cin, cout, expanded):
+    """CTAs one SM holds at once: the path's ``CTAS_PER_SM`` (1 where the
+    fp32 path holds more than 2 projection blocks a thread), fewer where
+    their shared memory does not fit."""
+    regs = 1 if path == "fp32" and acc_blocks(path, tile, cout) > 2 \
+        else CTAS_PER_SM[path]
+    smem = ir_smem_bytes(path, itemsize, tile, stride, r, s, cin, cout,
+                         expanded)
+    return max(1, min(regs, SM_SMEM // (smem + 1024)))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(h, w, cin, mid, cout, r, s, stride, expanded, dtype) -> IRPlan:
+    """The launch plan of ``fused_inverted_residual`` on an (h, w, cin)
+    input: one part a 32-channel slab of the mid width and, among the
+    tiles of ``IR_TILES`` whose halo recompute is at most
+    ``MAX_RECOMPUTE``, whose projection fits the accumulators and whose
+    CTA fits a block's shared memory, the one with the least estimated
+    time: waves of CTAs over ``gemm.SMS`` SMs times (a slab's
+    multiply-adds + ``SLAB_COST``). A tie goes to the larger tile. A pure
+    function of shape and dtype: never sees the number of images or the
+    device. Memoised: the search takes about 50 µs of host time, and an
+    engine calls it for every block of every image."""
+    path = ir_path(cin, mid, cout, dtype)
+    size = torch.empty(0, dtype=dtype).element_size()
+    slabs = -(-mid // IR_SLAB)
     oh, ow = -(-h // stride), -(-w // stride)
     best = None
-    for tile in (8, 4, 2, 1):
-        if ir_smem_bytes(tile, stride, r, s, cin, cout, expanded) > MAX_SMEM:
+    for tile in IR_TILES:
+        if recompute(tile, stride, r, s) > MAX_RECOMPUTE \
+                or acc_blocks(path, tile, cout) > IR_MAX_ACC \
+                or ir_smem_bytes(path, size, tile, stride, r, s, cin, cout,
+                                 expanded) > MAX_SMEM:
             continue
-        npi = ((tile - 1) * stride + r) * ((tile - 1) * stride + s)
-        npo = tile * tile
-        work = -(-mid // IR_SLAB) * (
-            (gemm(npi, IR_SLAB, cin) if expanded else 0)
-            + npo * IR_SLAB * r * s + gemm(npo, cout, IR_SLAB))
-        blocks = -(-oh // tile) * -(-ow // tile) * batch
-        est = max(work, blocks * work / sms)
+        ctas = -(-oh // tile) * -(-ow // tile) * slabs
+        per_sm = ctas_per_sm(path, size, tile, stride, r, s, cin, cout,
+                             expanded)
+        work = slab_work(path, tile, stride, r, s, cin, cout, expanded)
+        est = -(-ctas // (gemm.SMS * per_sm)) * (work + SLAB_COST)
         if best is None or est < best[0]:
-            best = (est, tile)
+            best = (est, IRPlan(path, tile, slabs))
     if best is None:
         raise ValueError(f"fused_inverted_residual: no tile fits shared "
                          f"memory for Cin {cin}, Cout {cout}")
@@ -175,15 +289,21 @@ def fused_inverted_residual(x, weights, *, stride=1, residual=False,
                                        weights.get("bdw"), mid, dev)
     s2, b2 = _build.epilogue_vectors(weights.get("s2"), weights.get("b2"),
                                      Cout, dev)
-    tile = choose_tile(H, W, Cin, mid, Cout, R, S, stride, expanded,
-                       batch=B, sms=_sm_count(dev))
-    out = torch.empty((B, -(-H // stride), -(-W // stride), Cout), dtype=dt,
-                      device=dev)
+    p = plan(H, W, Cin, mid, Cout, R, S, stride, expanded, dt)
+    if p.path == "tensor" and any(
+            t.data_ptr() % 16 for t in (x, wdw, w2, *([w1] if expanded
+                                                      else []))):
+        raise ValueError(f"{name}: the {dt} tensor-core path needs 16-byte "
+                         f"aligned x, w1, wdw and w2")
+    OH, OW = -(-H // stride), -(-W // stride)
+    out = torch.empty((B, OH, OW, Cout), dtype=dt, device=dev)
+    ws = gemm.workspace(p.parts, B, OH * OW, Cout, dev)
     err = _build.library().fused_inverted_residual_launch(
         code, x.data_ptr(), *ptrs, wdw.data_ptr(), sdw.data_ptr(),
         bdw.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), B, H, W, Cin, mid, Cout, R, S, stride, tile,
+        out.data_ptr(), B, H, W, Cin, mid, Cout, R, S, stride,
         _build.act_code(act), _build.act_code(out_act), int(residual),
+        p.tile, ws.data_ptr() if ws is not None else None,
         _build.stream(dev))
     _build.check(err, name)
     fused_inverted_residual.launches += 1
@@ -192,6 +312,3 @@ def fused_inverted_residual(x, weights, *, stride=1, residual=False,
 
 fused_inverted_residual.launches = 0
 
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count

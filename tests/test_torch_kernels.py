@@ -209,29 +209,38 @@ def test_inverted_residual_tiles_fit_shared_memory(name):
     cfg = tget("mobilenet_v2")
     if name.endswith("tiny"):
         cfg = tiny_variant(cfg)
-    tiles = []
+    plans = []
     for _, b in tmobilenet.block_specs(cfg):
-        tile = fused_block.choose_tile(b.h, b.w, b.cin, b.mid, b.cout, b.r,
-                                       b.s, b.stride, b.expanded)
-        assert fused_block.ir_smem_bytes(tile, b.stride, b.r, b.s, b.cin,
-                                         b.cout, b.expanded) \
-            <= fused_block.MAX_SMEM
-        tiles.append(tile)
-    assert set(tiles) <= {1, 2, 4, 8}
-    if name == "mobilenet_v2":  # the 7x7 blocks spread over 49 blocks
-        assert tiles[0] == 8 and tiles[-1] == 1
+        for dt in (torch.float32, torch.bfloat16):
+            p = fused_block.plan(b.h, b.w, b.cin, b.mid, b.cout, b.r, b.s,
+                                 b.stride, b.expanded, dt)
+            assert p.parts == -(-b.mid // fused_block.IR_SLAB)
+            assert fused_block.ir_smem_bytes(
+                p.path, torch.empty(0, dtype=dt).element_size(), p.tile,
+                b.stride, b.r, b.s, b.cin, b.cout, b.expanded) \
+                <= fused_block.MAX_SMEM
+            plans.append(p)
+    assert {p.tile for p in plans} <= set(fused_block.IR_TILES)
+    if name == "mobilenet_v2":  # the 7x7 blocks split the mid width
+        assert plans[-1].parts > 1 and plans[-1].tile >= 2
 
 
 def test_choose_tile_respects_shared_memory():
-    # s6b0 at tile 8 needs 228,352 bytes: inside the limit; a wider Cout
-    # is not, and a smaller tile is chosen even with a single image
-    assert fused_block.ir_smem_bytes(8, 1, 3, 3, 160, 320, True) == 228352
-    assert fused_block.ir_smem_bytes(8, 1, 3, 3, 160, 400, True) \
-        > fused_block.MAX_SMEM
-    assert fused_block.choose_tile(64, 64, 160, 960, 400, 3, 3, 1, True,
-                                   sms=1) < 8
+    """The plan that replaced ``choose_tile`` sizes a CTA as the kernel
+    lays it out: s6b0 (160 -> 960 -> 320, 7x7) at tile 8 in fp32 needs
+    154,880 bytes, inside the limit; a 480-channel input is not, and the
+    plan picks a smaller tile that fits; no tile fits a 16000-channel
+    input."""
+    assert fused_block.ir_smem_bytes("fp32", 4, 8, 1, 3, 3, 160, 320,
+                                     True) == 154880
+    assert fused_block.ir_smem_bytes("fp32", 4, 8, 1, 3, 3, 480, 320,
+                                     True) > fused_block.MAX_SMEM
+    p = fused_block.plan(64, 64, 480, 960, 320, 3, 3, 1, True, torch.float32)
+    assert p.tile < 8
+    assert fused_block.ir_smem_bytes("fp32", 4, p.tile, 1, 3, 3, 480, 320,
+                                     True) <= fused_block.MAX_SMEM
     with pytest.raises(ValueError, match="shared memory"):
-        fused_block.choose_tile(8, 8, 16000, 32, 16, 3, 3, 1, True)
+        fused_block.plan(8, 8, 16000, 32, 16, 3, 3, 1, True, torch.float32)
 
 
 @pytest.mark.parametrize("h,r,stride,pads", [
