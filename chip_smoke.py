@@ -23,17 +23,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    multiples of no tile; 197×2304 @ 2304×256 in bf16, M ragged on the
    tensor cores); then ``pointwise_conv`` and ``libdnn_conv``, which run
    on ``gemm``'s split-K tile, ``ilpm_conv`` and ``fused_residual_conv``,
-   which run on the halo-resident conv tile, and ``direct_conv`` and
-   ``fused_inverted_residual``, split kernels of their own, in fp16 at
-   each of their classes and at one ragged class each that no path
-   launches (a 15x17 image, C = 12, K = 20, stride 2; a 9x11 image, C =
-   6, K = 20, 3x3; a 13x10 image, C = 12, K = 20, 3x3 stride 2, for ilpm
-   and for direct; an 11x9 image, C = 12, K = 20, 3x3; an 11x9 image, Cin
-   12, mid 36, Cout 12, stride 1 with the identity add) in fp32 and bf16;
-   each line of these seven carries its launch plan (path, tile, split,
-   CTAs; the conv tile's also its chunk and filter-row split; direct's
-   its chunk, contraction slices and pixel tiles; the inverted
-   residual's its tile and parts of the mid width);
+   which run on the halo-resident conv tile, ``direct_conv`` and
+   ``fused_inverted_residual``, split kernels of their own, and
+   ``depthwise_conv``, in fp16 at each of their classes and at one ragged
+   class each that no path launches (a 15x17 image, C = 12, K = 20,
+   stride 2; a 9x11 image, C = 6, K = 20, 3x3; a 13x10 image, C = 12, K =
+   20, 3x3 stride 2, for ilpm and for direct; an 11x9 image, C = 12, K =
+   20, 3x3; an 11x9 image, Cin 12, mid 36, Cout 12, stride 1 with the
+   identity add; an 11x9 image, C = 12, 3x3 depthwise, stride 1) in fp32
+   and bf16; each line of these eight carries its launch plan (path,
+   tile, split, CTAs; the conv tile's also its chunk and filter-row
+   split; direct's its chunk, contraction slices and pixel tiles; the
+   inverted residual's its tile and parts of the mid width; depthwise's
+   tile, channels, threads, shared memory and which kernel: 3x3 or
+   generic). Each fp32
+   ``fused_inverted_residual`` line is also held, bitwise
+   (``vs_per_layer_bitwise_equal``), against the per-layer chain of
+   ported kernels on the same inputs: pointwise -> SAME pad -> depthwise
+   -> pointwise (+ x);
 3. a ``comparison`` line: the paper's algorithm comparison re-run on this
    card at its four ResNet layers (``PAPER_CONV_LAYERS``), fp32, with the
    folded-BN epilogue and ReLU: the device time of ilpm, direct and
@@ -50,13 +57,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    - ``InferenceEngine(get("resnet18"))`` at full width (224x224, fp32,
      tuned, random weights from seed 0): ilpm_conv 9, pointwise_conv 3,
      fused_residual_conv 8;
+   - the same weights on the per-layer plan (the tuned plan with its
+     blocks stripped, ``resnet18/per_layer``): ilpm_conv 17,
+     pointwise_conv 3; its logits bitwise equal to the tuned engine's on
+     the card (``vs_tuned_bitwise_equal``, required: the reference's
+     fused-vs-per-layer contract at fp32);
    - ``InferenceEngine(get("mobilenet_v2"))`` at full width (224x224, fp32,
      random weights from seed 0, folded-BN scales from U(0.5, 1.5) and
      biases from N(0, 0.1)), tuned: ilpm_conv 1, fused_inverted_residual
      17, pointwise_conv 1;
    - the same network on the per-layer plan (the tuned plan with its
      blocks stripped): ilpm_conv 1, depthwise_conv 17, pointwise_conv 34;
-     its logits against the tuned engine's on the card;
+     its logits bitwise equal to the tuned engine's on the card
+     (required, as for ResNet-18);
    - ``InferenceEngine(get("resnet18"), algorithm=X)``, the reference's
      forced-algorithm entry point, on the tuned engine's weights, for X
      in direct (direct_conv 20), im2col (im2col_unroll 13, gemm 13,
@@ -190,19 +203,22 @@ RAGGED_GEMM = {("ragged", 197, 2305, 129): torch.float32,
 # launch plan and which run in fp16 at every class
 CONV_TILE_KERNELS = ("ilpm_conv", "fused_residual_conv")
 TILE_KERNELS = ("gemm", "pointwise_conv", "libdnn_conv", *CONV_TILE_KERNELS)
-PLANNED_KERNELS = (*TILE_KERNELS, "direct_conv", "fused_inverted_residual")
+PLANNED_KERNELS = (*TILE_KERNELS, "direct_conv", "fused_inverted_residual",
+                   "depthwise_conv")
 # classes of those kernels no path launches, (kernel, shape), in fp32 and
 # bf16: H != W, C a multiple of no 16-byte run (scalar loads; in bf16 the
 # CUDA cores), K of no tile; libdnn's C = 6 puts 16-byte runs across taps.
 # A conv's shape is ("ragged", H, W, C, K, R, stride); the inverted
-# residual's ("ragged", H, W, Cin, mid, Cout, R, stride, residual).
+# residual's ("ragged", H, W, Cin, mid, Cout, R, stride, residual); the
+# depthwise conv's ("ragged", H, W, C, M, R, stride).
 RAGGED_CONV = (("pointwise_conv", ("ragged", 15, 17, 12, 20, 1, 2)),
                ("libdnn_conv", ("ragged", 9, 11, 6, 20, 3, 1)),
                ("ilpm_conv", ("ragged", 13, 10, 12, 20, 3, 2)),
                ("fused_residual_conv", ("ragged", 11, 9, 12, 20, 3, 1)),
                ("direct_conv", ("ragged", 13, 10, 12, 20, 3, 2)),
                ("fused_inverted_residual",
-                ("ragged", 11, 9, 12, 36, 12, 3, 1, True)))
+                ("ragged", 11, 9, 12, 36, 12, 3, 1, True)),
+               ("depthwise_conv", ("ragged", 11, 9, 12, 1, 3, 1)))
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -213,6 +229,8 @@ NO_LAUNCHES = dict.fromkeys(KERNEL_INFO, 0)
 EXPECTED_PER_IMAGE = {
     "resnet18": {**NO_LAUNCHES, "ilpm_conv": 9, "pointwise_conv": 3,
                  "fused_residual_conv": 8},
+    "resnet18/per_layer": {**NO_LAUNCHES, "ilpm_conv": 17,
+                           "pointwise_conv": 3},
     "mobilenet_v2": {**NO_LAUNCHES, "ilpm_conv": 1,
                      "fused_inverted_residual": 17, "pointwise_conv": 1},
     "mobilenet_v2/per_layer": {**NO_LAUNCHES, "ilpm_conv": 1,
@@ -561,8 +579,12 @@ def kernel_setup(kernel, shape, dtype, gen):
             shape={**ragged, "H": H, "Cin": Cin, "mid": mid, "Cout": Cout,
                    "R": R, "stride": stride, "residual": residual})
     if kernel == "depthwise_conv":
-        H, C, M, R, stride = shape
-        x = randn(1, H, H, C)
+        if shape[0] == "ragged":
+            _, H, W, C, M, R, stride = shape
+            ragged = {"algorithm": "ragged", "W": W}
+        else:
+            (H, C, M, R, stride), W, ragged = shape, shape[0], {}
+        x = randn(1, H, W, C)
         w = randn(R, R, 1, M * C, scale=1 / R)
         scale, bias = bn(M * C)
         xp = ref.pad_same(x, R, R, stride)
@@ -570,14 +592,15 @@ def kernel_setup(kernel, shape, dtype, gen):
 
         def library():
             return F.conv2d(x_lib, w_lib, stride=stride, groups=C)
-        Ho = -(-H // stride)
+        Ho, Wo = -(-H // stride), -(-W // stride)
         return dict(
             fn=depthwise_conv.depthwise_conv, plain=depthwise_conv.plain,
             args=(xp, w),
             kw=dict(stride=stride, scale=scale, bias=bias, act="relu6"),
             library=library, inputs=[xp, w, scale, bias],
-            flops=2 * Ho * Ho * R * R * M * C,
-            shape={"H": H, "C": C, "M": M, "R": R, "stride": stride})
+            flops=2 * Ho * Wo * R * R * M * C,
+            shape={**ragged, "H": H, "C": C, "M": M, "R": R,
+                   "stride": stride})
     if shape[0] == "ragged":  # a conv class no path launches: H != W
         _, H, W, C, K, R, stride = shape
         ragged = {"algorithm": "ragged", "W": W}
@@ -662,12 +685,25 @@ def tile_plan(kernel, args, kw, y):
     filter-row split and the parts the reduction adds; direct's: pixels
     and channels of a tile, chunk, contraction slices and pixel tiles,
     one a CTA; the inverted residual's: output tile side and parts of the
-    mid width, its 32-channel slabs, one a CTA). ``y`` is the call's output: (batch, M, N) for gemm, (B, Ho,
-    Wo, K) for a conv."""
-    from repro_torch.kernels import direct_conv, fused_block, gemm, \
-        ilpm_conv, libdnn_conv, pointwise_conv
+    mid width, its 32-channel slabs, one a CTA; the depthwise conv's:
+    output tile rows and columns, channels, threads and which kernel, the
+    3x3 one or the generic). ``y`` is the call's output: (batch, M, N) for
+    gemm, (B, Ho, Wo, K) for a conv."""
+    from repro_torch.kernels import depthwise_conv, direct_conv, \
+        fused_block, gemm, ilpm_conv, libdnn_conv, pointwise_conv
 
     a, b = args
+    if kernel == "depthwise_conv":
+        p = depthwise_conv.plan(a, b, kw["stride"])
+        B, Ho, Wo, K = y.shape
+        R, S, _, _ = b.shape
+        return {"tile": [p.tile_h, p.tile_w], "channels": p.channels,
+                "threads": depthwise_conv.threads(p, a.dtype),
+                "smem": depthwise_conv.smem_bytes(p, R, S, kw["stride"],
+                                                  a.dtype),
+                "kernel": depthwise_conv.kernel_of(
+                    a, b, kw["stride"], y, kw["scale"], kw["bias"]),
+                "ctas": depthwise_conv.ctas(p, Ho, Wo, K) * B}
     if kernel == "direct_conv":
         p = direct_conv.plan(a, b, kw["stride"])
         B, Ho, Wo, K = y.shape
@@ -706,8 +742,34 @@ def tile_plan(kernel, args, kw, y):
             "ctas": -(-M // tile) * -(-N // tile) * batch * split}
 
 
+def per_layer_chain(x, weights, stride, residual):
+    """The inverted residual as the per-layer MobileNetV2 runs it, on the
+    ported kernels: ``pointwise_conv`` (the expand, absent for t = 1) ->
+    SAME pad -> ``depthwise_conv`` -> ``pointwise_conv`` (the project) ->
+    ``+ x`` where residual; ReLU6 after the first two, as
+    ``kernel_setup``'s calls of the fused kernel have it."""
+    from repro_torch.kernels import depthwise_conv, pointwise_conv, ref
+
+    h = x
+    if "w1" in weights:
+        h = pointwise_conv.pointwise_conv(h, weights["w1"],
+                                          scale=weights["s1"],
+                                          bias=weights["b1"], act="relu6")
+    wdw = weights["wdw"]
+    h = depthwise_conv.depthwise_conv(
+        ref.pad_same(h, wdw.shape[0], wdw.shape[1], stride), wdw,
+        stride=stride, scale=weights["sdw"], bias=weights["bdw"],
+        act="relu6")
+    h = pointwise_conv.pointwise_conv(h, weights["w2"], scale=weights["s2"],
+                                      bias=weights["b2"])
+    return h + x if residual else h
+
+
 def kernel_case(kernel, shape, dtype, gen, peaks):
-    """Run one shape class of one kernel; return its result line."""
+    """Run one shape class of one kernel; return its result line. An fp32
+    ``fused_inverted_residual`` line also holds the kernel against the
+    per-layer chain of ported kernels on the same inputs
+    (``per_layer_chain``), bitwise."""
     from repro_torch.core.dtypes import canonical, tolerance
 
     case = kernel_setup(kernel, shape, dtype, gen)
@@ -738,6 +800,14 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
     if kernel in PLANNED_KERNELS:
         line["plan"] = tile_plan(kernel, args, kw, y)
+    if kernel == "fused_inverted_residual" and dtype == torch.float32:
+        x, weights = args
+        chain = per_layer_chain(x, weights, kw["stride"], kw["residual"])
+        line["vs_per_layer_bitwise_equal"] = torch.equal(y, chain)
+        line["vs_per_layer_max_abs_err"] = (y - chain).abs().max().item()
+        require(line["vs_per_layer_bitwise_equal"],
+                f"fused_inverted_residual {case['shape']}: not bitwise "
+                f"equal to the per-layer chain: {(y - chain).abs().max()}")
     if kernel == "im2col_unroll":  # a copy: bitwise or wrong
         line["bitwise_equal"] = torch.equal(y, p)
         require(line["bitwise_equal"],
@@ -924,6 +994,17 @@ def engine_phase(path, engine, images, counters, results,
             "kernel_ms_per_image_from_classes": sum(
                 r["kernel_ms"] * r["launches_per_image"].get(path, 0)
                 for r in results if r["dtype"] == path_dtype(path))}, singles
+
+
+def per_layer_vs_tuned(line, tuned, per_layer):
+    """Hold an fp32 per-layer path's logits against the tuned plan's on
+    the card: bitwise, as the reference's contract has it (its fused
+    kernels sum in the order of the per-layer kernels they replace)."""
+    line["vs_tuned_max_rel_err"] = rel_err(per_layer, tuned)
+    line["vs_tuned_bitwise_equal"] = torch.equal(tuned, per_layer)
+    require(line["vs_tuned_bitwise_equal"],
+            f"{line['path']}: logits not bitwise equal to the tuned plan's on the "
+            f"card ({line['vs_tuned_max_rel_err']} relative)")
 
 
 def conv1d_classes(cfg):
@@ -1238,7 +1319,8 @@ def main() -> None:
                                 block_specs=resnet.block_specs(rcfg))
     mplan = autotune.build_plan(mobilenet.conv_specs(mcfg), epilogue=True,
                                 block_specs=mobilenet.block_specs(mcfg))
-    plans = {"resnet18": rplan, "mobilenet_v2": mplan,
+    plans = {"resnet18": rplan, "resnet18/per_layer": strip_blocks(rplan),
+             "mobilenet_v2": mplan,
              "mobilenet_v2/per_layer": strip_blocks(mplan),
              "resnet18/winograd_plan": pin_winograd(
                  rplan, resnet.conv_specs(rcfg)),
@@ -1337,6 +1419,14 @@ def main() -> None:
                                       counters, results)
     launches["resnet18"] = line["launches"]
     emit(line)
+    # the per-layer plan on the same weights: bitwise the tuned logits
+    path = "resnet18/per_layer"
+    line, logits = engine_phase(
+        path, InferenceEngine(rcfg, params=tuned_engine.model,
+                              plan=plans[path]), images, counters, results)
+    per_layer_vs_tuned(line, tuned_logits, logits)
+    launches[path] = line["launches"]
+    emit(line)
     # the reference's forced-algorithm entry point, on the same weights
     forced = {}
     for algorithm in FORCED:
@@ -1418,13 +1508,7 @@ def main() -> None:
                                           results)
         launches[path] = line["launches"]
         if path == "mobilenet_v2/per_layer":
-            a, b = logits["mobilenet_v2"], logits[path]
-            line["vs_tuned_max_rel_err"] = (
-                (a - b).abs().max() / a.abs().max()).item()
-            line["vs_tuned_bitwise_equal"] = torch.equal(a, b)
-            require(line["vs_tuned_max_rel_err"] <= ENGINE_REL_BOUND,
-                    f"tuned vs per-layer logits on the card: "
-                    f"{line['vs_tuned_max_rel_err']}")
+            per_layer_vs_tuned(line, logits["mobilenet_v2"], logits[path])
         emit(line)
     # the tuned plan at bf16 over the same fp32 weights
     path = "mobilenet_v2/bf16/store_fp32"

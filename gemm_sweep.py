@@ -28,17 +28,23 @@ shared memory first), beside the plan's pick; then
 tile its kernel accepts (the tiles of ``fused_block.IR_TILES`` within
 ``MAX_RECOMPUTE`` whose projection fits the accumulators and whose CTA
 fits shared memory), beside the plan's pick; both in fp32 and bf16, every
-option checked against the plain version. ``gemm.plan``'s constants
-(``MIN_CTAS``, ``MIN_SPLIT_CHUNKS``), which the convs' ``gemm.conv_plan``
-shares, ``ilpm_conv.plan``'s (``MIN_CTAS``, ``ROW_SPLIT_BELOW``),
+option checked against the plain version; then ``depthwise_conv`` at every
+depthwise class of MobileNetV2 (and the multiplier-2 class chip_smoke.py
+runs) at every tile of ``depthwise_conv.options`` (on the plan's channel
+group), beside the plan's pick, in fp32 and bf16. An fp32
+``pointwise_conv`` has one split, its 32-channel slabs (``gemm.SLAB``),
+so its lines time that one. ``gemm.plan``'s constants (``MIN_CTAS``,
+``MIN_SPLIT_CHUNKS``), which the convs' ``gemm.conv_plan`` shares,
+``ilpm_conv.plan``'s (``MIN_CTAS``, ``ROW_SPLIT_BELOW``),
 ``direct_conv.plan``'s (``MIN_CTAS``, ``MAX_SLICES``) and
 ``fused_block.plan``'s (``MAX_RECOMPUTE``, ``SLAB_COST``,
-``CTAS_PER_SM``) are read from these lines.
+``CTAS_PER_SM``) and ``depthwise_conv.plan``'s tile rule are read from
+these lines.
 
-    python3 gemm_sweep.py direct ir
+    python3 gemm_sweep.py direct ir dw
 
 runs only the named parts (``gemm``, ``conv``, ``tile``, ``direct``,
-``ir``).
+``ir``, ``dw``).
 """
 from __future__ import annotations
 
@@ -141,7 +147,7 @@ def sweep(call, kc, kind, planned_split, tol):
             "fastest_split": min(ms, key=ms.get)}
 
 
-PARTS = ("gemm", "conv", "tile", "direct", "ir")
+PARTS = ("gemm", "conv", "tile", "direct", "ir", "dw")
 
 
 def main() -> None:
@@ -167,6 +173,8 @@ def main() -> None:
         sweep_direct(gen)
     if "ir" in parts:
         sweep_inverted_residual(gen)
+    if "dw" in parts:
+        sweep_depthwise(gen)
 
 
 def sweep_gemm(gen):
@@ -197,6 +205,7 @@ def sweep_gemm(gen):
 
 def sweep_conv(gen):
     """The split-K convs' lines (``conv_classes``), inputs from ``gen``."""
+    import chip_smoke
     from repro_torch.core.dtypes import tolerance
     from repro_torch.kernels import gemm, libdnn_conv, pointwise_conv, ref
 
@@ -219,8 +228,16 @@ def sweep_conv(gen):
             def call(plain=False, x=x, w=w, kw=kw, mod=mod, kernel=kernel):
                 fn = mod.plain if plain else getattr(mod, kernel)
                 return fn(x, w, **kw)
-            line = sweep(call, R * R * C, gemm.conv_path(x, w), split,
-                         tolerance(dt))
+            if kernel == "pointwise_conv" and dt == torch.float32:
+                # one split a slab, the only split its kernel takes
+                y, ref_y = call().float(), call(plain=True).float()
+                rel = ((y - ref_y).abs().max() / ref_y.abs().max()).item()
+                chip_smoke.require(rel <= tolerance(dt), f"{rel}")
+                line = {"ms_by_split": {split: chip_smoke.time_ms(call)},
+                        "plan_split": split, "fastest_split": split}
+            else:
+                line = sweep(call, R * R * C, gemm.conv_path(x, w), split,
+                             tolerance(dt))
             Ho = -(-H // stride)
             print(json.dumps({
                 "kernel": kernel, "H": H, "C": C, "K": K, "R": R,
@@ -398,6 +415,88 @@ def sweep_inverted_residual(gen):
                 "path": p.path, "parts": p.parts, "plan": str(p.tile),
                 **line}),
                 flush=True)
+
+
+def device_us(fn, name, calls=20):
+    """Mean device time, µs, of the kernels ``fn()`` launches whose name
+    holds ``name`` (every kernel where None), from ``torch.profiler`` over
+    ``calls`` eager calls: the kernel's own duration, without the launch
+    gaps a graph replay's time includes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and (name is None or name in e.name)]
+    return sum(times) / calls if times else "not measured"
+
+
+def depthwise_classes():
+    """(H, C, M, R, stride) of every depthwise site of MobileNetV2 at 224²
+    input, each class once, and the channel-multiplier-2 class that
+    chip_smoke.py runs."""
+    from repro_torch.configs import get
+    from repro_torch.models import mobilenet
+
+    return sorted({(spec.h, spec.c, spec.channel_multiplier, spec.r,
+                    spec.stride)
+                   for _, spec in mobilenet.conv_specs(get("mobilenet_v2"))
+                   if spec.groups != 1} | {(14, 32, 2, 3, 2)})
+
+
+def sweep_depthwise(gen):
+    """``depthwise_conv``'s lines (``depthwise_classes``), every tile of
+    ``depthwise_conv.options`` beside the plan's pick, inputs from
+    ``gen``; with each option's bytes on the busiest SM, CTAs and threads,
+    and the profiler's device time of the pick and of cuDNN's call."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import depthwise_conv as dw
+    from repro_torch.kernels import ref
+
+    for H, C, M, R, stride in depthwise_classes():
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(1, H, H, C, device="cuda", generator=gen).to(dt)
+            w = (torch.randn(R, R, 1, M * C, device="cuda", generator=gen)
+                 / R).to(dt)
+            scale = torch.rand(M * C, device="cuda", generator=gen) + 0.5
+            bias = torch.randn(M * C, device="cuda", generator=gen) * 0.1
+            xp = ref.pad_same(x, R, R, stride)
+            kw = dict(stride=stride, scale=scale, bias=bias, act="relu6")
+
+            def call(plain=False, xp=xp, w=w, kw=kw):
+                fn = dw.plain if plain else dw.depthwise_conv
+                return fn(xp, w, **kw)
+            p = dw.plan(xp, w, stride)
+            Ho = -(-H // stride)
+            opts = dw.options(Ho, Ho, M * C, R, R, stride, dt)
+
+            def label(o):
+                return f"{o.tile_h}x{o.tile_w}x{o.channels}"
+            line = forced_sweep(call, dw, p, {label(o): o._asdict()
+                                              for o in opts}, tolerance(dt))
+            w_lib = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            x_lib = xp.permute(0, 3, 1, 2)
+            print(json.dumps({
+                "kernel": "depthwise_conv", "H": H, "C": C, "M": M, "R": R,
+                "stride": stride, "dtype": str(dt).removeprefix("torch."),
+                "plan": label(p),
+                "sm_bytes": {label(o): dw.sm_bytes(o, Ho, Ho, M * C, R, R,
+                                                   stride, dt)
+                             for o in opts},
+                "ctas": {label(o): dw.ctas(o, Ho, Ho, M * C) for o in opts},
+                "threads": {label(o): dw.threads(o, dt) for o in opts},
+                "device_us": {
+                    "plan": device_us(call, "dw"),
+                    "library": device_us(lambda: torch.nn.functional.conv2d(
+                        x_lib, w_lib, stride=stride, groups=C), None)},
+                **line}), flush=True)
 
 
 if __name__ == "__main__":

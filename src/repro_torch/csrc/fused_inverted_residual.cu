@@ -26,6 +26,10 @@
 //      outside the image set to 0 after the activation: the SAME padding
 //      of the expanded tensor), runs the depthwise taps, and projects the
 //      slab into fp32 accumulators held in registers.
+//      On the CUDA cores (fp32) the expand sums Cin in 32-channel slabs,
+//      each a chain from 0, folded left to right, as the project's slabs
+//      are: the fp32 pointwise_conv's order, so the per-layer chain of
+//      pointwise, depthwise and pointwise gives this kernel's bits.
 //   3. With one slab (mid <= 32), the projection epilogue and the identity
 //      add run on the store. Else each slab writes its fp32 partial to the
 //      workspace (slabs, B, OH*OW, Cout) and gemm_tile.cuh's
@@ -67,7 +71,7 @@ namespace {
 
 constexpr int IR_THREADS = 256;
 constexpr int IR_WARPS = IR_THREADS / 32;
-constexpr int TM = 32;  // mid slab width; kernels/fused_block.py mirrors it
+constexpr int TM = SLAB;  // mid slab width (gemm_tile.cuh; gemm.SLAB)
 constexpr int IR_MAX_SMEM = 232448;  // a block's shared-memory limit, sm_90
 
 template <typename T>
@@ -260,20 +264,30 @@ __global__ void __launch_bounds__(IR_THREADS) inverted_residual_kernel(
       const int rb = blk / (TM / 4), cb = blk % (TM / 4);
       const T* xr = xs + 4 * rb * g.x_ld;
       const T* wr = w1s + 4 * cb;
-      float a[4][4] = {};
-      for (int c = 0; c < g.kin; c += 4) {
-        float av[4][4], bv[4][4];
+      // each SLAB channels of Cin one chain from 0, the slabs folded left
+      // to right: the fp32 pointwise_conv's order (its splits)
+      float a[4][4];
+      for (int c0 = 0; c0 < g.kin; c0 += SLAB) {
+        float p[4][4] = {};
+        for (int c = c0; c < min(g.kin, c0 + SLAB); c += 4) {
+          float av[4][4], bv[4][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) load4(xr + i * g.x_ld + c, av[i]);
+          for (int i = 0; i < 4; ++i) load4(xr + i * g.x_ld + c, av[i]);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) load4(wr + (c + q) * g.w1_ld, bv[q]);
+          for (int q = 0; q < 4; ++q) load4(wr + (c + q) * g.w1_ld, bv[q]);
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+          for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              a[i][j] = fmaf(av[i][q], bv[q][j], a[i][j]);
+              for (int j = 0; j < 4; ++j)
+                p[i][j] = fmaf(av[i][q], bv[q][j], p[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            a[i][j] = c0 == 0 ? p[i][j] : a[i][j] + p[i][j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {

@@ -31,6 +31,12 @@
 //   epilogue once and casts once. The result does not depend on the
 //   batch, so run_batch stays bitwise equal to run. With split = 1 the
 //   main kernel applies the epilogue on its store.
+// - Slab splits (`slabs`, the fp32 pointwise conv): split s takes the
+//   contraction's channels [s*SLAB, (s+1)*SLAB), any number of splits.
+//   Each SLAB-channel slab is then one fmaf chain from 0 and the
+//   reduction folds the slabs left to right: the order in which
+//   fused_inverted_residual.cu sums its expand and its project, so the
+//   per-layer and the fused MobileNetV2 agree to the bit in fp32.
 // - CUDA-core path (`tile_f32_kernel`): IEEE fmaf in contraction order,
 //   never TF32. 64 threads, each keeping 8 x 8 fp32 accumulators (rows
 //   ty + 8 i, columns 4 tx + {0..3} and 32 + 4 tx + {0..3}); A and b
@@ -80,6 +86,9 @@ constexpr int F32_CHUNK = 16;  // contraction depth of a chunk, CUDA cores
 constexpr int TC_CHUNK = 32;   // and on the tensor cores
 constexpr int TC_THREADS = 128;
 constexpr int MAX_SPLIT = 16;
+// The fp32 1x1 contractions' slab (kernels/gemm.py `SLAB`): pointwise
+// splits and fused_inverted_residual's mid slabs and expand folds
+constexpr int SLAB = 32;
 
 // ---- A-row sources and epilogues -----------------------------------------
 
@@ -143,9 +152,16 @@ __device__ __forceinline__ void cp_async_wait_one() {
 }
 
 // The contraction range [k0, k1) of split s: chunks [s * chunks / split,
-// (s + 1) * chunks / split).
+// (s + 1) * chunks / split), or, with `per` > 0, chunks [s * per,
+// (s + 1) * per) (a slab split).
 __device__ __forceinline__ void split_range(int Kc, int chunk, int split,
-                                            int s, int* k0, int* k1) {
+                                            int s, int* k0, int* k1,
+                                            int per = 0) {
+  if (per > 0) {
+    *k0 = s * per * chunk;
+    *k1 = min(Kc, (s + 1) * per * chunk);
+    return;
+  }
   const int chunks = (Kc + chunk - 1) / chunk;
   *k0 = s * chunks / split * chunk;
   *k1 = min(Kc, (s + 1) * chunks / split * chunk);
@@ -203,12 +219,13 @@ __device__ __forceinline__ void store4(T* p, const float* v, int valid,
 
 // 64 x 64 tile of c per CTA, 64 threads, 8 x 8 outputs a thread; b is
 // fp32 or in T. VEC_A: A's 16-byte runs are copied whole (a compile-time
-// choice, so the scalar path keeps no row pointers live).
+// choice, so the scalar path keeps no row pointers live). per: chunks a
+// slab split, 0 for the even split.
 template <bool VEC_A, typename T, typename TB, typename ASrc, typename Epi>
 __global__ void __launch_bounds__(F32_THREADS) tile_f32_kernel(
     ASrc src, const TB* __restrict__ b, T* __restrict__ c,
     float* __restrict__ ws, int batch, int batch_b, int M, int N, int Kc,
-    int split, bool vec_b, Epi epi) {
+    int split, int per, bool vec_b, Epi epi) {
   constexpr int BK = F32_CHUNK;
   constexpr int VA = 16 / sizeof(T);   // elements of A in 16 bytes
   constexpr int VB = 16 / sizeof(TB);  // and of b
@@ -225,7 +242,7 @@ __global__ void __launch_bounds__(F32_THREADS) tile_f32_kernel(
   const TB* bb = b + (size_t)(z % batch_b) * Kc * N;
   const T* a0 = src.base;  // any valid address, for a zero fill
   int kb, ke;
-  split_range(Kc, BK, split, s, &kb, &ke);
+  split_range(Kc, BK, split, s, &kb, &ke, per);
 
   // this thread's 16-byte runs of A: rows r0 + i * step, column kq
   const int r0 = tid / A_PER_ROW, kq = (tid % A_PER_ROW) * VA;
@@ -565,20 +582,26 @@ inline bool aligned16(const void* p) {
 // (`tensor`: T 16-bit, b in T) or the CUDA cores, then, where split > 1,
 // the reduction. tile: the CTA tile's rows and columns (64); split: the
 // number of contraction splits (a power of two, at most 16, at most the
-// number of chunks of the path); ws: the fp32 workspace (split, batch, M,
-// N) when split > 1. vec_a: 16-byte runs of A at multiples of 16 bytes'
-// worth of columns are contiguous and aligned (the tensor cores need it);
-// vec_b: so are b's rows (N a multiple of 16 bytes' worth, b aligned).
+// number of chunks of the path; with `slabs`, on the CUDA cores only, the
+// number of SLAB-channel slabs of Kc, one a split); ws: the fp32
+// workspace (split, batch, M, N) when split > 1. vec_a: 16-byte runs of A
+// at multiples of 16 bytes' worth of columns are contiguous and aligned
+// (the tensor cores need it); vec_b: so are b's rows (N a multiple of 16
+// bytes' worth, b aligned).
 template <typename T, typename TB, typename ASrc, typename Epi>
 cudaError_t launch_tile(bool tensor, const ASrc& src, bool vec_a,
                         const TB* b, bool vec_b, T* c, void* ws, int batch,
                         int batch_b, int M, int N, int Kc, int tile,
-                        int split, const Epi& epi, cudaStream_t stream) {
+                        int split, const Epi& epi, cudaStream_t stream,
+                        bool slabs = false) {
+  static_assert(SLAB % F32_CHUNK == 0, "a slab is whole chunks");
   const int chunk = tensor ? TC_CHUNK : F32_CHUNK;
   const int chunks = Kc < 1 ? 0 : (Kc + chunk - 1) / chunk;
+  const bool split_ok =
+      slabs ? !tensor && split == (Kc + SLAB - 1) / SLAB
+            : split <= MAX_SPLIT && !(split & (split - 1)) && split <= chunks;
   if (!b || !c || batch < 1 || batch_b < 1 || batch % batch_b || M < 1 ||
-      N < 1 || Kc < 1 || tile != TILE || split < 1 || split > MAX_SPLIT ||
-      (split & (split - 1)) || split > chunks ||
+      N < 1 || Kc < 1 || tile != TILE || split < 1 || !split_ok ||
       (split > 1 && (!ws || !aligned16(ws))) ||
       (N + TILE - 1) / TILE > 65535 || (long long)batch * split > 65535)
     return cudaErrorInvalidValue;
@@ -594,12 +617,14 @@ cudaError_t launch_tile(bool tensor, const ASrc& src, bool vec_a,
     } else {
       return cudaErrorInvalidValue;
     }
-  } else if (vec_a) {
-    tile_f32_kernel<true, T, TB><<<grid, F32_THREADS, 0, stream>>>(
-        src, b, c, fws, batch, batch_b, M, N, Kc, split, vec_b, epi);
   } else {
-    tile_f32_kernel<false, T, TB><<<grid, F32_THREADS, 0, stream>>>(
-        src, b, c, fws, batch, batch_b, M, N, Kc, split, vec_b, epi);
+    const int per = slabs ? SLAB / F32_CHUNK : 0;
+    if (vec_a)
+      tile_f32_kernel<true, T, TB><<<grid, F32_THREADS, 0, stream>>>(
+          src, b, c, fws, batch, batch_b, M, N, Kc, split, per, vec_b, epi);
+    else
+      tile_f32_kernel<false, T, TB><<<grid, F32_THREADS, 0, stream>>>(
+          src, b, c, fws, batch, batch_b, M, N, Kc, split, per, vec_b, epi);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;

@@ -18,9 +18,12 @@
 // 112² and 56² ones by their bytes; in bf16 the bytes bound all of them.
 // The first kernel walked the whole C serially in each CTA of a 64 x 64
 // output tile: 3-8 CTAs at the deep layers. The design:
-// - the contraction is split by `gemm.plan(Ho*Wo, K, C, 1, dtype, dtype)`
-//   (never by B), the partials summed in split order by the reduction,
-//   which applies the epilogue once;
+// - the contraction is split (never by B), the partials summed in split
+//   order by the reduction, which applies the epilogue once. fp32 splits
+//   at its 32-channel slabs (gemm_tile.cuh `SLAB`, one a split), the
+//   order of fused_inverted_residual.cu's expand and project, so the
+//   per-layer MobileNetV2 gives the fused block's bits; bf16 and fp16
+//   split by `gemm.plan(Ho*Wo, K, C, 1, dtype, dtype)`;
 // - fp32 on the CUDA cores, IEEE fmaf, never TF32; a pixel's channels are
 //   contiguous, so where C is a multiple of 4 and x is aligned a 16-byte
 //   run of channels is one cp.async, else the loads are scalar;
@@ -63,16 +66,17 @@ cudaError_t launch_pointwise(const void* x, const void* w, const void* scale,
   const bool tensor = sizeof(T) == 2 && vec_x && vec_w;
   return launch_tile(tensor, src, vec_x, static_cast<const T*>(w), vec_w,
                      static_cast<T*>(out), ws, B, 1, Ho * Wo, K, C, tile,
-                     split, epi, stream);
+                     split, epi, stream, /*slabs=*/sizeof(T) == 4);
 }
 
 }  // namespace
 
 // tile: the CTA tile's rows and columns (64); split: the number of splits
-// of the C contraction (a power of two, at most 16, at most the number of
-// chunks of the path); ws: the fp32 workspace (split, B, Ho*Wo, K) when
-// split > 1. The tensor cores take a 16-bit x where C and K are multiples
-// of 8 and x and w are 16-byte aligned.
+// of the C contraction (fp32: its 32-channel slabs, ceil(C / 32); else a
+// power of two, at most 16, at most the number of chunks of the path);
+// ws: the fp32 workspace (split, B, Ho*Wo, K) when split > 1. The tensor
+// cores take a 16-bit x where C and K are multiples of 8 and x and w are
+// 16-byte aligned.
 extern "C" int pointwise_conv_launch(int dtype, const void* x, const void* w,
                                      const void* scale, const void* bias,
                                      void* out, int B, int H, int W, int C,

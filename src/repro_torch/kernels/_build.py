@@ -39,7 +39,7 @@ SIGNATURES = {
     "pointwise_conv_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P] * 2,
     "fused_residual_conv_launch": [_I] + [_P] * 6 + [_I] * 12
     + [_P] * 2,
-    "depthwise_conv_launch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
+    "depthwise_conv_launch": [_I] + [_P] * 5 + [_I] * 14 + [_P],
     "fused_inverted_residual_launch": [_I] + [_P] * 11 + [_I] * 13
     + [_P] * 2,
     "direct_conv_launch": [_I] + [_P] * 5 + [_I] * 13 + [_P] * 2,

@@ -38,10 +38,13 @@ Replace the two Pallas kernels of ``src/repro/kernels/fused_block.py``:
   slabs' fp32 partials in order, with the projection epilogue, the cast
   and the identity add. A CTA walking several slabs was slower at every
   MobileNetV2 block (``gemm_sweep.py``): fewer CTAs, each a chain of
-  dependent stages. fp32 runs IEEE ``fmaf`` on 4x4 register blocks;
-  bf16 and fp16 run the expand and the project on ``mma.sync`` where Cin,
-  mid and Cout are multiples of 8, the depthwise taps on the CUDA cores in
-  fp32.
+  dependent stages. fp32 runs IEEE ``fmaf`` on 4x4 register blocks, and
+  its expand, like its project, sums each 32-channel slab of the
+  contraction from 0 and folds the slabs in order: the order of the fp32
+  ``pointwise_conv`` (``gemm.SLAB``), so the fused and the per-layer
+  plans give bitwise equal logits. bf16 and fp16 run the expand and the
+  project on ``mma.sync`` where Cin, mid and Cout are multiples of 8, the
+  depthwise taps on the CUDA cores in fp32.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain version
 (``ref.<name>``) for a CPU tensor; ``<wrapper>.launches`` counts the
@@ -59,11 +62,12 @@ from repro_torch.kernels import _build, gemm, ilpm_conv, ref
 plain = ref.fused_residual_conv
 plain_inverted_residual = ref.fused_inverted_residual
 
-# csrc/fused_inverted_residual.cu: the mid slab width, threads and warps
-# of a CTA, the projection blocks a thread (CUDA cores: 4x4 outputs) or a
+# csrc/fused_inverted_residual.cu: the mid slab width (the fp32 1x1
+# contractions' slab, which pointwise_conv shares), threads and warps of
+# a CTA, the projection blocks a thread (CUDA cores: 4x4 outputs) or a
 # warp (tensor cores: 16x16) holds at most, and a block's shared-memory
 # limit on sm_90
-IR_SLAB = 32
+IR_SLAB = gemm.SLAB
 IR_THREADS = 256
 IR_WARPS = 8
 IR_MAX_ACC = 8

@@ -51,6 +51,12 @@ MIN_SPLIT_CHUNKS_BELOW_SMS = {"fp32": 1, "tensor": 2}
 SMS = 132
 MAX_SPLIT = 16
 HALF = (torch.bfloat16, torch.float16)
+# The fp32 1x1 contractions' unit of summation (csrc/gemm_tile.cuh
+# ``SLAB``): ``pointwise_conv`` and both products of
+# ``fused_inverted_residual`` sum each 32-channel slab of their
+# contraction as one chain from 0 and fold the slabs left to right, so the
+# per-layer and the fused plans agree to the bit
+SLAB = 32
 
 
 def path(a_dtype, b_dtype) -> str:
@@ -111,11 +117,15 @@ def workspace(split, batch, M, N, device):
                        device=device)
 
 
-def split_bounds(Kc, chunk, split) -> list[tuple[int, int]]:
+def split_bounds(Kc, chunk, split, slab=0) -> list[tuple[int, int]]:
     """The contraction range [k0, k1) of each split, as the kernel walks
     it: split s takes chunks [s·chunks/split, (s+1)·chunks/split), so the
     splits differ by at most one chunk and only the last chunk of the
-    contraction may be short."""
+    contraction may be short. With ``slab`` (channels, a multiple of
+    ``chunk``; the fp32 1x1 convs pass ``SLAB``) split s takes channels
+    [s·slab, (s+1)·slab) instead, and ``split`` is the number of slabs."""
+    if slab:
+        return [(s * slab, min(Kc, (s + 1) * slab)) for s in range(split)]
     chunks = -(-Kc // chunk)
     return [(s * chunks // split * chunk,
              min(Kc, (s + 1) * chunks // split * chunk))

@@ -12,13 +12,14 @@ bytes; in bf16 the bytes bound them all. A 1x1 conv is one (Ho·Wo, C) @
 (C, K) product per image whose row q is the pixel ``x[(q // Wo)·s,
 (q % Wo)·s]``, so a strided 1x1 reads only the pixels it uses, in the
 load itself. The first kernel gave the deep layers 3-8 CTAs, each walking
-all of C; now ``gemm.conv_plan`` splits C by the product's shape and
-dtype (never by the number of images), the splits' fp32 partial tiles go
-to a workspace the wrapper allocates, and a second kernel of the same
-launch sums them in split order and applies the epilogue
-``act(acc*scale + bias)`` once, with one cast. fp32 stays IEEE on the
-CUDA cores; bf16 and fp16 run on the tensor cores where C and K are
-multiples of 8 (``gemm.conv_path``), else on the CUDA cores.
+all of C; now ``plan`` splits C (never by the number of images), the
+splits' fp32 partial tiles go to a workspace the wrapper allocates, and a
+second kernel of the same launch sums them in split order and applies
+the epilogue ``act(acc*scale + bias)`` once, with one cast. fp32 stays
+IEEE on the CUDA cores and splits at its 32-channel slabs, the fused
+inverted residual's order; bf16 and fp16 split by ``gemm.conv_plan``
+(the product's shape and dtype) and run on the tensor cores where C and
+K are multiples of 8 (``gemm.conv_path``), else on the CUDA cores.
 
 ``pointwise_conv`` runs the kernel for a CUDA tensor and the plain
 version (``ref.pointwise_conv``) for a CPU tensor;
@@ -36,9 +37,15 @@ plain = ref.pointwise_conv
 
 def plan(x, w, stride=1) -> tuple[int, int]:
     """(tile, split) of a launch on ``x`` (B, H, W, C) and ``w`` (1, 1, C,
-    K): ``gemm.conv_plan`` of one image's product (Ho·Wo, C) @ (C, K) on
-    the path the kernel takes."""
+    K). An fp32 ``x`` is split into its ``gemm.SLAB``-channel slabs, one a
+    split (``gemm.split_bounds(C, chunk, split, gemm.SLAB)``): the order
+    in which ``fused_inverted_residual`` sums its expand and its project,
+    so the per-layer MobileNetV2 chain gives the fused block's bits. Any
+    other dtype: ``gemm.conv_plan`` of one image's product (Ho·Wo, C) @
+    (C, K) on the path the kernel takes."""
     _, H, W, C = x.shape
+    if x.dtype == torch.float32:
+        return gemm.TILE, -(-C // gemm.SLAB)
     M = -(-H // stride) * -(-W // stride)
     return gemm.conv_plan(M, w.shape[-1], C, x.dtype, gemm.conv_path(x, w))
 

@@ -92,13 +92,17 @@ def test_plan_ignores_the_batch_and_covers_the_contraction_once(
                        stride) for b in (1, 4))
     assert one == four
     tile, split = one
-    assert tile == gemm.TILE and split in (1, 2, 4, 8, 16)
     kind = gemm.conv_path(torch.empty(1, H, H, C, dtype=dtype), w)
     assert kind == ("fp32" if dtype == torch.float32 else "tensor")
     Kc, chunk = R * R * C, gemm.CHUNK[kind]
+    # an fp32 pointwise conv splits at its 32-channel slabs, one a split
+    slab = gemm.SLAB if kernel == "pointwise_conv" \
+        and dtype == torch.float32 else 0
+    assert tile == gemm.TILE and (split == -(-Kc // slab) if slab
+                                  else split in (1, 2, 4, 8, 16))
     assert split <= -(-Kc // chunk)
     covered = np.zeros(Kc, dtype=int)
-    for k0, k1 in gemm.split_bounds(Kc, chunk, split):
+    for k0, k1 in gemm.split_bounds(Kc, chunk, split, slab):
         assert k0 < k1 and k0 % chunk == 0
         covered[k0:k1] += 1
     assert (covered == 1).all()
@@ -201,11 +205,12 @@ def patch_rows(xp, R, S):
     return xp.reshape(B, -1)[:, offs]
 
 
-def split_k_model(a, b, scale, bias, act, split, chunk, dtype):
-    """The kernels' sum: split s's fp32 partial product over its range,
-    the partials added in split order, the epilogue once, one cast."""
+def split_k_model(a, b, scale, bias, act, split, chunk, dtype, slab=0):
+    """The kernels' sum: split s's fp32 partial product over its range
+    (``gemm.split_bounds``, at ``slab``-channel slabs where given), the
+    partials added in split order, the epilogue once, one cast."""
     acc = None
-    for k0, k1 in gemm.split_bounds(a.shape[-1], chunk, split):
+    for k0, k1 in gemm.split_bounds(a.shape[-1], chunk, split, slab):
         part = a[..., k0:k1].float() @ b[k0:k1].float()
         acc = part if acc is None else acc + part
     return tref.apply_act(acc * scale + bias, act).to(dtype)
@@ -239,11 +244,13 @@ def test_pointwise_split_k_order_matches_pallas(B, H, W, C, K, stride,
                     else "tensor")
     a = pixel_rows(x_t, stride)
     assert torch.equal(a, x_t[:, ::stride, ::stride].reshape(B, -1, C))
-    splits = _splits(C, gemm.CHUNK[kind])
+    # fp32 takes one split a 32-channel slab; 16-bit types a power of two
+    slab = gemm.SLAB if dtype == "float32" else 0
+    splits = [-(-C // slab)] if slab else _splits(C, gemm.CHUNK[kind])
     assert pointwise_conv.plan(x_t, w_t, stride)[1] in splits
     for split in splits:
         y = split_k_model(a, w_t[0, 0], sc_t, bi_t, act, split,
-                          gemm.CHUNK[kind], x_t.dtype)
+                          gemm.CHUNK[kind], x_t.dtype, slab)
         y = y.reshape(B, -(-H // stride), -(-W // stride), K)
         assert _rel(y, ref) <= tolerance(dtype), split
 

@@ -3,6 +3,7 @@
 ``repro_torch.convert``: forced ilpm, the tuned plan (blocks fused), and
 a plan JSON saved by the reference. Bound: tolerance("float32") of
 max|logits|."""
+import copy
 import os
 import subprocess
 import sys
@@ -84,6 +85,25 @@ def test_reference_plan_json_deploys(pair, image):
     engine = _engine(pair, plan=str(pair["plan_path"]))
     assert engine.plan.to_json() == pair["plan_json"]
     assert _rel(engine.run(image), pair["tuned"]) <= tolerance("float32")
+
+
+def _strip_blocks(plan):
+    plan = copy.deepcopy(plan)
+    plan.block_choices.clear()
+    plan.block_specs.clear()
+    return plan
+
+
+def test_fused_and_per_layer_logits_are_bitwise_equal(pair, image):
+    """At fp32 the tuned plan (``fused_residual_conv`` blocks) and the
+    per-layer plan (ilpm -> add -> ReLU) give bitwise equal logits, the
+    reference's contract; on the card both plan through
+    ``ilpm_conv.plan`` and chip_smoke.py's ``resnet18/per_layer`` holds
+    them to it."""
+    engine = _engine(pair)
+    per_layer = _engine(pair, plan=_strip_blocks(engine.plan))
+    assert engine.plan.block_choices and not per_layer.plan.block_choices
+    assert torch.equal(engine.run(image), per_layer.run(image))
 
 
 def test_state_dict_keys_are_reference_paths(pair):
