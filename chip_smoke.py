@@ -7,12 +7,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``src/repro_torch/_build/``), then, printing one JSON object per line:
 
 1. environment: the card's name and power limit, torch, nvcc, build time;
+   then the ``launch_floor`` line: one one-CTA PyTorch op on 16 bytes
+   timed as the kernels are (graph replay), a yardstick of the least a
+   launch costs, on no path (``gemm_sweep.py unroll`` adds its profiler
+   device time);
 2. kernel phase: each kernel at every shape class that the engine paths
    below launch (plus the 1x1 fused block ResNet-50 uses and a depthwise
    conv with channel multiplier 2), in fp32 and bf16, with non-zero
    folded-BN scales and biases, held against its plain PyTorch version on
    the same inputs within ``tolerance(dtype)`` (the im2col unroll, a copy,
-   bitwise), with CUDA-event times of the kernel, the plain version and
+   and the Winograd input transform, add/sub in the plain version's
+   order and rounding, bitwise: ``bitwise_equal``, required), with CUDA-event times of
+   the kernel, the plain version and
    one PyTorch library call, and the least time the card could take for
    the same work; Winograd's classes are its input transform, its 16
    products in one batched ``gemm`` (bf16 V against fp32 U, as the forced
@@ -36,7 +42,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    split; direct's its chunk, contraction slices and pixel tiles; the
    inverted residual's its tile and parts of the mid width; depthwise's
    tile, channels, threads, shared memory and which kernel: 3x3 or
-   generic). Each fp32
+   generic); then the two gathers, ``im2col_unroll`` and
+   ``winograd_input_transform``, in fp16 at each of their classes and at
+   one ragged class each in fp32 and bf16 (a 9x11 image, C = 6, 3x3; a
+   10x14 image, C = 12), each im2col line with its launch plan (pixels a
+   CTA, channels, shared memory, CTAs).
+   Each fp32
    ``fused_inverted_residual`` line is also held, bitwise
    (``vs_per_layer_bitwise_equal``), against the per-layer chain of
    ported kernels on the same inputs: pointwise -> SAME pad -> depthwise
@@ -219,6 +230,14 @@ RAGGED_CONV = (("pointwise_conv", ("ragged", 15, 17, 12, 20, 1, 2)),
                ("fused_inverted_residual",
                 ("ragged", 11, 9, 12, 36, 12, 3, 1, True)),
                ("depthwise_conv", ("ragged", 11, 9, 12, 1, 3, 1)))
+# the two gathers, which run in fp16 at every class and at one ragged
+# class each in fp32 and bf16 (im2col: a 9x11 image, C = 6, so 24- and
+# 12-byte channel runs; the input transform: a 10x14 image, C = 12); each
+# is a copy or an add/sub chain in its plain version's order and rounding,
+# so both must equal it bitwise; im2col's line carries its launch plan
+GATHER_KERNELS = ("im2col_unroll", "winograd_input_transform")
+RAGGED_GATHER = (("im2col_unroll", ("ragged", 9, 11, 6, 20, 3, 1)),
+                 ("winograd_input_transform", ("ragged", 10, 14, 12)))
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -330,6 +349,41 @@ def call_ms(fn, samples=15, inner=10):
         for _ in range(inner):
             fn()
     return _median_event_ms(step, samples, inner)
+
+
+def device_us(fn, name=None, calls=20):
+    """Mean device time, µs, of the kernels ``fn()`` launches whose name
+    holds ``name`` (every kernel where None), from ``torch.profiler`` over
+    ``calls`` eager calls: the kernel's own duration, without the launch
+    gaps a graph replay's time includes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and (name is None or name in e.name)]
+    return sum(times) / calls if times else "not measured"
+
+
+def launch_floor(device=False):
+    """The launch floor of the kernel timings: one one-CTA PyTorch op on
+    16 bytes (``zero_`` of 4 fp32 on the card), timed as a kernel line's
+    ``kernel_ms`` (graph replay); with ``device`` also by the profiler's
+    device time. A yardstick only: no path runs it. The kernel phase asks
+    for no device time: with a profiler session before them, the kernel
+    lines of a run read slower (PERF.md §6)."""
+    t = torch.empty(4, device="cuda")
+    line = {"phase": "launch_floor", "op": "zero_ of 4 fp32 (16 bytes)",
+            "graph_ms": time_ms(t.zero_)}
+    if device:
+        line["device_us"] = device_us(t.zero_)
+    return line
 
 
 def strip_blocks(plan):
@@ -472,26 +526,35 @@ def kernel_setup(kernel, shape, dtype, gen):
     def vec(v):  # an epilogue vector broadcast over an NCHW view
         return v.to(dtype).view(1, -1, 1, 1)
 
+    if kernel == "winograd_input_transform":
+        if shape[0] == "ragged":  # ("ragged", H, W, C)
+            _, H, W, C = shape
+            desc = {"algorithm": "ragged", "H": H, "W": W, "C": C}
+        else:
+            _, H, C, K = shape
+            W, desc = H, {"algorithm": "winograd", "H": H, "C": C, "K": K}
+        th, tw = H // 2, W // 2
+        nt = th * tw
+        line = {"shape": {**desc, "tiles": nt}}
+        xp = ref.pad_same(randn(1, H, W, C), 3, 3)
+        bt = ref._BT.to(dev, dtype)
+        Hp, Wp = H + 2, W + 2
+
+        def library():  # the stride-2 4x4 windows, then Bᵀ d B
+            d = torch.as_strided(xp, (1, th, tw, 4, 4, C),
+                                 (Hp * Wp * C, 2 * Wp * C, 2 * C, Wp * C,
+                                  C, 1))
+            return torch.einsum("ar,bijrsc,es->baeijc", bt, d, bt)
+        # add/sub: 4 x 4 on the rows, 4 x 4 on the columns
+        return dict(line, fn=winograd_conv.winograd_input_transform,
+                    plain=winograd_conv.plain_input_transform,
+                    args=(xp, H, W), kw={}, library=library,
+                    inputs=[xp], flops=32 * nt * C)
     if shape[0] == "winograd":
         _, H, C, K = shape
         th, nt = H // 2, (H // 2) ** 2
         line = {"shape": {"algorithm": "winograd", "H": H, "C": C, "K": K,
                           "tiles": nt}}
-        if kernel == "winograd_input_transform":
-            xp = ref.pad_same(randn(1, H, H, C), 3, 3)
-            bt = ref._BT.to(dev, dtype)
-            Hp = H + 2
-
-            def library():  # the stride-2 4x4 windows, then Bᵀ d B
-                d = torch.as_strided(xp, (1, th, th, 4, 4, C),
-                                     (Hp * Hp * C, 2 * Hp * C, 2 * C,
-                                      Hp * C, C, 1))
-                return torch.einsum("ar,bijrsc,es->baeijc", bt, d, bt)
-            # add/sub: 4 x 4 on the rows, 4 x 4 on the columns
-            return dict(line, fn=winograd_conv.winograd_input_transform,
-                        plain=winograd_conv.plain_input_transform,
-                        args=(xp, H, H), kw={}, library=library,
-                        inputs=[xp], flops=32 * nt * C)
         if kernel == "winograd_output_transform":
             m = randn(1, 4, 4, nt, K, scale=3.0)
             scale, bias = bn(K)
@@ -640,7 +703,7 @@ def kernel_setup(kernel, shape, dtype, gen):
 
         def library():  # the patch matrix in the same order, one copy
             return torch.as_strided(
-                xp, (1, H, H, R, R, C),
+                xp, (1, H, W, R, R, C),
                 (Hp * Wp * C, Wp * C, C, Wp * C, C, 1)).contiguous()
         return dict(line, fn=im2col_conv.im2col_unroll,
                     plain=im2col_conv.plain, args=(xp, R, R), kw={},
@@ -687,11 +750,21 @@ def tile_plan(kernel, args, kw, y):
     one a CTA; the inverted residual's: output tile side and parts of the
     mid width, its 32-channel slabs, one a CTA; the depthwise conv's:
     output tile rows and columns, channels, threads and which kernel, the
-    3x3 one or the generic). ``y`` is the call's output: (batch, M, N) for
-    gemm, (B, Ho, Wo, K) for a conv."""
+    3x3 one or the generic), and of the im2col unroll (pixels a CTA,
+    channels, shared memory and CTAs).
+    ``y`` is the call's output: (batch, M, N) for gemm, (B, Ho, Wo, K) for
+    a conv."""
     from repro_torch.kernels import depthwise_conv, direct_conv, \
-        fused_block, gemm, ilpm_conv, libdnn_conv, pointwise_conv
+        fused_block, gemm, ilpm_conv, im2col_conv, libdnn_conv, \
+        pointwise_conv
 
+    if kernel == "im2col_unroll":
+        xp, r, s = args
+        p = im2col_conv.plan(xp, r, s)
+        H, W = xp.shape[1] - r + 1, xp.shape[2] - s + 1
+        return {**p._asdict(), "ctas": im2col_conv.ctas(
+                    p, H, W, xp.shape[3]) * xp.shape[0],
+                "smem": im2col_conv.smem_bytes(p, r, s, xp.dtype)}
     a, b = args
     if kernel == "depthwise_conv":
         p = depthwise_conv.plan(a, b, kw["stride"])
@@ -798,7 +871,7 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
-    if kernel in PLANNED_KERNELS:
+    if kernel in PLANNED_KERNELS or kernel == "im2col_unroll":
         line["plan"] = tile_plan(kernel, args, kw, y)
     if kernel == "fused_inverted_residual" and dtype == torch.float32:
         x, weights = args
@@ -808,11 +881,11 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         require(line["vs_per_layer_bitwise_equal"],
                 f"fused_inverted_residual {case['shape']}: not bitwise "
                 f"equal to the per-layer chain: {(y - chain).abs().max()}")
-    if kernel == "im2col_unroll":  # a copy: bitwise or wrong
+    if kernel in GATHER_KERNELS:  # bitwise or wrong
         line["bitwise_equal"] = torch.equal(y, p)
         require(line["bitwise_equal"],
-                f"im2col_unroll {name} {case['shape']}: not bitwise equal "
-                "to its plain version")
+                f"{kernel} {name} {case['shape']}: not bitwise equal to "
+                "its plain version")
     return line
 
 
@@ -1359,6 +1432,7 @@ def main() -> None:
     # stage-0 bottleneck, and a depthwise conv with channel multiplier 2
     per_path.setdefault(("fused_residual_conv", (56, 64, 256, 1, 1)), {})
     per_path.setdefault(("depthwise_conv", (14, 32, 2, 3, 2)), {})
+    emit(launch_floor())
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
     # Winograd's classes last, so the earlier classes draw the inputs
@@ -1383,6 +1457,13 @@ def main() -> None:
               for (kernel, shape), paths in ordered
               if kernel in PLANNED_KERNELS and kernel != "gemm"]
     extra += [(kernel, shape, {}, dtype) for kernel, shape in RAGGED_CONV
+              for dtype in (torch.float32, torch.bfloat16)]
+    # the two gathers last, so the classes before draw the inputs they drew
+    # before them: fp16 at every class, then their ragged classes
+    extra += [(kernel, shape, paths, torch.float16)
+              for (kernel, shape), paths in ordered
+              if kernel in GATHER_KERNELS]
+    extra += [(kernel, shape, {}, dtype) for kernel, shape in RAGGED_GATHER
               for dtype in (torch.float32, torch.bfloat16)]
     for kernel, shape, paths, dtype in extra:
         line = kernel_case(kernel, shape, dtype, gen, peaks)

@@ -44,7 +44,23 @@ these lines.
     python3 gemm_sweep.py direct ir dw
 
 runs only the named parts (``gemm``, ``conv``, ``tile``, ``direct``,
-``ir``, ``dw``).
+``ir``, ``dw``, ``unroll``).
+
+    python3 gemm_sweep.py unroll [--parent DIR]
+
+times the two gathers: first the launch floor (``chip_smoke.launch_floor``:
+one one-CTA op on 16 bytes, graph replay and profiler device time), then
+``im2col_unroll`` at the paper's four 3x3 layers (forced im2col's 13
+sites) and at chip_smoke.py's ragged class, at every option of
+``im2col_conv.options`` beside the plan's pick, and
+``winograd_input_transform`` (no plan: one launch shape) at ResNet-18's
+three even 3x3/1 layers and at its ragged class, in fp32 and bf16, each
+checked against the plain version exactly (a copy, and add/sub chains in
+the plain version's order and rounding). Each line has the profiler's
+device time of the kernel (the plan's pick) and of the library call, and
+with ``--parent DIR`` (a checkout of an earlier tree) also the
+graph-replay and device times of that tree's kernel on the same inputs,
+built from its ``csrc`` with the same flags.
 """
 from __future__ import annotations
 
@@ -147,13 +163,19 @@ def sweep(call, kc, kind, planned_split, tol):
             "fastest_split": min(ms, key=ms.get)}
 
 
-PARTS = ("gemm", "conv", "tile", "direct", "ir", "dw")
+PARTS = ("gemm", "conv", "tile", "direct", "ir", "dw", "unroll")
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("gemm_sweep: no CUDA card")
-    parts = sys.argv[1:] or PARTS
+    args = sys.argv[1:]
+    parent = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
+    parts = args or PARTS
     if set(parts) - set(PARTS):
         raise SystemExit(f"gemm_sweep: parts are {PARTS}, got {parts}")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
@@ -175,6 +197,8 @@ def main() -> None:
         sweep_inverted_residual(gen)
     if "dw" in parts:
         sweep_depthwise(gen)
+    if "unroll" in parts:
+        sweep_unroll(gen, parent)
 
 
 def sweep_gemm(gen):
@@ -282,15 +306,16 @@ def sweep_conv_tile(gen):
                 flush=True)
 
 
-def forced_sweep(call, module, planned, options, tol):
+def forced_sweep(call, module, planned, options, tol, device=False):
     """ms by option of ``call()``, each plan ``planned._replace(**option)``
     forced through ``module.plan`` and checked against ``call(plain=True)``
     within ``tol``; with the plan's option and the fastest. ``options``:
-    label -> the fields to replace."""
+    label -> the fields to replace. With ``device``, also each option's
+    profiler device time (``device_us_by_option``, µs)."""
     import chip_smoke
 
     ref = call(plain=True).float()
-    plan, ms = module.plan, {}
+    plan, ms, dev = module.plan, {}, {}
     try:
         for label, fields in options.items():
             module.plan = lambda *_, f=fields: planned._replace(**f)
@@ -298,9 +323,14 @@ def forced_sweep(call, module, planned, options, tol):
             rel = ((y - ref).abs().max() / ref.abs().max()).item()
             chip_smoke.require(rel <= tol, f"{label}: {rel} > {tol}")
             ms[label] = chip_smoke.time_ms(call)
+            if device:
+                dev[label] = chip_smoke.device_us(call)
     finally:
         module.plan = plan
-    return {"ms": ms, "fastest": min(ms, key=ms.get)}
+    out = {"ms": ms, "fastest": min(ms, key=ms.get)}
+    if device:
+        out["device_us_by_option"] = dev
+    return out
 
 
 def _ladder(lo, hi):
@@ -417,26 +447,6 @@ def sweep_inverted_residual(gen):
                 flush=True)
 
 
-def device_us(fn, name, calls=20):
-    """Mean device time, µs, of the kernels ``fn()`` launches whose name
-    holds ``name`` (every kernel where None), from ``torch.profiler`` over
-    ``calls`` eager calls: the kernel's own duration, without the launch
-    gaps a graph replay's time includes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and (name is None or name in e.name)]
-    return sum(times) / calls if times else "not measured"
-
-
 def depthwise_classes():
     """(H, C, M, R, stride) of every depthwise site of MobileNetV2 at 224²
     input, each class once, and the channel-multiplier-2 class that
@@ -455,6 +465,7 @@ def sweep_depthwise(gen):
     ``depthwise_conv.options`` beside the plan's pick, inputs from
     ``gen``; with each option's bytes on the busiest SM, CTAs and threads,
     and the profiler's device time of the pick and of cuDNN's call."""
+    import chip_smoke
     from repro_torch.core.dtypes import tolerance
     from repro_torch.kernels import depthwise_conv as dw
     from repro_torch.kernels import ref
@@ -493,10 +504,154 @@ def sweep_depthwise(gen):
                 "ctas": {label(o): dw.ctas(o, Ho, Ho, M * C) for o in opts},
                 "threads": {label(o): dw.threads(o, dt) for o in opts},
                 "device_us": {
-                    "plan": device_us(call, "dw"),
-                    "library": device_us(lambda: torch.nn.functional.conv2d(
-                        x_lib, w_lib, stride=stride, groups=C), None)},
+                    "plan": chip_smoke.device_us(call, "dw"),
+                    "library": chip_smoke.device_us(
+                        lambda: torch.nn.functional.conv2d(
+                            x_lib, w_lib, stride=stride, groups=C))},
                 **line}), flush=True)
+
+
+# im2col_unroll's classes (H, W, C, R): the paper's four layers, which
+# forced im2col's 13 sites launch, and chip_smoke.py's ragged one; the
+# input transform's (H, W, C): ResNet-18's even 3x3/1 layers and the ragged
+# one
+UNROLL_CLASSES = [(56, 56, 64, 3), (28, 28, 128, 3), (14, 14, 256, 3),
+                  (7, 7, 512, 3), (9, 11, 6, 3)]
+TRANSFORM_CLASSES = [(56, 56, 64), (28, 28, 128), (14, 14, 256),
+                     (10, 14, 12)]
+
+
+def parent_library(parent):
+    """ctypes handle of the two gather kernels of the tree at ``parent``
+    (its ``im2col_unroll.cu`` and ``winograd_input_transform.cu``, whose
+    entry points then took no plan), built with the port's nvcc flags into
+    ``_build/parent-<hash>/``."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    csrc = parent / "src" / "repro_torch" / "csrc"
+    srcs = [csrc / "im2col_unroll.cu", csrc / "winograd_input_transform.cu"]
+    h = hashlib.sha256(b"".join(p.read_bytes() for p in sorted(
+        csrc.iterdir())))
+    out = _build.BUILD_ROOT / f"parent-{h.hexdigest()[:16]}"
+    lib = out / "libparent.so"
+    if not lib.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(lib), *map(str, srcs)], check=True,
+                       capture_output=True)
+    handle = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    handle.im2col_unroll_launch.argtypes = [I, P, P] + [I] * 8 + [P]
+    handle.winograd_input_transform_launch.argtypes = [I, P, P] + [I] * 4 \
+        + [P]
+    return handle
+
+
+def sweep_unroll(gen, parent):
+    """The launch floor, then ``im2col_unroll``'s and the input
+    transform's lines (``UNROLL_CLASSES``, ``TRANSFORM_CLASSES``), inputs
+    from ``gen``; with each option's CTAs and bytes on the busiest SM, the
+    profiler's device time of the pick, of the library call and (with
+    ``parent``) of the parent tree's kernel, and that kernel's graph time."""
+    import chip_smoke
+
+    print(json.dumps(chip_smoke.launch_floor(device=True)), flush=True)
+    old = parent_library(parent) if parent else None
+    for kernel, classes in (("im2col_unroll", UNROLL_CLASSES),
+                            ("winograd_input_transform", TRANSFORM_CLASSES)):
+        for shape in classes:
+            for dt in (torch.float32, torch.bfloat16):
+                print(json.dumps(unroll_case(kernel, shape, dt, gen, old)),
+                      flush=True)
+
+
+def unroll_case(kernel, shape, dt, gen, old):
+    """One line of ``sweep_unroll``: ``old`` is the parent's library or
+    None."""
+    import chip_smoke
+    from repro_torch.kernels import _build, im2col_conv, ref, winograd_conv
+
+    H, W, C = shape[:3]
+    x = torch.randn(1, H, W, C, device="cuda", generator=gen).to(dt)
+    xp = ref.pad_same(x, 3, 3)
+    Hp, Wp = xp.shape[1], xp.shape[2]
+    code = _build.DTYPE_CODES[dt]
+    line = {"kernel": kernel, "H": H, "W": W, "C": C,
+            "dtype": str(dt).removeprefix("torch.")}
+    if kernel == "im2col_unroll":
+        R = shape[3]
+        p = im2col_conv.plan(xp, R, R)
+        opts = im2col_conv.options(H, W, C, R, R, dt)
+
+        def label(o):
+            return f"{o.pixels}x{o.channels}"
+
+        def call(plain=False):
+            return (im2col_conv.plain if plain
+                    else im2col_conv.im2col_unroll)(xp, R, R)
+
+        def library():
+            return torch.as_strided(
+                xp, (1, H, W, R, R, C),
+                (Hp * Wp * C, Wp * C, C, Wp * C, C, 1)).contiguous()
+        out = torch.empty(1, H * W, R * R * C, dtype=dt, device="cuda")
+
+        def parent_call():  # on the stream current at the call (a graph's)
+            _build.check(old.im2col_unroll_launch(
+                code, xp.data_ptr(), out.data_ptr(), 1, Hp, Wp, C, R, R, H,
+                W, _build.stream(xp.device)), "parent im2col_unroll")
+        # tolerance 0: each option must give the plain version exactly
+        line.update(
+            plan=label(p),
+            ctas={label(o): im2col_conv.ctas(o, H, W, C) for o in opts},
+            sm_bytes={label(o): im2col_conv.sm_bytes(o, H, W, C, R, R, dt)
+                      for o in opts},
+            **forced_sweep(call, im2col_conv, p,
+                           {label(o): o._asdict() for o in opts}, 0.0,
+                           device=True))
+    else:
+        th, tw = H // 2, W // 2
+        bt = ref._BT.to("cuda", dt)
+
+        def call(plain=False):
+            return (winograd_conv.plain_input_transform if plain
+                    else winograd_conv.winograd_input_transform)(xp, H, W)
+
+        def library():  # the stride-2 4x4 windows, then Bᵀ d B
+            d = torch.as_strided(xp, (1, th, tw, 4, 4, C),
+                                 (Hp * Wp * C, 2 * Wp * C, 2 * C, Wp * C,
+                                  C, 1))
+            return torch.einsum("ar,bijrsc,es->baeijc", bt, d, bt)
+        out = torch.empty(1, 4, 4, th * tw, C, dtype=dt, device="cuda")
+
+        def parent_call():
+            _build.check(old.winograd_input_transform_launch(
+                code, xp.data_ptr(), out.data_ptr(), 1, Hp, Wp, C,
+                _build.stream(xp.device)), "parent winograd_input_transform")
+        chip_smoke.require(torch.equal(call(), call(True)),
+                           f"{kernel} {shape} {dt}: not the plain version")
+        line["ms"] = chip_smoke.time_ms(call)
+    line["library_ms"] = chip_smoke.time_ms(library)
+    line["device_us"] = {"plan": chip_smoke.device_us(call),
+                         "library": chip_smoke.device_us(library)}
+    if old is not None:
+        # the parent's input transform rounded once in 16 bits: bitwise
+        # to the plain version in fp32 only
+        parent_call()
+        exact = kernel == "im2col_unroll" or dt == torch.float32
+        want = call(True)
+        rel = ((out.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        chip_smoke.require(rel == 0.0 if exact else rel <= 1e-2,
+                           f"parent {kernel} {shape} {dt}: {rel} off the "
+                           "plain version")
+        line["parent_ms"] = chip_smoke.time_ms(parent_call)
+        line["device_us"]["parent"] = chip_smoke.device_us(parent_call)
+    return line
 
 
 if __name__ == "__main__":

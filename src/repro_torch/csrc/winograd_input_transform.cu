@@ -1,6 +1,6 @@
 // Winograd F(2x2,3x3) input transform for sm_90a: the Hopper counterpart of
 // the Pallas kernel `winograd_input_transform` in
-// src/repro/kernels/winograd_conv.py.
+// src/repro/kernels/winograd_conv.py:55.
 //
 // x_padded (B, H+2, W+2, C) -> V (B, 4, 4, nt, C), nt = (H/2)(W/2) tiles
 // row-major over (tile row, tile column): V[b, a, e, t, c] is (Bᵀ d B)[a][e]
@@ -11,24 +11,46 @@
 // bound it: V is 4x the image. The TPU kernel stages a whole padded image
 // in VMEM; a 58x58x64 fp32 image is 0.86 MB against 227 KB of shared
 // memory, and nothing here is reused across tiles beyond what L1 and L2
-// hold, so no shared memory is used at all. One thread owns one (image,
-// tile, channel): neighbouring lanes take neighbouring channels, so its 16
-// loads and 16 stores coalesce along C in NHWC. It combines rows then
-// columns in fp32 registers, in the plain version's order (exact for fp32
-// inputs, so the two agree bitwise), and stores each V value with one cast
-// to the input dtype.
+// hold, so no shared memory is used at all: on the H100 a tile block's
+// halo staged with cp.async and 16-byte channel vectors measured slower
+// than this (PERF.md §6), since L1 already serves the windows' overlap.
+// One thread owns one (image, tile, channel): neighbouring lanes take
+// neighbouring channels, so its 16 loads and 16 stores coalesce along C in
+// NHWC. It combines rows then columns in the plain version's order, each
+// add or subtract in the input dtype with one round-to-nearest, as the
+// Pallas kernel computes it (16-bit values through the hardware's bf16 or
+// fp16 add, which needs no conversion), so the two agree bitwise, and
+// stores each V value as it is.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ void bt_combine(float d0, float d1, float d2,
-                                           float d3, float* o) {
-  o[0] = d0 - d2;
-  o[1] = d1 + d2;
-  o[2] = d2 - d1;
-  o[3] = d1 - d3;
+// One add or subtract in T, rounded to nearest once.
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float sub(float a, float b) { return a - b; }
+__device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 a,
+                                             __nv_bfloat16 b) {
+  return __hadd(a, b);
+}
+__device__ __forceinline__ __nv_bfloat16 sub(__nv_bfloat16 a,
+                                             __nv_bfloat16 b) {
+  return __hsub(a, b);
+}
+__device__ __forceinline__ __half add(__half a, __half b) {
+  return __hadd(a, b);
+}
+__device__ __forceinline__ __half sub(__half a, __half b) {
+  return __hsub(a, b);
+}
+
+template <typename T>
+__device__ __forceinline__ void bt_combine(T d0, T d1, T d2, T d3, T* o) {
+  o[0] = sub(d0, d2);
+  o[1] = add(d1, d2);
+  o[2] = sub(d2, d1);
+  o[3] = sub(d1, d3);
 }
 
 template <typename T>
@@ -44,17 +66,16 @@ __global__ void __launch_bounds__(THREADS) input_transform_kernel(
     const int h0 = 2 * (t / tw);
     const int w0 = 2 * (t % tw);
     const T* xb = x + ((b * Hp + h0) * Wp + w0) * C + c;
-    float d[4][4];
+    T d[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
-        d[r][s] = ilpm::to_f32(xb[((long long)r * Wp + s) * C]);
+      for (int s = 0; s < 4; ++s) d[r][s] = xb[((long long)r * Wp + s) * C];
     // rows: rw[a][s] = sum_r Bᵀ[a][r] d[r][s]
-    float rw[4][4];
+    T rw[4][4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      float o[4];
+      T o[4];
       bt_combine(d[0][s], d[1][s], d[2][s], d[3][s], o);
 #pragma unroll
       for (int a = 0; a < 4; ++a) rw[a][s] = o[a];
@@ -63,11 +84,10 @@ __global__ void __launch_bounds__(THREADS) input_transform_kernel(
     T* vb = v + (b * 16 * nt + t) * C + c;
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      float o[4];
+      T o[4];
       bt_combine(rw[a][0], rw[a][1], rw[a][2], rw[a][3], o);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        vb[(long long)(a * 4 + e) * nt * C] = ilpm::from_f32<T>(o[e]);
+      for (int e = 0; e < 4; ++e) vb[(long long)(a * 4 + e) * nt * C] = o[e];
     }
   }
 }

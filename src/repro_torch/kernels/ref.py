@@ -205,17 +205,17 @@ def winograd_filter_transform(w):
 def winograd_input_transform(x_padded, H, W):
     """x_padded (B, H+2, W+2, C) -> V (B, 4, 4, nt, C) with nt =
     (H/2)(W/2) tiles, row-major over (tile row, tile column): Bᵀ d B of
-    each stride-2 4x4 window, rows then columns, in fp32, cast once to
-    ``x_padded.dtype``."""
+    each stride-2 4x4 window, rows then columns, in ``x_padded.dtype`` as
+    the Pallas kernel computes it: each add or subtract rounded to the
+    dtype."""
     B, C = x_padded.shape[0], x_padded.shape[-1]
     th, tw = H // 2, W // 2
     # (B, th, tw, C, r, s): window (i, j) is x_padded[:, 2i+r, 2j+s]
-    d = x_padded.float().unfold(1, 4, 2).unfold(2, 4, 2)
+    d = x_padded.unfold(1, 4, 2).unfold(2, 4, 2)
     rows = _bt_combine(*(d[..., r, :] for r in range(4)))
     v = torch.stack([torch.stack(_bt_combine(*(t[..., s] for s in range(4))))
                      for t in rows])  # (4, 4, B, th, tw, C)
-    return v.permute(2, 0, 1, 3, 4, 5).reshape(B, 4, 4, th * tw, C).to(
-        x_padded.dtype)
+    return v.permute(2, 0, 1, 3, 4, 5).reshape(B, 4, 4, th * tw, C)
 
 
 def winograd_output_transform(m, H, W, *, scale=None, bias=None, act=None):
@@ -236,7 +236,8 @@ def winograd_output_transform(m, H, W, *, scale=None, bias=None, act=None):
 def winograd_conv(x_padded, w, *, u=None, scale=None, bias=None, act=None):
     """F(2x2,3x3) on x_padded (B, H+2, W+2, C), w (3,3,C,K), even H and
     W -> (B, H, W, K), at the cast points of the JAX package's Pallas
-    composition: V in the input dtype, the 16 products accumulated in
+    composition: V computed in the input dtype (each add rounded), the
+    16 products accumulated in
     fp32 and written in V's dtype, the output transform reading M as fp32
     with the epilogue fused and one cast. (Its jnp path casts M, then
     applies the epilogue as a second pass: the difference shows only in
