@@ -16,8 +16,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    conv with channel multiplier 2), in fp32 and bf16, with non-zero
    folded-BN scales and biases, held against its plain PyTorch version on
    the same inputs within ``tolerance(dtype)`` (the im2col unroll, a copy,
-   and the Winograd input transform, add/sub in the plain version's
-   order and rounding, bitwise: ``bitwise_equal``, required), with CUDA-event times of
+   the Winograd input transform, add/sub in the plain version's order and
+   rounding, and the Winograd output transform, Aᵀ m A in fp32 with its
+   epilogue rounded once, bitwise: ``bitwise_equal``, required), with
+   CUDA-event times of
    the kernel, the plain version and
    one PyTorch library call, and the least time the card could take for
    the same work; Winograd's classes are its input transform, its 16
@@ -43,10 +45,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    inverted residual's its tile and parts of the mid width; depthwise's
    tile, channels, threads, shared memory and which kernel: 3x3 or
    generic); then the two gathers, ``im2col_unroll`` and
-   ``winograd_input_transform``, in fp16 at each of their classes and at
-   one ragged class each in fp32 and bf16 (a 9x11 image, C = 6, 3x3; a
-   10x14 image, C = 12), each im2col line with its launch plan (pixels a
-   CTA, channels, shared memory, CTAs).
+   ``winograd_input_transform``, and ``winograd_output_transform``, in
+   fp16 at each of their classes and at one ragged class each in fp32 and
+   bf16 (a 9x11 image, C = 6, 3x3; a 10x14 image, C = 12; a 10x14 image, K
+   = 10), each im2col line with its launch plan (pixels a CTA, channels,
+   shared memory, CTAs), each output-transform line with its (tiles a CTA,
+   channels, unit bytes, threads, CTAs).
    Each fp32
    ``fused_inverted_residual`` line is also held, bitwise
    (``vs_per_layer_bitwise_equal``), against the per-layer chain of
@@ -104,7 +108,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      forced im2col) within 1e-4 of the CPU engine, and
      ``resnet18/bf16/store_fp32`` (bf16 compute over fp32 weights, tuned)
      within ``tolerance("bfloat16")``, with its top-1 agreement and max
-     relative logit error against the fp32 engine; and
+     relative logit error against the fp32 engine;
+     ``resnet18/winograd/bf16`` (bf16 compute over fp32 weights, forced
+     Winograd, launches as ``resnet18/winograd``) within
+     ``tolerance("bfloat16")`` of the CPU engine and of the fp32 forced
+     Winograd engine's logits, with its top-1 agreement against them; and
      ``mobilenet_v2/bf16/store_fp32``, the same for tuned MobileNetV2
      (launches as ``mobilenet_v2``);
 5. the Mamba-2 LM path (``repro_torch.launch.serve.generate``: one
@@ -113,7 +121,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    - ``causal_conv1d``, the kernel of its prefill, at the model's shapes
      (the xBC slice of the in-projection, read in place: rows 4384
      elements apart, C = 2304, K = 4) of both paths below and at the edge
-     lengths L = 1, 2, 3, 513, in fp32 and bf16, against its plain version
+     lengths L = 1, 2, 3, 513, in fp32 and bf16, then in fp16 at each
+     (no path runs it), against its plain version
      within ``tolerance(dtype)``, with the same times as the kernel phase
      and ``F.conv1d(groups=C)`` as the library call;
    - ``mamba2_370m``, serving at the published dtype (bf16): batch 4,
@@ -230,14 +239,20 @@ RAGGED_CONV = (("pointwise_conv", ("ragged", 15, 17, 12, 20, 1, 2)),
                ("fused_inverted_residual",
                 ("ragged", 11, 9, 12, 36, 12, 3, 1, True)),
                ("depthwise_conv", ("ragged", 11, 9, 12, 1, 3, 1)))
-# the two gathers, which run in fp16 at every class and at one ragged
-# class each in fp32 and bf16 (im2col: a 9x11 image, C = 6, so 24- and
-# 12-byte channel runs; the input transform: a 10x14 image, C = 12); each
-# is a copy or an add/sub chain in its plain version's order and rounding,
-# so both must equal it bitwise; im2col's line carries its launch plan
-GATHER_KERNELS = ("im2col_unroll", "winograd_input_transform")
-RAGGED_GATHER = (("im2col_unroll", ("ragged", 9, 11, 6, 20, 3, 1)),
-                 ("winograd_input_transform", ("ragged", 10, 14, 12)))
+# the two gathers and the Winograd output transform, which run in fp16 at
+# every class and at one ragged class each in fp32 and bf16 (im2col: a 9x11
+# image, C = 6, so 24- and 12-byte channel runs; the input transform: a
+# 10x14 image, C = 12; the output transform: a 10x14 image, K = 10, so 40-
+# and 20-byte channel runs and no 16-byte unit); each is a copy, an add/sub
+# chain or (the output transform) Aᵀ m A in fp32 with its epilogue rounded
+# once, in its plain version's order and rounding, so each must equal it
+# bitwise; im2col's and the output transform's lines carry their launch
+# plans
+BITWISE_KERNELS = ("im2col_unroll", "winograd_input_transform",
+                   "winograd_output_transform")
+RAGGED_BITWISE = (("im2col_unroll", ("ragged", 9, 11, 6, 20, 3, 1)),
+                  ("winograd_input_transform", ("ragged", 10, 14, 12)),
+                  ("winograd_output_transform", ("ragged", 10, 14, 10)))
 # the paper's speedups of ILP-M, measured on a mobile GPU (Mali): context
 # for the comparison line, not a target
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
@@ -271,10 +286,13 @@ EXPECTED_PER_IMAGE = {
 EXPECTED_PER_IMAGE["resnet18/im2col/store_bf16"] = \
     EXPECTED_PER_IMAGE["resnet18/im2col"]
 EXPECTED_PER_IMAGE["resnet18/bf16/store_fp32"] = EXPECTED_PER_IMAGE["resnet18"]
+EXPECTED_PER_IMAGE["resnet18/winograd/bf16"] = \
+    EXPECTED_PER_IMAGE["resnet18/winograd"]
 EXPECTED_PER_IMAGE["mobilenet_v2/bf16/store_fp32"] = \
     EXPECTED_PER_IMAGE["mobilenet_v2"]
 # the compute dtype of a path, where it is not fp32
 PATH_DTYPE = {"resnet18/bf16/store_fp32": "bfloat16",
+              "resnet18/winograd/bf16": "bfloat16",
               "mobilenet_v2/bf16/store_fp32": "bfloat16"}
 
 
@@ -550,29 +568,38 @@ def kernel_setup(kernel, shape, dtype, gen):
                     plain=winograd_conv.plain_input_transform,
                     args=(xp, H, W), kw={}, library=library,
                     inputs=[xp], flops=32 * nt * C)
+    if kernel == "winograd_output_transform":
+        if shape[0] == "ragged":  # ("ragged", H, W, K)
+            _, H, W, K = shape
+            desc = {"algorithm": "ragged", "H": H, "W": W, "K": K}
+        else:
+            _, H, C, K = shape
+            W, desc = H, {"algorithm": "winograd", "H": H, "C": C, "K": K}
+        th, tw = H // 2, W // 2
+        nt = th * tw
+        m = randn(1, 4, 4, nt, K, scale=3.0)
+        scale, bias = bn(K)
+        at = ref._AT.to(dev, dtype)
+        s_lib, b_lib = scale.to(dtype), bias.to(dtype)
+
+        def library():  # Aᵀ m A, the 2x2 scatter, the epilogue
+            y = torch.einsum("ar,brstk,es->btaek", at, m, at)
+            y = y.reshape(1, th, tw, 2, 2, K).permute(0, 1, 3, 2, 4, 5)
+            return torch.relu(y.reshape(1, H, W, K) * s_lib + b_lib)
+        # 16 add/sub on the rows, 8 on the columns, a multiply-add and the
+        # activation on each of the 4 outputs
+        return dict(shape={**desc, "tiles": nt},
+                    fn=winograd_conv.winograd_output_transform,
+                    plain=winograd_conv.plain_output_transform,
+                    args=(m, H, W),
+                    kw=dict(scale=scale, bias=bias, act="relu"),
+                    library=library, inputs=[m, scale, bias],
+                    flops=36 * nt * K)
     if shape[0] == "winograd":
         _, H, C, K = shape
-        th, nt = H // 2, (H // 2) ** 2
+        nt = (H // 2) ** 2
         line = {"shape": {"algorithm": "winograd", "H": H, "C": C, "K": K,
                           "tiles": nt}}
-        if kernel == "winograd_output_transform":
-            m = randn(1, 4, 4, nt, K, scale=3.0)
-            scale, bias = bn(K)
-            at = ref._AT.to(dev, dtype)
-            s_lib, b_lib = scale.to(dtype), bias.to(dtype)
-
-            def library():  # Aᵀ m A, the 2x2 scatter, the epilogue
-                y = torch.einsum("ar,brstk,es->btaek", at, m, at)
-                y = y.reshape(1, th, th, 2, 2, K).permute(0, 1, 3, 2, 4, 5)
-                return torch.relu(y.reshape(1, H, H, K) * s_lib + b_lib)
-            # 16 add/sub on the rows, 8 on the columns, a multiply-add
-            # and the activation on each of the 4 outputs
-            return dict(line, fn=winograd_conv.winograd_output_transform,
-                        plain=winograd_conv.plain_output_transform,
-                        args=(m, H, H),
-                        kw=dict(scale=scale, bias=bias, act="relu"),
-                        library=library, inputs=[m, scale, bias],
-                        flops=36 * nt * K)
         # the 16 products of one image: V (16, nt, C) against U, fp32 as
         # the forced path has it; in fp16 the cached U of an fp16 plan
         a = randn(16, nt, C)
@@ -750,14 +777,21 @@ def tile_plan(kernel, args, kw, y):
     one a CTA; the inverted residual's: output tile side and parts of the
     mid width, its 32-channel slabs, one a CTA; the depthwise conv's:
     output tile rows and columns, channels, threads and which kernel, the
-    3x3 one or the generic), and of the im2col unroll (pixels a CTA,
-    channels, shared memory and CTAs).
+    3x3 one or the generic), of the im2col unroll (pixels a CTA,
+    channels, shared memory and CTAs) and of the Winograd output transform
+    (tiles a CTA, channels, unit bytes, threads and CTAs).
     ``y`` is the call's output: (batch, M, N) for gemm, (B, Ho, Wo, K) for
     a conv."""
     from repro_torch.kernels import depthwise_conv, direct_conv, \
         fused_block, gemm, ilpm_conv, im2col_conv, libdnn_conv, \
-        pointwise_conv
+        pointwise_conv, winograd_conv
 
+    if kernel == "winograd_output_transform":
+        m, H, W = args
+        p = winograd_conv.plan(m, H, W)
+        return {**p._asdict(), "threads": winograd_conv.threads(p, m.dtype),
+                "ctas": winograd_conv.ctas(p, H, W, m.shape[-1])
+                * m.shape[0]}
     if kernel == "im2col_unroll":
         xp, r, s = args
         p = im2col_conv.plan(xp, r, s)
@@ -871,7 +905,8 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
-    if kernel in PLANNED_KERNELS or kernel == "im2col_unroll":
+    if kernel in (*PLANNED_KERNELS, "im2col_unroll",
+                  "winograd_output_transform"):
         line["plan"] = tile_plan(kernel, args, kw, y)
     if kernel == "fused_inverted_residual" and dtype == torch.float32:
         x, weights = args
@@ -881,7 +916,7 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         require(line["vs_per_layer_bitwise_equal"],
                 f"fused_inverted_residual {case['shape']}: not bitwise "
                 f"equal to the per-layer chain: {(y - chain).abs().max()}")
-    if kernel in GATHER_KERNELS:  # bitwise or wrong
+    if kernel in BITWISE_KERNELS:  # bitwise or wrong
         line["bitwise_equal"] = torch.equal(y, p)
         require(line["bitwise_equal"],
                 f"{kernel} {name} {case['shape']}: not bitwise equal to "
@@ -1416,6 +1451,8 @@ def main() -> None:
             per_path.setdefault(key, {})[f"resnet18/{algorithm}"] = n
     for key, n in forced_classes(resnet.conv_specs(scfg), "im2col").items():
         per_path.setdefault(key, {})["resnet18/im2col/store_bf16"] = n
+    for key, n in forced_classes(resnet.conv_specs(bcfg), "winograd").items():
+        per_path.setdefault(key, {})["resnet18/winograd/bf16"] = n
     paper = {(layer.h, layer.c_in, layer.c_out, layer.r, layer.stride)
              for layer in PAPER_CONV_LAYERS}
     for kernel in ("im2col_unroll", "gemm", "libdnn_conv"):
@@ -1458,12 +1495,12 @@ def main() -> None:
               if kernel in PLANNED_KERNELS and kernel != "gemm"]
     extra += [(kernel, shape, {}, dtype) for kernel, shape in RAGGED_CONV
               for dtype in (torch.float32, torch.bfloat16)]
-    # the two gathers last, so the classes before draw the inputs they drew
-    # before them: fp16 at every class, then their ragged classes
+    # the bitwise kernels last, so the classes before draw the inputs they
+    # drew before them: fp16 at every class, then their ragged classes
     extra += [(kernel, shape, paths, torch.float16)
               for (kernel, shape), paths in ordered
-              if kernel in GATHER_KERNELS]
-    extra += [(kernel, shape, {}, dtype) for kernel, shape in RAGGED_GATHER
+              if kernel in BITWISE_KERNELS]
+    extra += [(kernel, shape, {}, dtype) for kernel, shape in RAGGED_BITWISE
               for dtype in (torch.float32, torch.bfloat16)]
     for kernel, shape, paths, dtype in extra:
         line = kernel_case(kernel, shape, dtype, gen, peaks)
@@ -1575,6 +1612,24 @@ def main() -> None:
     emit(line)
     require(line["logits_dtype"] == "float32", f"{path}: logits "
                                                f"{line['logits_dtype']}")
+    # forced Winograd at bf16 over the same fp32 weights: V, M and the
+    # output in bf16, U per call in fp32
+    path = "resnet18/winograd/bf16"
+    line, logits = engine_phase(
+        path, InferenceEngine(bcfg, params=tuned_engine.model,
+                              algorithm="winograd"),
+        images, counters, results, bound=tolerance("bfloat16"))
+    line["vs_fp32_max_rel_err"] = rel_err(logits, forced["winograd"])
+    line["vs_fp32_top1_agreement"] = (
+        logits.argmax(-1) == forced["winograd"].argmax(-1)).float().mean(
+    ).item()
+    launches[path] = line["launches"]
+    emit(line)
+    require(line["vs_fp32_max_rel_err"] <= tolerance("bfloat16"),
+            f"{path} vs the fp32 forced Winograd logits: "
+            f"{line['vs_fp32_max_rel_err']}")
+    require(line["logits_dtype"] == "float32", f"{path}: logits "
+                                               f"{line['logits_dtype']}")
     mparams = perturb_bn(init_params(mobilenet.model_specs(mcfg), 0,
                                      mcfg.param_dtype), seed=0)
     tuned = InferenceEngine(mcfg, params=mparams)
@@ -1610,12 +1665,17 @@ def main() -> None:
     lcfg = get(LM_CONFIG)
     conv_gen = torch.Generator(device="cuda").manual_seed(2)
     conv_results = []
-    for shape, paths in conv1d_classes(lcfg).items():
-        for dtype in (torch.float32, torch.bfloat16):
-            line = kernel_case("causal_conv1d", shape, dtype, conv_gen, peaks)
-            line["launches_per_prefill"] = dict(paths)
-            emit(line)
-            conv_results.append(line)
+    # fp32 and bf16 at every class, then fp16 at every class (no path runs
+    # it), so the classes before draw the inputs they drew before them
+    classes = conv1d_classes(lcfg)
+    for dtypes in ((torch.float32, torch.bfloat16), (torch.float16,)):
+        for shape, paths in classes.items():
+            for dtype in dtypes:
+                line = kernel_case("causal_conv1d", shape, dtype, conv_gen,
+                                   peaks)
+                line["launches_per_prefill"] = dict(paths)
+                emit(line)
+                conv_results.append(line)
     bad = [(r["dtype"], r["shape"]) for r in conv_results
            if not r["max_rel_err"] <= r["tol"]]
     require(not bad, f"causal_conv1d disagrees with its plain version: {bad}")

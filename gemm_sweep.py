@@ -44,7 +44,7 @@ these lines.
     python3 gemm_sweep.py direct ir dw
 
 runs only the named parts (``gemm``, ``conv``, ``tile``, ``direct``,
-``ir``, ``dw``, ``unroll``).
+``ir``, ``dw``, ``unroll``, ``wout``).
 
     python3 gemm_sweep.py unroll [--parent DIR]
 
@@ -61,6 +61,17 @@ device time of the kernel (the plan's pick) and of the library call, and
 with ``--parent DIR`` (a checkout of an earlier tree) also the
 graph-replay and device times of that tree's kernel on the same inputs,
 built from its ``csrc`` with the same flags.
+
+    python3 gemm_sweep.py wout [--parent DIR]
+
+times ``winograd_output_transform`` the same way: the launch floor, then
+ResNet-18's three even 3x3/1 layers and chip_smoke.py's ragged class
+(``OUTPUT_CLASSES``) in fp32 and bf16, at every option of
+``winograd_conv.options`` beside the plan's pick, each checked against the
+plain version exactly, with each option's CTAs, threads and profiler
+device time, the library call's, and with ``--parent`` the earlier tree's
+kernel's (it must equal the plain version bitwise too: it rounds the
+epilogue once).
 """
 from __future__ import annotations
 
@@ -163,7 +174,7 @@ def sweep(call, kc, kind, planned_split, tol):
             "fastest_split": min(ms, key=ms.get)}
 
 
-PARTS = ("gemm", "conv", "tile", "direct", "ir", "dw", "unroll")
+PARTS = ("gemm", "conv", "tile", "direct", "ir", "dw", "unroll", "wout")
 
 
 def main() -> None:
@@ -199,6 +210,8 @@ def main() -> None:
         sweep_depthwise(gen)
     if "unroll" in parts:
         sweep_unroll(gen, parent)
+    if "wout" in parts:
+        sweep_output_transform(gen, parent)
 
 
 def sweep_gemm(gen):
@@ -519,13 +532,23 @@ UNROLL_CLASSES = [(56, 56, 64, 3), (28, 28, 128, 3), (14, 14, 256, 3),
                   (7, 7, 512, 3), (9, 11, 6, 3)]
 TRANSFORM_CLASSES = [(56, 56, 64), (28, 28, 128), (14, 14, 256),
                      (10, 14, 12)]
+# (H, W, K): ResNet-18's three even 3x3/1 layers and chip_smoke.py's ragged
+# class of the output transform (40- and 20-byte channel runs)
+OUTPUT_CLASSES = [(56, 56, 64), (28, 28, 128), (14, 14, 256), (10, 14, 10)]
 
 
-def parent_library(parent):
-    """ctypes handle of the two gather kernels of the tree at ``parent``
-    (its ``im2col_unroll.cu`` and ``winograd_input_transform.cu``, whose
-    entry points then took no plan), built with the port's nvcc flags into
-    ``_build/parent-<hash>/``."""
+# The entry points of the kernels ``--parent`` builds, as the trees before
+# their redesigns declared them: the two gathers before their plans
+# (ef7b161), the output transform before its plan (4bd70e4).
+_PARENT_ARGS = {"im2col_unroll": (2, 8), "winograd_input_transform": (2, 4),
+                "winograd_output_transform": (4, 5)}
+
+
+def parent_library(parent, kernels):
+    """ctypes handle of ``kernels`` of the tree at ``parent`` (their
+    ``csrc/<kernel>.cu``, whose entry points take a dtype code, the
+    pointers and the ints of ``_PARENT_ARGS`` and a stream), built with the
+    port's nvcc flags into ``_build/parent-<hash>/``."""
     import ctypes
     import hashlib
     import subprocess
@@ -533,9 +556,9 @@ def parent_library(parent):
     from repro_torch.kernels import _build
 
     csrc = parent / "src" / "repro_torch" / "csrc"
-    srcs = [csrc / "im2col_unroll.cu", csrc / "winograd_input_transform.cu"]
+    srcs = [csrc / f"{k}.cu" for k in kernels]
     h = hashlib.sha256(b"".join(p.read_bytes() for p in sorted(
-        csrc.iterdir())))
+        csrc.iterdir())) + " ".join(kernels).encode())
     out = _build.BUILD_ROOT / f"parent-{h.hexdigest()[:16]}"
     lib = out / "libparent.so"
     if not lib.exists():
@@ -545,9 +568,10 @@ def parent_library(parent):
                        capture_output=True)
     handle = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    handle.im2col_unroll_launch.argtypes = [I, P, P] + [I] * 8 + [P]
-    handle.winograd_input_transform_launch.argtypes = [I, P, P] + [I] * 4 \
-        + [P]
+    for k in kernels:
+        ptrs, ints = _PARENT_ARGS[k]
+        getattr(handle, f"{k}_launch").argtypes = [I] + [P] * ptrs \
+            + [I] * ints + [P]
     return handle
 
 
@@ -560,7 +584,9 @@ def sweep_unroll(gen, parent):
     import chip_smoke
 
     print(json.dumps(chip_smoke.launch_floor(device=True)), flush=True)
-    old = parent_library(parent) if parent else None
+    old = parent_library(parent, ("im2col_unroll",
+                                  "winograd_input_transform")) \
+        if parent else None
     for kernel, classes in (("im2col_unroll", UNROLL_CLASSES),
                             ("winograd_input_transform", TRANSFORM_CLASSES)):
         for shape in classes:
@@ -652,6 +678,86 @@ def unroll_case(kernel, shape, dt, gen, old):
         line["parent_ms"] = chip_smoke.time_ms(parent_call)
         line["device_us"]["parent"] = chip_smoke.device_us(parent_call)
     return line
+
+
+
+def sweep_output_transform(gen, parent):
+    """The launch floor, then ``winograd_output_transform``'s lines at
+    ``OUTPUT_CLASSES`` in fp32 and bf16, inputs from ``gen``:
+    every option of ``winograd_conv.options`` beside the plan's pick, each
+    checked against the plain version exactly, with its CTAs and threads,
+    and the profiler's device time of each option, of the library call and
+    (with ``parent``) of the parent tree's kernel, and that kernel's graph
+    time."""
+    import chip_smoke
+    from repro_torch.kernels import _build, ref, winograd_conv
+
+    print(json.dumps(chip_smoke.launch_floor(device=True)), flush=True)
+    old = parent_library(parent, ("winograd_output_transform",)) \
+        if parent else None
+    for H, W, K in OUTPUT_CLASSES:
+        for dt in (torch.float32, torch.bfloat16):
+            th, tw = H // 2, W // 2
+            m = (torch.randn(1, 4, 4, th * tw, K, device="cuda",
+                             generator=gen) * 3).to(dt)
+            scale = torch.rand(K, device="cuda", generator=gen) + 0.5
+            bias = torch.randn(K, device="cuda", generator=gen) * 0.1
+            at = ref._AT.to("cuda", dt)
+            s_lib, b_lib = scale.to(dt), bias.to(dt)
+            kw = dict(scale=scale, bias=bias, act="relu")
+
+            def call(plain=False, m=m, kw=kw):
+                return (winograd_conv.plain_output_transform if plain
+                        else winograd_conv.winograd_output_transform)(
+                            m, H, W, **kw)
+
+            def library(m=m, at=at, s_lib=s_lib, b_lib=b_lib, th=th, tw=tw):
+                y = torch.einsum("ar,brstk,es->btaek", at, m, at)
+                y = y.reshape(1, th, tw, 2, 2, K).permute(0, 1, 3, 2, 4, 5)
+                return torch.relu(y.reshape(1, H, W, K) * s_lib + b_lib)
+            p = winograd_conv.plan(m, H, W)
+            opts = winograd_conv.options(H, W, K, dt)
+
+            def label(o):
+                return f"{o.tiles}x{o.channels}x{o.unit}"
+            # tolerance 0: each option must give the plain version exactly
+            line = {"kernel": "winograd_output_transform", "H": H, "W": W,
+                    "K": K, "dtype": str(dt).removeprefix("torch."),
+                    "plan": label(p),
+                    "ctas": {label(o): winograd_conv.ctas(o, H, W, K)
+                             for o in opts},
+                    "threads": {label(o): winograd_conv.threads(o, dt)
+                                for o in opts},
+                    **forced_sweep(call, winograd_conv, p,
+                                   {label(o): o._asdict() for o in opts},
+                                   0.0, device=True)}
+            chip_smoke.require(torch.equal(call(), call(True)),
+                               f"output transform {H}x{W}x{K} {dt}: not "
+                               "the plain version")
+            line["library_ms"] = chip_smoke.time_ms(library)
+            line["device_us"] = {
+                "plan": line["device_us_by_option"][label(p)],
+                "library": chip_smoke.device_us(library)}
+            if old is not None:
+                out = torch.empty(1, H, W, K, dtype=dt, device="cuda")
+
+                def parent_call(m=m, out=out):
+                    _build.check(old.winograd_output_transform_launch(
+                        _build.DTYPE_CODES[dt], m.data_ptr(),
+                        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), 1,
+                        H, W, K, _build.act_code("relu"),
+                        _build.stream(m.device)),
+                        "parent winograd_output_transform")
+                parent_call()
+                want = call(True)
+                # the parent kernel rounds once too: bitwise in every dtype
+                chip_smoke.require(torch.equal(out, want),
+                                   f"parent output transform {H}x{W}x{K} "
+                                   f"{dt}: off the plain version")
+                line["parent_ms"] = chip_smoke.time_ms(parent_call)
+                line["device_us"]["parent"] = chip_smoke.device_us(
+                    parent_call)
+            print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -47,7 +47,7 @@ SIGNATURES = {
     "im2col_unroll_launch": [_I] + [_P] * 2 + [_I] * 10 + [_P],
     "gemm_launch": [_I] * 2 + [_P] * 3 + [_I] * 7 + [_P] * 2,
     "winograd_input_transform_launch": [_I] + [_P] * 2 + [_I] * 4 + [_P],
-    "winograd_output_transform_launch": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "winograd_output_transform_launch": [_I] + [_P] * 4 + [_I] * 8 + [_P],
     "causal_conv1d_launch": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I]
     + [_P],
 }

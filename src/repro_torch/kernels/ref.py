@@ -10,8 +10,10 @@ unfused epilogue, which differs only in the low-precision dtypes). im2col
 is the exception by its own contract: its GEMM writes the compute dtype
 and the epilogue is a separate pass, so it rounds twice; Winograd writes
 its transformed input and its 16 products in the compute dtype, as the
-Pallas composition does. They are what a CPU tensor runs and what the
-CUDA kernels are held against on the card.
+Pallas composition does, and its output transform rounds the epilogue's
+multiply-add once (``fma_f32``), as the Pallas kernel's compiles. They
+are what a CPU tensor runs and what the CUDA kernels are held against on
+the card.
 
 Layouts: activations NHWC, filters HWIO (R, S, C, K); the causal 1-D
 conv of the Mamba stem takes (B, L, C) and (K, C).
@@ -218,10 +220,32 @@ def winograd_input_transform(x_padded, H, W):
     return v.permute(2, 0, 1, 3, 4, 5).reshape(B, 4, 4, th * tw, C)
 
 
+def fma_f32(y, scale, bias):
+    """``y * scale + bias`` on fp32 tensors rounded once, as a fused
+    multiply-add (CUDA's ``fmaf``) rounds it. The product of two fp32
+    values is exact in fp64; the fp64 sum is rounded to odd (TwoSum gives
+    its exact error, and an inexact sum whose last bit is even moves one
+    ulp toward it), and a value rounded to odd at 53 bits rounds to fp32
+    correctly (Boldo and Melquiond, 2008)."""
+    p = y.double() * scale.double()
+    b = bias.double().expand_as(p)
+    s = p + b
+    bv = s - p
+    err = (p - (s - bv)) + (b - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def winograd_output_transform(m, H, W, *, scale=None, bias=None, act=None):
     """m (B, 4, 4, nt, K), read as fp32 -> (B, H, W, K) in ``m.dtype``:
-    Aᵀ m A per tile, rows then columns, the epilogue on the fp32 result
-    and one cast; tile t = i*(W/2) + j writes the 2x2 block at (2i, 2j)."""
+    Aᵀ m A per tile, rows then columns, then ``act(y*scale + bias)`` in
+    fp32 with one rounding (a fused multiply-add, as the Pallas kernel's
+    epilogue compiles and as the CUDA kernel computes it; a missing scale
+    is ones, a missing bias zeros, and with neither ``y`` is kept as it
+    is), and one cast; tile t = i*(W/2) + j writes the 2x2 block at (2i,
+    2j)."""
     B, K = m.shape[0], m.shape[-1]
     th, tw = H // 2, W // 2
     mf = m.float()
@@ -230,7 +254,11 @@ def winograd_output_transform(m, H, W, *, scale=None, bias=None, act=None):
                      for t in rows])  # (2a, 2b, B, nt, K)
     y = y.permute(2, 3, 0, 1, 4).reshape(B, th, tw, 2, 2, K)
     y = y.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, K)
-    return _epilogue(y, scale, bias, act).to(m.dtype)
+    if scale is not None or bias is not None:
+        kw = dict(dtype=torch.float32, device=y.device)
+        y = fma_f32(y, torch.ones(K, **kw) if scale is None else scale.float(),
+                    torch.zeros(K, **kw) if bias is None else bias.float())
+    return apply_act(y, act).to(m.dtype)
 
 
 def winograd_conv(x_padded, w, *, u=None, scale=None, bias=None, act=None):
