@@ -64,11 +64,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    transform, gemm, output transform; "n/a: odd H" at 7²) and cuDNN, and
    the ratios to ilpm beside the paper's figures, which are a mobile
    GPU's (Mali);
-4. engine phases, each on 4 numpy-seeded images through ``run`` and
-   ``run_batch``, with the launch counters set to 0 just before and read
-   just after: logits against the same engine and plan on the CPU,
-   ``run_batch`` bitwise equal to ``run``, and the kernel launches per
-   image:
+4. engine phases, each on 4 numpy-seeded images on the card through
+   ``run`` and ``run_batch`` of an engine that replays CUDA graphs, with
+   the launch counters set to 0 just before and read just after. The
+   counters tick when a forward is traced (one warm-up, the batch-1
+   graph, the batch-4 graph: ``images_traced``), never on a replay, so
+   ``launches_at_capture`` (launches per traced image) must equal the
+   counts below and a second pass, all replays, must launch nothing
+   (``launches_on_replay`` 0) and repeat the logits bitwise; an eager
+   engine of the same plan and weights runs beside it, its launches per
+   image as below and its logits bitwise the replay's
+   (``replay_bitwise_equal_eager``, required). Each line also holds the
+   logits against the same engine and plan on the CPU, ``run_batch``
+   bitwise equal to ``run``, the graphs captured, and the host-clock ms
+   per image with and without replay (``ms_per_image_replay``,
+   ``ms_per_image_eager``: 20 runs each in turns, each ending in a
+   synchronize, device images). The kernel launches per image:
    - ``InferenceEngine(get("resnet18"))`` at full width (224x224, fp32,
      tuned, random weights from seed 0): ilpm_conv 9, pointwise_conv 3,
      fused_residual_conv 8;
@@ -115,7 +126,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      Winograd engine's logits, with its top-1 agreement against them; and
      ``mobilenet_v2/bf16/store_fp32``, the same for tuned MobileNetV2
      (launches as ``mobilenet_v2``);
-5. the Mamba-2 LM path (``repro_torch.launch.serve.generate``: one
+5. the measured tuner: ResNet-18 at full width tuned with
+   ``tune(mode="measured", noise_floor=0)`` (each candidate one graph
+   replay timed with CUDA events), its algorithm counts, the sites whose
+   algorithm moved from the cost-model plan, its replayed ms per image
+   beside the cost-model plan's, its logits within the engine bound of
+   the CPU engine on the same plan (the ``tuner`` line);
+6. the serving tier (``serving`` lines): a ``Server`` on the card
+   holding full-width ResNet-18 and MobileNetV2 (fp32, tuned), fed
+   ragged bursts of host images across both, twice (``requests``: buckets
+   1, 2 and 4 all dispatch, every answer bitwise ``engine.run`` of the
+   same image on the same cached engine, ``trace_count`` at most the
+   buckets run; per round, the first capturing the batch graphs: p50/p95
+   latency, images/s); one threaded 30 fps stream of 30
+   frames on ResNet-18 beside MobileNetV2 requests (``stream``: every
+   frame and request bitwise ``run``, fps achieved, deadline-miss and
+   drop rates); scripted persistent dispatch faults on a second server
+   (``degraded``: the breaker trips, the ``xla_fallback_plan`` engine
+   answers within the engine bound of the tuned engine's);
+7. the Mamba-2 LM path (``repro_torch.launch.serve.generate``: one
    prefill, then greedy decode steps) on ``mamba2-370m`` at full width (48
    layers, random weights from seed 0):
    - ``causal_conv1d``, the kernel of its prefill, at the model's shapes
@@ -134,12 +163,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    - ``mamba2_370m/fp32``: batch 1, prompt 300 (across a chunk boundary),
      8 greedy decode steps; the logits of the prefill and of every step
      against the port on the CPU fed the same tokens;
-6. a ``kernels`` line with each kernel's launches, error and times summed
+8. the ``host_split`` line, after every timed line (a profiler session
+   slows later graph replays): where one eager tuned ResNet-18 run's host
+   time goes, by ``torch.profiler`` (host time inside aten ops against the
+   wall, device busy ms) and by ``cProfile`` (own time by module, top
+   functions);
+9. a ``kernels`` line with each kernel's launches, error and times summed
    over one image (one prefill for ``causal_conv1d``) of each path it runs
    on, each class in the path's compute dtype, and per path
    (``per_path``); one ``gemm`` launch is two device kernels where its
-   plan splits the contraction;
-7. the card's name and power limit as ``nvidia-smi`` gives them, then
+   plan splits the contraction; the launches are those of the engine
+   phases' traced forwards;
+10. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises: the script exits non-zero and never prints the
@@ -258,6 +293,7 @@ RAGGED_BITWISE = (("im2col_unroll", ("ragged", 9, 11, 6, 20, 3, 1)),
 PAPER_SPEEDUP = {"im2col": 14.6, "direct": 2.30}
 
 ENGINE_IMAGES = 4
+ENGINE_TIMED_RUNS = 20
 ENGINE_REL_BOUND = 1e-4  # the convolutions sum in other orders on the card
 NO_LAUNCHES = dict.fromkeys(KERNEL_INFO, 0)
 EXPECTED_PER_IMAGE = {
@@ -295,6 +331,14 @@ PATH_DTYPE = {"resnet18/bf16/store_fp32": "bfloat16",
               "resnet18/winograd/bf16": "bfloat16",
               "mobilenet_v2/bf16/store_fp32": "bfloat16"}
 
+
+# the serving phase: ragged bursts across both networks (buckets 1, 2
+# and 4 all dispatch at max_batch 4), then one threaded stream
+SERVE_NETS = ("resnet18", "mobilenet_v2")
+SERVE_BURSTS = (1, 2, 3, 4, 5, 2, 1, 4)
+SERVE_ROUNDS = 2
+SERVE_WAIT = 60
+STREAM_FPS, STREAM_FRAMES = 30.0, 30
 
 # The Mamba-2 LM paths and their compute dtypes; causal_conv1d launches
 # once per layer in a prefill and never in a decode step.
@@ -1040,31 +1084,71 @@ def path_dtype(path) -> str:
     return PATH_DTYPE.get(path, "float32")
 
 
+def alternate_ms(engines, images, runs=ENGINE_TIMED_RUNS):
+    """Median host-clock ms of one ``run`` that ends in a synchronize, per
+    named engine, the engines in turns, on device images."""
+    times = {name: [] for name in engines}
+    for i in range(runs):
+        for name, engine in engines.items():
+            times[name].append(host_ms(
+                lambda: engine.run(images[i % len(images)]))[0])
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def engine_phase(path, engine, images, counters, results,
                  bound=ENGINE_REL_BOUND):
-    """Drive one engine on ``images`` through ``run`` and ``run_batch``
-    with the launch counters set to 0 just before; check the launches
-    per image, the logits against the same engine and plan on the CPU
-    (within ``bound``), and ``run_batch`` against ``run``. The line also
-    carries the device time of one image's launches as the kernel phase
-    measured them (the class times in the path's compute dtype,
-    ``results``). Returns (line, logits)."""
+    """Drive one engine, which replays CUDA graphs, on ``images`` (device
+    tensors) through ``run`` and ``run_batch`` with the launch counters
+    set to 0 just before. The counters tick when a forward is traced (the
+    warm-up and each capture, ``engine.forwards``), so the launches per
+    traced image must equal ``EXPECTED_PER_IMAGE``; a second pass, all
+    replays, must launch nothing and give the same logits bitwise. An
+    eager engine of the same plan and weights runs beside it: its logits
+    bitwise the replay's, its launches per image as expected. Then the
+    logits against the same engine and plan on the CPU (within
+    ``bound``), ``run_batch`` against ``run``, and the ms per image with
+    and without replay. The line also carries the device time of one
+    image's launches as the kernel phase measured them (the class times
+    in the path's compute dtype, ``results``). Returns (line, logits)."""
     from repro_torch.core import InferenceEngine
 
     cfg = engine.cfg
-    require(engine.device.type == "cuda", f"{path}: engine on "
-                                          f"{engine.device}")
-    for fn in counters.values():
-        fn.launches = 0
+    require(engine.device.type == "cuda" and engine.replay,
+            f"{path}: engine on {engine.device}, replay {engine.replay}")
+    eager = InferenceEngine(cfg, params=engine.model, plan=engine.plan,
+                            algorithm=engine.algorithm, replay=False)
+    zero_counts(counters)
+    before = engine.forwards
     singles = torch.stack([engine.run(im) for im in images])
     batched = engine.run_batch(images)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    runs = 2 * len(images)
-    per_image = {name: n / runs for name, n in launches.items()}
+    launches = read_counts(counters)
+    traced = engine.forwards - before
+    per_image = {name: n / traced for name, n in launches.items()}
     require(per_image == EXPECTED_PER_IMAGE[path],
-            f"{path}: launches per image {per_image}, want "
+            f"{path}: launches per traced image {per_image}, want "
             f"{EXPECTED_PER_IMAGE[path]}")
+    zero_counts(counters)
+    before = engine.forwards
+    replayed = torch.stack([engine.run(im) for im in images])
+    rebatched = engine.run_batch(images)
+    torch.cuda.synchronize()
+    on_replay = sum(read_counts(counters).values())
+    require(on_replay == 0 and engine.forwards == before
+            and torch.equal(replayed, singles)
+            and torch.equal(rebatched, batched),
+            f"{path}: replays launched {on_replay} wrapper calls, traced "
+            f"{engine.forwards - before} forwards or changed the logits")
+    zero_counts(counters)
+    eager_logits = torch.stack([eager.run(im) for im in images])
+    torch.cuda.synchronize()
+    eager_per_image = {name: n / len(images)
+                       for name, n in read_counts(counters).items()}
+    require(eager_per_image == EXPECTED_PER_IMAGE[path],
+            f"{path}: eager launches per image {eager_per_image}")
+    replay_eager = torch.equal(singles, eager_logits)
+    require(replay_eager, f"{path}: replayed logits are not bitwise equal "
+                          "to eager dispatch's")
     require(tuple(singles.shape) == (len(images), cfg.vocab_size)
             and bool(torch.isfinite(singles).all()),
             f"{path}: bad logits: shape {tuple(singles.shape)}")
@@ -1074,18 +1158,12 @@ def engine_phase(path, engine, images, counters, results,
                                        engine.model.state_dict().items()},
                           plan=engine.plan, algorithm=engine.algorithm,
                           device="cpu")
-    ref_logits = cpu.run_batch(images)
+    ref_logits = cpu.run_batch(images.cpu())
     engine_rel = ((singles.cpu() - ref_logits).abs().max()
                   / ref_logits.abs().max()).item()
     require(engine_rel <= bound,
             f"{path}: cuda logits vs cpu: {engine_rel} > {bound}")
-    times = []
-    for i in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.run(images[i % len(images)])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    ms = alternate_ms({"replay": engine, "eager": eager}, images)
     plan = engine.plan
     return {"phase": "engine", "path": path, "config": cfg.name,
             "img": cfg.extra["img"], "dtype": cfg.dtype,
@@ -1095,13 +1173,308 @@ def engine_phase(path, engine, images, counters, results,
             "plan": sorted(Counter(plan.algorithms().values()).items())
             if plan else None,
             "fused_blocks": len(plan.block_choices) if plan else 0,
-            "launches": launches, "launches_per_image": per_image,
+            "launches": launches, "images_traced": traced,
+            "launches_at_capture": per_image,
+            "launches_on_replay": on_replay, "graphs": engine.graphs,
             "max_rel_err_vs_cpu": engine_rel, "bound": bound,
             "run_batch_bitwise_equal_run": bitwise,
-            "ms_per_image_median": statistics.median(times),
+            "replay_bitwise_equal_eager": replay_eager,
+            "ms_per_image_replay": ms["replay"],
+            "ms_per_image_eager": ms["eager"],
             "kernel_ms_per_image_from_classes": sum(
                 r["kernel_ms"] * r["launches_per_image"].get(path, 0)
                 for r in results if r["dtype"] == path_dtype(path))}, singles
+
+
+def measured_phase(tuned, images):
+    """The measured tuner at full width: ResNet-18 tuned with
+    ``tune(mode="measured", noise_floor=0)`` on the card (each candidate a
+    graph replay timed with CUDA events); its algorithm counts, the sites
+    whose algorithm moved from the cost-model plan, its replayed ms per
+    image beside the cost-model plan's, and its logits against the CPU
+    engine on the same plan."""
+    from repro_torch.core import InferenceEngine
+
+    cfg = tuned.cfg
+    t0 = time.perf_counter()
+    plan = tuned.tune(mode="measured", noise_floor=0)
+    tune_s = time.perf_counter() - t0
+    require(plan.mode == "measured" and plan.specs == tuned.plan.specs,
+            "measured plan: sites differ from the cost-model plan's")
+    moved = {name: [tuned.plan.choices[name].algorithm, ch.algorithm]
+             for name, ch in plan.choices.items()
+             if ch.algorithm != tuned.plan.choices[name].algorithm}
+    engine = InferenceEngine(cfg, params=tuned.model, plan=plan)
+    logits = torch.stack([engine.run(im) for im in images])
+    cpu = InferenceEngine(cfg, params={k: v.cpu() for k, v in
+                                       engine.model.state_dict().items()},
+                          plan=plan, device="cpu")
+    rel = rel_err(logits.cpu(), cpu.run_batch(images.cpu()))
+    require(bool(torch.isfinite(logits).all()) and rel <= ENGINE_REL_BOUND,
+            f"resnet18/measured: cuda logits vs cpu {rel}")
+    ms = alternate_ms({"measured": engine, "cost_model": tuned}, images)
+    return {"phase": "tuner", "path": "resnet18/measured",
+            "config": cfg.name, "mode": "measured", "noise_floor": 0,
+            "repeats": 3, "timer": "CUDA graph replay, CUDA events",
+            "tune_s": tune_s,
+            "plan": sorted(Counter(plan.algorithms().values()).items()),
+            "cost_model_plan": sorted(
+                Counter(tuned.plan.algorithms().values()).items()),
+            "fused_blocks": len(plan.block_choices),
+            "sites_moved": len(moved), "moved": moved,
+            "measured_us_per_site": {
+                name: ch.est_time * 1e6 for name, ch in plan.choices.items()},
+            "ms_per_image_replay": ms["measured"],
+            "cost_model_ms_per_image_replay": ms["cost_model"],
+            "max_rel_err_vs_cpu": rel, "bound": ENGINE_REL_BOUND}
+
+
+def serving_phase():
+    """The serving tier on the card: a ``Server`` holding full-width
+    ResNet-18 and MobileNetV2 (fp32, tuned, weights from seed 0), fed
+    ragged bursts of host images across both networks (buckets 1, 2 and
+    4 all dispatch), every answer bitwise ``engine.run`` of the same
+    image on the same cached engine and ``trace_count`` bounded by the
+    buckets run; then one threaded 30 fps stream on ResNet-18 beside
+    MobileNetV2 requests, every frame bitwise ``run``; then, on a second
+    server, scripted persistent dispatch faults that trip the breaker and
+    swap in the ``xla_fallback_plan`` engine, whose answers must lie
+    within the engine bound of the tuned engine's."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.serving import (FaultInjector, RetryPolicy, Server,
+                                     ServingOptions)
+
+    img = get(SERVE_NETS[0]).extra["img"]
+    host = np.random.default_rng(3).standard_normal(
+        (max(SERVE_BURSTS), img, img, 3)).astype(np.float32)
+    lines = []
+    with Server(options=ServingOptions(max_batch=4)) as server:
+        require(server.engines.device.type == "cuda",
+                f"serving on {server.engines.device}")
+        engines = {}
+        for net in SERVE_NETS:
+            server.warm(net)
+            engines[net] = server.engines.get(get(net))
+        truth = {net: [engines[net].run(im) for im in host]
+                 for net in SERVE_NETS}
+        tickets, rounds = [], []
+        for r in range(SERVE_ROUNDS):  # the first captures the batch graphs
+            graphs = sum(e.graphs for e in engines.values())
+            t0 = time.perf_counter()
+            done = []
+            for n in SERVE_BURSTS:
+                burst = [(net, i, server.submit(net, host[i]))
+                         for i in range(n) for net in SERVE_NETS]
+                for _, _, ticket in burst:
+                    ticket.result(timeout=SERVE_WAIT)
+                done += burst
+            wall = time.perf_counter() - t0
+            lat = sorted(t.latency * 1e3 for _, _, t in done)
+            rounds.append({
+                "round": r, "requests": len(done), "wall_s": wall,
+                "images_per_s": len(done) / wall,
+                "graphs_captured": sum(e.graphs for e in engines.values())
+                - graphs,
+                "latency_p50_ms": lat[round(0.50 * (len(lat) - 1))],
+                "latency_p95_ms": lat[round(0.95 * (len(lat) - 1))],
+                "latency_max_ms": lat[-1]})
+            tickets += done
+        bitwise = all(torch.equal(t.result(), truth[net][i])
+                      for net, i, t in tickets)
+        require(bitwise, "serving: an answer is not bitwise engine.run")
+        stats = server.stats()
+        per_net = {}
+        for net in SERVE_NETS:
+            batcher = server._batchers[server.engines.key(get(net))]
+            padded = sorted({d["padded"] for d in batcher.dispatches})
+            batched = [p for p in padded if p > 1]
+            traces = engines[net].trace_count()
+            require(traces <= len(batched), f"serving {net}: "
+                    f"trace_count {traces} > buckets {batched}")
+            st = batcher.stats()
+            per_net[net] = {
+                "requests": st["requests"], "dispatches": st["dispatches"],
+                "batch_histogram": st["batch_histogram"],
+                "buckets": padded, "trace_count": traces,
+                "graphs": engines[net].graphs}
+        buckets = set().union(*(v["buckets"] for v in per_net.values()))
+        require({1, 2, 4} <= buckets, f"serving: buckets {sorted(buckets)}")
+        lines.append({"phase": "serving", "part": "requests",
+                      "networks": list(SERVE_NETS), "dtype": "float32",
+                      "img": img, "bursts": list(SERVE_BURSTS),
+                      "max_batch": 4, "window_ms": server.window_ms,
+                      "requests": len(tickets), "rounds": rounds,
+                      "bitwise_equal_engine_run": bitwise,
+                      "per_network": per_net,
+                      "scheduler_jobs": stats["scheduler"]["jobs"]})
+
+        # one 30 fps stream on ResNet-18, MobileNetV2 requests beside it
+        side = []
+
+        def classify():
+            for k in range(STREAM_FRAMES):
+                side.append((k, server.submit("mobilenet_v2",
+                                              host[k % len(host)])))
+                time.sleep(1 / STREAM_FPS)
+
+        with server.open_stream("resnet18", fps=STREAM_FPS) as stream:
+            client = threading.Thread(target=classify, daemon=True)
+            client.start()
+            frames, start = [], time.perf_counter()
+            for k in range(STREAM_FRAMES):
+                time.sleep(max(0.0, start + k / STREAM_FPS
+                               - time.perf_counter()))
+                frames.append(stream.submit_frame(host[k % len(host)]))
+            stream.flush()
+            client.join(SERVE_WAIT)
+        require(not client.is_alive(), "serving: classify client hung")
+        done = [f for f in frames if not f.dropped]
+        frames_bitwise = all(
+            torch.equal(f.future.result(timeout=SERVE_WAIT),
+                        truth["resnet18"][f.seq % len(host)]) for f in done)
+        side_bitwise = all(
+            torch.equal(t.result(timeout=SERVE_WAIT),
+                        truth["mobilenet_v2"][k % len(host)])
+            for k, t in side)
+        require(frames_bitwise and side_bitwise and done,
+                "serving: a stream frame or a request beside it is not "
+                "bitwise engine.run")
+        st = stream.stats()
+        lines.append({"phase": "serving", "part": "stream",
+                      "network": "resnet18", "fps_target": STREAM_FPS,
+                      "frames": st["frames"], "completed": st["completed"],
+                      "fps_achieved": st["fps_achieved"],
+                      "deadline_ms": st["deadline_ms"],
+                      "deadline_miss_rate": st["deadline_miss_rate"],
+                      "drop_rate": st["dropped"] / st["frames"],
+                      "latency_p50_ms": st["latency_p50_s"] * 1e3,
+                      "latency_p95_ms": st["latency_p95_s"] * 1e3,
+                      "frames_bitwise_equal_run": frames_bitwise,
+                      "requests_beside": len(side),
+                      "requests_beside_bitwise": side_bitwise})
+
+    # degraded mode: persistent dispatch faults on one network
+    fi = FaultInjector().fail_from("dispatch", 0, error=RuntimeError,
+                                   message="scripted persistent fault")
+    with Server(options=ServingOptions(
+            max_batch=1, faults=fi, breaker_threshold=2,
+            retry=RetryPolicy(max_retries=0))) as server:
+        server.warm("resnet18")
+        tuned = server.engines.get(get("resnet18"))
+        want = tuned.run(host[0])
+        outs, failures = [], 0
+        for _ in range(3):
+            try:
+                outs.append(server.run("resnet18", host[0],
+                                       timeout=SERVE_WAIT))
+            except RuntimeError:
+                failures += 1
+        stats = server.stats()
+        (batcher,) = server._batchers.values()
+        fallback = batcher.engine
+        algos = set(fallback.plan.algorithms().values())
+        rel = max(rel_err(o, want) for o in outs) if outs else None
+        ms = alternate_ms({"xla": fallback, "tuned": tuned},
+                          torch.as_tensor(host[:1], device=tuned.device))
+    require(failures == 1 and len(outs) == 2 and stats["degraded"] == 1
+            and algos == {"xla"} and fallback is not tuned,
+            f"serving degraded: {failures} failures, {len(outs)} answers, "
+            f"{stats['degraded']} degraded, plan {algos}")
+    require(rel <= ENGINE_REL_BOUND, f"serving degraded: xla answers vs "
+                                     f"tuned {rel} > {ENGINE_REL_BOUND}")
+    lines.append({"phase": "serving", "part": "degraded",
+                  "network": "resnet18", "breaker_threshold": 2,
+                  "failures": failures, "answers": len(outs),
+                  "degraded": stats["degraded"],
+                  "fallback_plan": sorted(algos),
+                  "injected": fi.stats()["injected"],
+                  "max_rel_err_vs_tuned": rel, "bound": ENGINE_REL_BOUND,
+                  "ms_per_image_replay_xla": ms["xla"],
+                  "ms_per_image_replay_tuned": ms["tuned"]})
+    return lines
+
+
+def host_split(engine, replay, image, runs=5):
+    """Where one eager tuned ResNet-18 run's host time goes.
+    ``torch.profiler`` over one run: the host time inside aten ops (self
+    CPU ms, top ops) against the wall, so the rest is Python and the
+    kernels' ctypes launches; the device's busy ms. Then ``cProfile``
+    over ``runs`` runs, its own time by module (the ctypes launch counts
+    in the wrapper that calls it) and the top functions; cProfile slows
+    Python calls, so its shares are upper bounds for Python. Then where a
+    replayed run (``replay``, the same plan) spends its time: the CUDA
+    events around one ``run`` (copy-in, replay, clone-out), and a profile
+    of one (device busy ms, device kernels, the top ones)."""
+    import cProfile
+    import pstats
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        engine.run(image)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = host_ms(lambda: engine.run(image))
+    aten, calls = Counter(), Counter()
+    for e in prof.key_averages():
+        if e.self_cpu_time_total > 0:
+            aten[e.key] += e.self_cpu_time_total / 1e3
+            calls[e.key] += e.count
+    device = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    in_aten = sum(aten.values())
+
+    profiler = cProfile.Profile()
+    torch.cuda.synchronize()
+    profiler.enable()
+    for _ in range(runs):
+        engine.run(image)
+    torch.cuda.synchronize()
+    profiler.disable()
+    st = pstats.Stats(profiler)
+    by_module, top = Counter(), []
+    for (file, line, name), (_, ncalls, tottime, _, _) in st.stats.items():
+        if "repro_torch/kernels/" in file:
+            group = "kernel wrappers and plans (kernels/*.py, ctypes)"
+        elif "repro_torch/" in file:
+            group = "engine, routing and models (core/, models/)"
+        elif file == "~":
+            group = "torch and builtins (C functions)"
+        elif "/torch/" in file:
+            group = "torch Python (functional, tensor methods)"
+        else:
+            group = "Python standard library"
+        by_module[group] += tottime * 1e3 / runs
+        top.append((tottime * 1e3 / runs, ncalls / runs,
+                    f"{Path(file).name}:{line} {name}"))
+    top.sort(reverse=True)
+    replay.run(image)
+    replayed = {"event_ms": _median_event_ms(lambda: replay.run(image),
+                                             ENGINE_TIMED_RUNS, 1),
+                "host_ms": statistics.median(
+                    host_ms(lambda: replay.run(image))[0]
+                    for _ in range(ENGINE_TIMED_RUNS)),
+                "profile": device_profile(lambda: replay.run(image), top=12)}
+    return {"phase": "host_split", "path": "resnet18", "dispatch": "eager",
+            "launches_per_image": sum(EXPECTED_PER_IMAGE["resnet18"]
+                                      .values()),
+            "wall_ms_profiled": wall, "device_busy_ms": device,
+            "aten_self_cpu_ms": in_aten,
+            "outside_aten_ms": wall - in_aten,
+            "aten_top": [{"op": k, "ms": v, "calls": calls[k]}
+                         for k, v in aten.most_common(12)],
+            "cprofile_runs": runs,
+            "cprofile_ms_per_run": sum(by_module.values()),
+            "cprofile_ms_per_run_by_module": dict(by_module.most_common()),
+            "cprofile_top": [{"fn": f, "ms_per_run": t, "calls_per_run": c}
+                             for t, c, f in top[:15]],
+            "replay": replayed}
 
 
 def per_layer_vs_tuned(line, tuned, per_layer):
@@ -1528,14 +1901,15 @@ def main() -> None:
                     winograd_conv.winograd_output_transform,
                 "causal_conv1d": causal_conv1d.causal_conv1d}
     require(set(counters) == set(KERNEL_INFO), "a kernel has no counter")
-    images = np.random.default_rng(0).standard_normal(
-        (ENGINE_IMAGES, 224, 224, 3)).astype(np.float32)
-    launches = {}
+    images = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (ENGINE_IMAGES, 224, 224, 3)).astype(np.float32), device="cuda")
+    launches, traced = {}, {}  # per path: counts, images traced
     tuned_engine = InferenceEngine(rcfg, seed=0)
     require(tuned_engine.plan.to_json() == rplan.to_json(), "resnet18: plan")
     line, tuned_logits = engine_phase("resnet18", tuned_engine, images,
                                       counters, results)
     launches["resnet18"] = line["launches"]
+    traced["resnet18"] = line["images_traced"]
     emit(line)
     # the per-layer plan on the same weights: bitwise the tuned logits
     path = "resnet18/per_layer"
@@ -1544,6 +1918,7 @@ def main() -> None:
                               plan=plans[path]), images, counters, results)
     per_layer_vs_tuned(line, tuned_logits, logits)
     launches[path] = line["launches"]
+    traced[path] = line["images_traced"]
     emit(line)
     # the reference's forced-algorithm entry point, on the same weights
     forced = {}
@@ -1558,6 +1933,7 @@ def main() -> None:
                 f"{path} vs tuned logits on the card: "
                 f"{line['vs_tuned_max_rel_err']}")
         launches[path] = line["launches"]
+        traced[path] = line["images_traced"]
         emit(line)
     # Winograd on a plan: the engine's U cache, one U per pinned site
     path = "resnet18/winograd_plan"
@@ -1572,6 +1948,7 @@ def main() -> None:
             f"{path} vs the forced Winograd engine on the card: "
             f"{line['vs_forced_winograd_max_rel_err']}")
     launches[path] = line["launches"]
+    traced[path] = line["images_traced"]
     emit(line)
     # the tuned path on int8 weights, the scales folded into the epilogue
     path = "resnet18/int8"
@@ -1585,6 +1962,7 @@ def main() -> None:
     line["vs_fp32_top1_agreement"] = (
         logits.argmax(-1) == tuned_logits.argmax(-1)).float().mean().item()
     launches[path] = line["launches"]
+    traced[path] = line["images_traced"]
     emit(line)
     # storage-only precision variants on the tuned engine's weights: conv
     # filters cast to the compute dtype once at build, fp32 logits as the
@@ -1597,6 +1975,7 @@ def main() -> None:
         images, counters, results)
     line["vs_fp32_weights_max_rel_err"] = rel_err(logits, forced["im2col"])
     launches[path] = line["launches"]
+    traced[path] = line["images_traced"]
     emit(line)
     require(line["logits_dtype"] == "float32", f"{path}: logits "
                                                f"{line['logits_dtype']}")
@@ -1609,6 +1988,7 @@ def main() -> None:
     line["vs_fp32_top1_agreement"] = (
         logits.argmax(-1) == tuned_logits.argmax(-1)).float().mean().item()
     launches[path] = line["launches"]
+    traced[path] = line["images_traced"]
     emit(line)
     require(line["logits_dtype"] == "float32", f"{path}: logits "
                                                f"{line['logits_dtype']}")
@@ -1624,6 +2004,7 @@ def main() -> None:
         logits.argmax(-1) == forced["winograd"].argmax(-1)).float().mean(
     ).item()
     launches[path] = line["launches"]
+    traced[path] = line["images_traced"]
     emit(line)
     require(line["vs_fp32_max_rel_err"] <= tolerance("bfloat16"),
             f"{path} vs the fp32 forced Winograd logits: "
@@ -1643,6 +2024,7 @@ def main() -> None:
         line, logits[path] = engine_phase(path, engine, images, counters,
                                           results)
         launches[path] = line["launches"]
+        traced[path] = line["images_traced"]
         if path == "mobilenet_v2/per_layer":
             per_layer_vs_tuned(line, logits["mobilenet_v2"], logits[path])
         emit(line)
@@ -1657,9 +2039,15 @@ def main() -> None:
         blogits.argmax(-1) == logits["mobilenet_v2"].argmax(-1)
     ).float().mean().item()
     launches[path] = line["launches"]
+    traced[path] = line["images_traced"]
     emit(line)
     require(line["logits_dtype"] == "float32", f"{path}: logits "
                                                f"{line['logits_dtype']}")
+
+    # ---- the measured tuner and the serving tier on the card -----------
+    emit(measured_phase(tuned_engine, images))
+    for line in serving_phase():
+        emit(line)
 
     # ---- the Mamba-2 LM path: its kernel, serving, fp32 parity ---------
     lcfg = get(LM_CONFIG)
@@ -1687,6 +2075,12 @@ def main() -> None:
         emit(line)
     del lparams
 
+    # ---- after every timed line (a profiler session slows later graph
+    # replays): where an eager tuned ResNet-18 run's host time goes ------
+    emit(host_split(InferenceEngine(rcfg, params=tuned_engine.model,
+                                    plan=rplan, replay=False), tuned_engine,
+                    images[0]))
+
     # ---- summary: each kernel over one image of each path (fp32), and
     # causal_conv1d over one prefill of each LM path in its dtype ---------
     kernels = []
@@ -1711,7 +2105,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_per_image": {
-                path: n / (2 * ENGINE_IMAGES) for path, n in by_path.items()},
+                path: n / traced[path] for path, n in by_path.items()},
             "parity": "ok", "max_abs_err": max(r["max_abs_err"]
                                                for r in rows),
             "ms": per_image_sum("kernel_ms"),

@@ -1,4 +1,5 @@
-"""Auto-tuning: the cost-model half of ``repro/core/autotune.py``.
+"""Auto-tuning (``repro/core/autotune.py``): the cost model and the
+measured tuner.
 
 A roofline model over each candidate's device-memory traffic, operations
 and on-chip working set picks one algorithm and its parameters per conv
@@ -9,19 +10,32 @@ move between the two packages.
 The device the model describes is one explicit argument, ``device``.
 Its default, ``REFERENCE_DEVICE``, copies the three constants of
 ``repro/core/autotune.py:33-35`` so that the port picks the plans the
-reference picks; it is not a model of any card the port runs on. A
-profile of the H100 is ROADMAP queue 1 item 8. Measured mode, which
-times the candidates with CUDA events on the card, is not ported yet and
-raises.
+reference picks; it is not a model of any card the port runs on.
+
+Measured mode (``measured_select``) times every feasible candidate where
+it runs, ``measure_on``: the card unless the caller asks for the CPU. On
+the card each timing is one replay of a CUDA graph of the candidate's
+call, timed with CUDA events, as a deployment that replays graphs pays
+it; on the CPU it is the host clock over the plain versions, which
+proves nothing about a kernel. ``select`` memoises per site, keyed by
+the measurement settings too; block fusion stays cost-model in both
+modes, as in the reference.
 """
 from __future__ import annotations
 
 import functools
 import json
+import logging
+import time
 from dataclasses import asdict, dataclass, field
 
+import torch
+
 from repro_torch.core.convspec import ConvSpec, FusedBlockSpec
-from repro_torch.core.dtypes import ACC_BYTES
+from repro_torch.core.device import CAPTURE_LOCK, resolve_device
+from repro_torch.core.dtypes import ACC_BYTES, torch_dtype
+
+log = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -197,18 +211,143 @@ def cost_model_select(spec: ConvSpec, *, device=REFERENCE_DEVICE,
 def _check_mode(mode):
     if mode not in MODES:
         raise ValueError(f"unknown tuning mode {mode!r}; want one of {MODES}")
-    if mode == "measured":
-        raise NotImplementedError(
-            "measured tuning needs CUDA-event timing on the card: ROADMAP "
-            "queue 1 item 8")
 
 
-@functools.lru_cache(maxsize=None)
-def select(spec: ConvSpec, mode: str = "cost_model", *, epilogue=False,
-           device=REFERENCE_DEVICE) -> Choice:
-    """Memoised per-site selection: tune once, reuse per network."""
+def _synth_inputs(spec: ConvSpec, device):
+    """A random pre-padded input and filter of the spec on ``device``,
+    from ``torch.Generator``s seeded 0 and 1: the padded size follows the
+    stride ((out - 1) * stride + r), the filter depth the groups."""
+    dtype = torch_dtype(spec.dtype)
+    hp = (spec.out_h - 1) * spec.stride + spec.r
+    wp = (spec.out_w - 1) * spec.stride + spec.s
+    x = torch.randn((spec.batch, hp, wp, spec.c), dtype=dtype, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    w = torch.randn((spec.r, spec.s, spec.c_per_group, spec.k), dtype=dtype,
+                    device=device,
+                    generator=torch.Generator(device).manual_seed(1))
+    return x, w
+
+
+def host_times(call, repeats, algorithm=None, params=None):
+    """Host-clock seconds of ``repeats`` calls after a warm-up call: the
+    CPU's timer, over the plain versions."""
+    call()
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        call()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def replay_times(call, repeats, algorithm=None, params=None):
+    """CUDA-event seconds of ``repeats`` replays of a graph of one
+    ``call``, after a warm-up call on a side stream and a warm-up replay:
+    the card's timer, what a deployment that replays graphs pays, without
+    the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with CAPTURE_LOCK, torch.cuda.graph(graph, stream=side,
+                                        capture_error_mode="thread_local"):
+        call()
+    graph.replay()
+    out = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop) / 1e3)
+    return out
+
+
+def measured_select(spec: ConvSpec, x=None, w=None, *, repeats=3,
+                    noise_floor=0.5, epilogue=False, measure_on=None,
+                    timer=None, device=REFERENCE_DEVICE) -> Choice:
+    """Wall-clock tuning, the paper's procedure.
+
+    ``x`` is the pre-padded input (with ``w``, synthesised when omitted);
+    the candidates run where ``measure_on`` says, else where ``x`` lies,
+    else on the card, and without a card and without either this raises.
+    Each feasible candidate runs once to warm up, then ``repeats`` times,
+    and scores its minimum. ``timer(call, repeats, algorithm, params)``
+    returns the seconds of each repeat: by default ``replay_times`` on the
+    card and ``host_times`` on the CPU. A candidate that fails is logged
+    and skipped. The cost model's pick stays unless the measured winner
+    is more than ``noise_floor`` (a fraction) faster; use
+    ``noise_floor=0`` on the card for pure wall-clock selection.
+    Non-tunable specs take the ``xla`` Choice untimed."""
+    from repro_torch.kernels import ops
+
+    if not tunable(spec):
+        return xla_choice(spec, device=device, epilogue=epilogue)
+    on = resolve_device(measure_on if measure_on is not None
+                        else x.device if x is not None else None)
+    if x is None or w is None:
+        x, w = _synth_inputs(spec, on)
+    if timer is None:
+        timer = replay_times if on.type == "cuda" else host_times
+
+    best = None
+    timed: dict[tuple, float] = {}
+    for algo, params, bts, flops, vmem in _candidates(spec, epilogue):
+        if vmem > device.onchip_bytes:
+            continue
+        call = functools.partial(ops.dispatch, algo, x, w,
+                                 stride=spec.stride, **dict(params))
+        try:
+            with torch.inference_mode():
+                t = min(timer(call, repeats, algo, params))
+        except Exception as e:
+            log.warning("measured_select: candidate %s%r failed on %s: %s",
+                        algo, dict(params), spec, e)
+            continue
+        timed[(algo, params)] = t
+        if best is None or t < best.est_time:
+            best = Choice(algo, params, t, bts, flops, vmem)
+    if best is None:
+        raise RuntimeError(f"every candidate failed for {spec}")
+
+    model = cost_model_select(spec, device=device, epilogue=epilogue)
+    t_model = timed.get((model.algorithm, model.params))
+    if t_model is not None and t_model <= best.est_time * (1 + noise_floor):
+        return Choice(model.algorithm, model.params, t_model,
+                      model.est_bytes, model.est_flops, model.vmem)
+    return best
+
+
+_CACHE: dict[tuple, Choice] = {}
+
+
+def select(spec: ConvSpec, mode: str = "cost_model", *, repeats=3,
+           noise_floor=0.5, epilogue=False, device=REFERENCE_DEVICE,
+           measure_on=None) -> Choice:
+    """Memoised per-site selection: tune once, reuse per network. The
+    key carries ``epilogue`` and the device model, and in measured mode
+    ``repeats``, ``noise_floor`` and where the candidates run, so a
+    careful re-tune is never served a quick result."""
     _check_mode(mode)
-    return cost_model_select(spec, device=device, epilogue=epilogue)
+    if mode == "cost_model":
+        key = (spec, mode, epilogue, device)
+    else:
+        measure_on = resolve_device(measure_on)
+        key = (spec, mode, repeats, noise_floor, epilogue, device,
+               str(measure_on))
+    if key not in _CACHE:
+        if mode == "measured":
+            _CACHE[key] = measured_select(
+                spec, repeats=repeats, noise_floor=noise_floor,
+                epilogue=epilogue, measure_on=measure_on, device=device)
+        else:
+            _CACHE[key] = cost_model_select(spec, device=device,
+                                            epilogue=epilogue)
+    return _CACHE[key]
 
 
 # ----------------------------------------------------------------------
@@ -280,7 +419,8 @@ def _block_candidates(bspec: FusedBlockSpec, epilogue=True,
 def select_block(bspec: FusedBlockSpec, mode: str = "cost_model", *,
                  epilogue=True, device=REFERENCE_DEVICE):
     """Fused-vs-per-layer decision for one block site -> Choice | None
-    (None keeps the per-layer plan there). Memoised."""
+    (None keeps the per-layer plan there). Memoised; cost-model in both
+    modes, as in the reference."""
     _check_mode(mode)
     best = None
     for algo, params, bts, flops, vmem in _block_candidates(
@@ -355,17 +495,33 @@ class TuningPlan:
             return cls.from_json(f.read())
 
 
-def build_plan(named_specs, mode: str = "cost_model", *, epilogue=False,
-               block_specs=None, device=REFERENCE_DEVICE) -> TuningPlan:
-    """Tune every (name, ConvSpec) into a TuningPlan; with ``block_specs``
-    ((name, FusedBlockSpec) pairs) also decide which blocks to fuse.
-    Every conv site keeps its entry either way, so the plan deploys with
-    fusion ignored."""
+def xla_fallback_plan(named_specs, mode: str = "cost_model") -> TuningPlan:
+    """Every site on the ``xla`` escape hatch, costed as the fused
+    conv+BN+act variant, and no fused blocks: the degraded-mode plan the
+    serving tier deploys when tuned dispatch fails persistently. The
+    sites and dtypes are a tuned plan's, so plan validation accepts it."""
     plan = TuningPlan(mode=mode)
     for name, spec in named_specs:
         plan.specs[name] = spec
-        plan.choices[name] = select(spec, mode, epilogue=epilogue,
-                                    device=device)
+        plan.choices[name] = xla_choice(spec, epilogue=True)
+    return plan
+
+
+def build_plan(named_specs, mode: str = "cost_model", *, repeats=3,
+               noise_floor=0.5, epilogue=False, block_specs=None,
+               device=REFERENCE_DEVICE, measure_on=None) -> TuningPlan:
+    """Tune every (name, ConvSpec) into a TuningPlan; with ``block_specs``
+    ((name, FusedBlockSpec) pairs) also decide which blocks to fuse.
+    Every conv site keeps its entry either way, so the plan deploys with
+    fusion ignored. ``repeats``, ``noise_floor`` and ``measure_on`` matter
+    in measured mode only."""
+    plan = TuningPlan(mode=mode)
+    for name, spec in named_specs:
+        plan.specs[name] = spec
+        plan.choices[name] = select(spec, mode, repeats=repeats,
+                                    noise_floor=noise_floor,
+                                    epilogue=epilogue, device=device,
+                                    measure_on=measure_on)
     for name, bspec in (block_specs or ()):
         choice = select_block(bspec, mode, epilogue=epilogue, device=device)
         if choice is not None:

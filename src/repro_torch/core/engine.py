@@ -26,10 +26,28 @@ is computed from the weights as stored.
 
 The engine runs on the card unless the caller passes ``device="cpu"``,
 where every kernel site runs its plain PyTorch version.
+
+On the card the engine replays CUDA graphs, the port's counterpart of the
+reference's ``jax.jit``: the first ``run`` of an image shape captures the
+batch-1 forward, the first ``run_batch`` of a batch size B captures B
+batch-1 forwards in sequence (the counterpart of ``lax.map``), and every
+call copies its images into the graph's static input, replays, and
+returns a clone of the static logits. So a batch is bitwise equal to B
+calls of ``run``, and ``trace_count`` counts the batch shapes prepared.
+Before a thread's first capture the engine runs one forward on a side
+stream: first use builds and loads the kernel library, fills the
+wrappers' memoised plans, copies Winograd's G to the card and creates
+the thread's cuBLAS and cuDNN handles, none of which a graph can hold. The kernel wrappers' launch counters tick when a forward
+is traced (the warm-up and each capture; ``forwards`` counts them),
+never on a replay. ``replay=False`` builds an eager engine, the only kind
+on the CPU. A capture that fails raises; nothing falls back to eager
+dispatch. One lock an engine covers copy-in, replay and clone-out, so
+any thread may call it, and all its graphs share one memory pool.
 """
 from __future__ import annotations
 
 import logging
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -38,6 +56,7 @@ from torch import nn
 from repro_torch.core import autotune
 from repro_torch.core.autotune import TuningPlan
 from repro_torch.core.convspec import ConvSpec
+from repro_torch.core.device import CAPTURE_LOCK, resolve_device
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ref
 
@@ -55,16 +74,22 @@ class LayerReport:
     params: tuple = ()
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as given, else the card; no card and no ``device``
-    raises rather than running on the CPU unasked."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the engine runs on the card by default; pass "
-            "device=\"cpu\" to run the plain PyTorch versions on the CPU")
-    return torch.device("cuda")
+@dataclass
+class DeviceFrame:
+    """One streaming frame on the engine's device (``device_put_frame``):
+    ``x`` is the (1, H, W, C) buffer, ``ready`` the event its copy to the
+    card records (None on the CPU). ``run_stream`` consumes it once."""
+    x: torch.Tensor
+    ready: object = None
+    consumed: bool = False
+
+
+@dataclass
+class _Graph:
+    """A captured forward: its static input (B, H, W, C) and logits."""
+    graph: object
+    x: torch.Tensor
+    out: torch.Tensor
 
 
 def compute_params(params, dtype):
@@ -88,11 +113,13 @@ class InferenceEngine:
     forces every conv site onto it; ``plan=`` (a TuningPlan or a JSON
     path) skips tuning and deploys a saved plan. ``params`` is a nested
     dict of tensors, a flat ``state_dict`` or a network module; by default
-    the weights are drawn from ``seed``.
+    the weights are drawn from ``seed``. ``replay`` (default: on the card)
+    replays CUDA graphs; ``replay=False`` dispatches every op eagerly.
     """
 
     def __init__(self, cfg, params=None, seed=0, algorithm="auto",
-                 plan=None, device=None, tune_mode="cost_model"):
+                 plan=None, device=None, tune_mode="cost_model",
+                 replay=None):
         # the models import core, so core reads them at call time
         from repro_torch.models.registry import cnn_module
         from repro_torch.models.spec import init_params
@@ -101,6 +128,25 @@ class InferenceEngine:
             raise ValueError(f"InferenceEngine runs CNNs, not {cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.replay = self.device.type == "cuda" if replay is None \
+            else bool(replay)
+        if self.replay and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs run on the card, not on "
+                             f"{self.device}: pass replay=False")
+        self._lock = threading.Lock()
+        self._runs: dict[tuple, _Graph] = {}  # image key -> batch-1 graph
+        # batch key -> its graph (None where eager): run_batch's shapes
+        self._batches: dict[tuple, _Graph | None] = {}
+        self._local = threading.local()  # per thread: signatures warmed
+        self._pinned: dict[tuple, list] = {}  # frame key -> [buf, event]s
+        self._pin_lock = threading.Lock()
+        if self.device.type == "cuda":
+            self._copies = torch.cuda.Stream(self.device)  # frames in
+        if self.replay:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
+            self._done = torch.cuda.Event()  # after the last clone-out
+        self.forwards = 0  # single-image forwards traced through the model
         self._model = cnn_module(cfg)
         if params is None:
             params = init_params(self._model.model_specs(cfg), seed,
@@ -134,12 +180,17 @@ class InferenceEngine:
     def _block_specs(self):
         return self._model.block_specs(self.cfg)
 
-    def tune(self, mode="cost_model") -> TuningPlan:
+    def tune(self, mode="cost_model", **tune_kwargs) -> TuningPlan:
         """Build the TuningPlan, costing each site as its fused
-        conv+BN+act variant (what the forward dispatches)."""
+        conv+BN+act variant (what the forward dispatches).
+        ``tune_kwargs`` reach ``autotune.build_plan``: ``repeats`` and
+        ``noise_floor`` for measured mode, which times the candidates on
+        this engine's device unless ``measure_on`` names another."""
+        tune_kwargs.setdefault("measure_on", self.device)
         return autotune.build_plan(self._conv_specs(), mode=mode,
                                    epilogue=True,
-                                   block_specs=self._block_specs())
+                                   block_specs=self._block_specs(),
+                                   **tune_kwargs)
 
     def _winograd_cache(self, plan: TuningPlan) -> dict:
         """U = G g Gᵀ for each plan site whose choice is winograd, on the
@@ -205,22 +256,166 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
 
+    def _check(self, x, batched):
+        """Raise unless ``x`` is (H, W, C), or (B, H, W, C) with
+        ``batched``, at the config's size and channels, floating point:
+        checked before any capture, so a bad request leaves no graph."""
+        img = self.cfg.extra["img"]
+        want = (img, img, self.params["stem"]["w"].shape[2])
+        shape = tuple(x.shape[1:]) if batched else tuple(x.shape)
+        if x.dim() != 3 + batched or shape != want or not x.numel() \
+                or not x.is_floating_point():
+            raise ValueError(
+                f"{self.cfg.name}: images of shape {tuple(x.shape)} and "
+                f"dtype {x.dtype}; want {'(B, ' if batched else '('}"
+                f"{', '.join(map(str, want))}) floating point")
+
+    def _images(self, images, batched):
+        x = torch.as_tensor(images, device=self.device)
+        self._check(x, batched)
+        return x
+
+    def _forward(self, x):
+        """The batch-1 forward: x (1, H, W, C) -> logits (1, classes)."""
+        self.forwards += 1
+        return self._model.forward(self.params, self.cfg, x,
+                                   algorithm=self.algorithm,
+                                   plan=self._choices,
+                                   winograd_u=self.winograd_u)
+
+    def _forwards(self, xs):
+        """B batch-1 forwards in sequence: xs (B, H, W, C) -> (B, classes),
+        each row the computation ``run`` dispatches."""
+        return torch.stack([self._forward(xs[i:i + 1])[0]
+                            for i in range(xs.shape[0])])
+
+    def _warm_up(self, x):
+        """One forward on a side stream before a thread's first capture of
+        an image signature: what first use does a graph cannot hold (the
+        library's build and load, the memoised plans, Winograd's G, and
+        the cuBLAS and cuDNN handles, which are per thread)."""
+        key = (tuple(x.shape[1:]), x.dtype)
+        warm = self._local.__dict__.setdefault("warm", set())
+        if key in warm:
+            return
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            self._forward(x[:1])
+        torch.cuda.current_stream(self.device).wait_stream(self._side)
+        warm.add(key)
+
+    def _graph(self, graphs, key, xs):
+        """The graph of ``_forwards`` at ``xs``' shape, captured on first
+        use; a capture that fails raises and leaves no graph."""
+        g = graphs.get(key)
+        if g is None:
+            static_x = torch.zeros(xs.shape, dtype=xs.dtype,
+                                   device=self.device)
+            self._warm_up(static_x)
+            graph = torch.cuda.CUDAGraph()
+            with CAPTURE_LOCK, torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._side,
+                    capture_error_mode="thread_local"):
+                out = self._forwards(static_x)
+            g = graphs[key] = _Graph(graph, static_x, out)
+        return g
+
+    def _replay(self, g, xs):
+        """Copy in, replay, clone out, after the last replay of any of
+        this engine's graphs (they share static buffers and a pool)."""
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(self._done)
+        g.x.copy_(xs)
+        g.graph.replay()
+        out = g.out.clone()
+        self._done.record(stream)
+        return out
+
     def run(self, image):
-        """image: (H, W, 3) single image -> logits (classes,) on the
+        """image: (H, W, C) single image -> logits (classes,) on the
         engine's device."""
-        x = torch.as_tensor(image, device=self.device)
-        with torch.inference_mode():
-            return self._model.forward(self.params, self.cfg, x[None],
-                                       algorithm=self.algorithm,
-                                       plan=self._choices,
-                                       winograd_u=self.winograd_u)[0]
+        x = self._images(image, batched=False)[None]
+        key = (tuple(x.shape), x.dtype)
+        with self._lock, torch.inference_mode():
+            if not self.replay:
+                return self._forward(x)[0]
+            return self._replay(self._graph(self._runs, key, x), x)[0]
 
     def run_batch(self, images):
-        """images: (B, H, W, 3) -> logits (B, classes). Each element runs
+        """images: (B, H, W, C) -> logits (B, classes). Each element runs
         the identical single-image computation of ``run``, so the result
-        is bitwise equal to B calls of ``run``."""
-        xs = torch.as_tensor(images, device=self.device)
-        return torch.stack([self.run(x) for x in xs])
+        is bitwise equal to B calls of ``run``. One graph a distinct B
+        (``trace_count``)."""
+        xs = self._images(images, batched=True)
+        key = (tuple(xs.shape), xs.dtype)
+        with self._lock, torch.inference_mode():
+            if not self.replay:
+                self._batches[key] = None
+                return self._forwards(xs)
+            return self._replay(self._graph(self._batches, key, xs), xs)
+
+    def trace_count(self) -> int:
+        """Distinct batch shapes ``run_batch`` has been prepared for (each
+        a captured graph on the card); serving pads batches to
+        power-of-two buckets to bound it."""
+        with self._lock:
+            return len(self._batches)
+
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured so far."""
+        with self._lock:
+            return len(self._runs) + sum(
+                g is not None for g in self._batches.values())
+
+    def device_put_frame(self, image) -> DeviceFrame:
+        """Start one streaming frame's copy to the card; returns the
+        ``DeviceFrame`` for ``run_stream``. ``image`` is (H, W, C) or
+        (1, H, W, C) on the host. It goes through a pinned buffer, then a
+        non-blocking copy on a side stream that records the frame's
+        event; a pinned buffer is reused only once its last copy's event
+        has completed, so a late frame never overwrites one in flight.
+        Called at frame arrival, so the copy overlaps the frame in
+        compute (the reference donates the buffer instead)."""
+        x = torch.as_tensor(image)
+        if x.dim() == 4 and x.shape[0] == 1:
+            x = x[0]
+        self._check(x, batched=False)
+        if self.device.type != "cuda":
+            return DeviceFrame(x.to(self.device, copy=True)[None])
+        ready = torch.cuda.Event()
+        with self._pin_lock:
+            slots = self._pinned.setdefault((tuple(x.shape), x.dtype), [])
+            slot = next((s for s in slots if s[1].query()), None)
+            if slot is None:
+                slot = [torch.empty(x.shape, dtype=x.dtype,
+                                    pin_memory=True), ready]
+                slots.append(slot)
+            slot[0].copy_(x)
+            with torch.cuda.stream(self._copies):
+                buf = torch.empty((1, *x.shape), dtype=x.dtype,
+                                  device=self.device)
+                buf[0].copy_(slot[0], non_blocking=True)
+                ready.record(self._copies)
+            slot[1] = ready
+        return DeviceFrame(buf, ready)
+
+    def run_stream(self, frame: DeviceFrame):
+        """One streaming frame -> logits (classes,): waits for the frame's
+        copy on the current stream, then runs exactly ``run``'s
+        computation, through the same graph. The frame is consumed: a
+        second call with it raises, as the reference's donated buffer is
+        dead."""
+        if frame.consumed:
+            raise ValueError("run_stream: frame already consumed; "
+                             "device_put_frame each frame anew")
+        frame.consumed = True
+        x, frame.x = frame.x, None
+        if frame.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(frame.ready)
+            x.record_stream(stream)
+        return self.run(x[0])
 
     def traffic_report(self):
         """Per-layer cost-model bytes/flops for every planned conv site."""

@@ -16,7 +16,7 @@ import time
 import torch
 
 from repro_torch.configs import get, tiny_variant
-from repro_torch.core.engine import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.launch import steps
 
 

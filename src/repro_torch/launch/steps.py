@@ -7,7 +7,7 @@ train step and its optimizer state come with a later slice.
 """
 from __future__ import annotations
 
-from repro_torch.core.engine import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models import lm, registry
 from repro_torch.models.spec import init_params
 

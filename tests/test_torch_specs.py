@@ -182,14 +182,6 @@ def test_v1_plan_is_readable():
         tat.TuningPlan.from_json(json.dumps(d))
 
 
-def test_measured_mode_is_not_ported():
-    spec = tcs.ConvSpec(h=8, w=8, c=8, k=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tat.select(spec, "measured")
-    with pytest.raises(ValueError):
-        tat.select(spec, "guess")
-
-
 def test_device_model_is_an_explicit_argument():
     spec = tcs.ConvSpec(h=56, w=56, c=64, k=64)
     ref = tat.cost_model_select(spec, epilogue=True)
