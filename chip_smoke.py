@@ -138,15 +138,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    1, 2 and 4 all dispatch, every answer bitwise ``engine.run`` of the
    same image on the same cached engine, ``trace_count`` at most the
    buckets run; per round, the first capturing the batch graphs: p50/p95
-   latency, images/s); one threaded 30 fps stream of 30
+   latency, images/s); the same server behind the wire (``wire``: a
+   ``ServerEndpoint`` on 127.0.0.1 and one ``AsyncClient`` sending the
+   same bursts in two rounds, every answer's float32 bytes equal to
+   ``engine.run``'s, an unknown network answered as ``BadRequest``; per
+   round the client's p50/p95 latency and images/s beside the in-process
+   round 2); one threaded 30 fps stream of 30
    frames on ResNet-18 beside MobileNetV2 requests (``stream``: every
    frame and request bitwise ``run``, fps achieved, deadline-miss and
    drop rates); scripted persistent dispatch faults on a second server
    (``degraded``: the breaker trips, the ``xla_fallback_plan`` engine
    answers within the engine bound of the tuned engine's);
-7. the Mamba-2 LM path (``repro_torch.launch.serve.generate``: one
-   prefill, then greedy decode steps) on ``mamba2-370m`` at full width (48
-   layers, random weights from seed 0):
+7. the LM paths (``repro_torch.launch.serve.generate``: one prefill,
+   then greedy decode steps, replayed as CUDA graphs by
+   ``steps.StepGraphs``, an eager run beside) at full width, random
+   weights from seed 0: ``mamba2-370m`` (48 layers) and ``qwen2-0.5b``
+   (24 layers, d 896, 14 heads with kv 2, head_dim 64, d_ff 4864, vocab
+   151936 padded to 152064, tied embeddings, qkv bias):
    - ``causal_conv1d``, the kernel of its prefill, at the model's shapes
      (the xBC slice of the in-projection, read in place: rows 4384
      elements apart, C = 2304, K = 4) of both paths below and at the edge
@@ -154,15 +162,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      (no path runs it), against its plain version
      within ``tolerance(dtype)``, with the same times as the kernel phase
      and ``F.conv1d(groups=C)`` as the library call;
-   - ``mamba2_370m``, serving at the published dtype (bf16): batch 4,
-     prompt 1024 (4 SSD chunks), 32 new tokens; exactly 48
-     ``causal_conv1d`` launches in the prefill and none in the decode
-     steps; prefill ms, decode ms per token, tokens/s, a profile of one
-     prefill and one decode step, and the prefill logits against the same
-     model with the conv's plain version (``impl="torch"``) on the card;
-   - ``mamba2_370m/fp32``: batch 1, prompt 300 (across a chunk boundary),
-     8 greedy decode steps; the logits of the prefill and of every step
-     against the port on the CPU fed the same tokens;
+   - ``mamba2_370m`` and ``qwen2_0_5b``, serving at the published dtype
+     (bf16 over fp32 master weights): batch 4, prompt 1024 (4 SSD
+     chunks), 32 new tokens, replayed and eager; the launches per traced
+     prefill (``causal_conv1d`` 48 for Mamba-2, none of any kernel for
+     qwen2: ``NO_LAUNCHES``) when the graphs are captured, none on a
+     replayed run, one prefill's worth eager; replayed tokens equal to
+     eager ones and every step's logits bitwise equal (teacher-forced);
+     prefill ms and decode ms per token both ways, ``generate`` ms and
+     tokens/s; Mamba-2's prefill logits against the same model with the
+     conv's plain version (``impl="torch"``) on the card; qwen2's prefill
+     and decode-step bounds;
+   - ``mamba2_370m/fp32`` and ``qwen2_0_5b/fp32``: batch 1, prompt 300
+     (across a chunk boundary), 8 greedy decode steps through the graphs
+     and eagerly, bitwise equal; the logits of the prefill and of every
+     step against the port on the CPU fed the same tokens;
+   - ``chunked_attention``: one ``attention`` call at qwen2's head shape,
+     fp32, Sq = Sk = 2304 (above ``_FULL_THRESH``), bitwise
+     ``_attend_chunked`` and within ``tolerance(fp32)`` of
+     ``_attend_full``;
+   - a ``profile`` line a serving path: one replayed and one eager decode
+     step under ``torch.profiler`` (device busy ms, device operations);
 8. the ``host_split`` line, after every timed line (a profiler session
    slows later graph replays): where one eager tuned ResNet-18 run's host
    time goes, by ``torch.profiler`` (host time inside aten ops against the
@@ -347,6 +367,12 @@ LM_PATHS = {"mamba2_370m": "bfloat16", "mamba2_370m/fp32": "float32"}
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 PARITY_PROMPT, PARITY_STEPS = 300, 8
 EDGE_LENGTHS = (1, 2, 3, 513)
+# The GQA attention LM at published width: it launches none of the
+# port's kernels (the reference computes attention and the FFN in jnp),
+# so its lines require NO_LAUNCHES; one attention call at its head shape
+# above the full-score threshold takes the chunked path
+ATTN_CONFIG = "qwen2-0.5b"
+CHUNKED_SEQ = 2304
 
 
 class CheckFailed(RuntimeError):
@@ -1311,6 +1337,8 @@ def serving_phase():
                       "bitwise_equal_engine_run": bitwise,
                       "per_network": per_net,
                       "scheduler_jobs": stats["scheduler"]["jobs"]})
+        # the same server behind the wire, its graphs already captured
+        lines.append(wire_part(server, host, truth, rounds[-1]))
 
         # one 30 fps stream on ResNet-18, MobileNetV2 requests beside it
         side = []
@@ -1396,6 +1424,74 @@ def serving_phase():
                   "ms_per_image_replay_xla": ms["xla"],
                   "ms_per_image_replay_tuned": ms["tuned"]})
     return lines
+
+
+def wire_part(server, host, truth, in_process):
+    """The wire in front of the same ``Server``: a ``ServerEndpoint`` on
+    127.0.0.1 and one ``AsyncClient`` sending the serving bursts across
+    both networks in two rounds, every answer (float32 bytes off the
+    socket) bitwise equal to ``engine.run`` of the same image on the same
+    engine, then an unknown network, which must come back as
+    ``BadRequest``. Per round, the client's latency (send to answer) and
+    images/s, beside the in-process round ``in_process``."""
+    import asyncio
+
+    from repro_torch.serving import AsyncClient, BadRequest, ServerEndpoint
+
+    want = {net: [t.cpu().numpy().tobytes() for t in truth[net]]
+            for net in SERVE_NETS}
+
+    async def drive(address):
+        async with await AsyncClient.connect(*address) as client:
+            async def one(net, i):
+                t0 = time.perf_counter()
+                out = await client.classify(net, host[i])
+                return net, i, out, (time.perf_counter() - t0) * 1e3
+            rounds = []
+            for _ in range(SERVE_ROUNDS):
+                t0, done = time.perf_counter(), []
+                for n in SERVE_BURSTS:
+                    done += await asyncio.wait_for(asyncio.gather(
+                        *(one(net, i) for i in range(n)
+                          for net in SERVE_NETS)), SERVE_WAIT)
+                rounds.append((done, time.perf_counter() - t0))
+            try:
+                await asyncio.wait_for(
+                    client.classify("not-a-network", host[0]), SERVE_WAIT)
+                unknown = "answered"
+            except BadRequest as e:
+                unknown = type(e).__name__
+            return rounds, unknown
+
+    with ServerEndpoint(server, host="127.0.0.1") as endpoint:
+        rounds, unknown = asyncio.run(drive(endpoint.address))
+        served = endpoint.stats()["served"]
+    bitwise = all(out.dtype.name == "float32"
+                  and out.tobytes() == want[net][i]
+                  for done, _ in rounds for net, i, out, _ in done)
+    require(bitwise, "wire: an answer is not bitwise engine.run")
+    require(unknown == "BadRequest",
+            f"wire: an unknown network gave {unknown}, not BadRequest")
+    per_round = []
+    for r, (done, wall) in enumerate(rounds):
+        lat = sorted(ms for *_, ms in done)
+        per_round.append({
+            "round": r, "requests": len(done), "wall_s": wall,
+            "images_per_s": len(done) / wall,
+            "latency_p50_ms": lat[round(0.50 * (len(lat) - 1))],
+            "latency_p95_ms": lat[round(0.95 * (len(lat) - 1))],
+            "latency_max_ms": lat[-1]})
+    return {"phase": "serving", "part": "wire",
+            "entry": "repro_torch.serving ServerEndpoint + AsyncClient",
+            "host": "127.0.0.1", "networks": list(SERVE_NETS),
+            "dtype": "float32", "bursts": list(SERVE_BURSTS),
+            "max_batch": 4, "window_ms": server.window_ms,
+            "rounds": per_round, "served": served,
+            "bitwise_equal_engine_run": bitwise,
+            "unknown_network": unknown,
+            "in_process_round": {k: in_process[k] for k in (
+                "round", "latency_p50_ms", "latency_p95_ms",
+                "images_per_s")}}
 
 
 def host_split(engine, replay, image, runs=5):
@@ -1557,141 +1653,237 @@ def device_profile(fn, top=8):
                     for name, t in ms.most_common(top)]}
 
 
-def serve_phase(cfg, params, counters):
-    """``generate`` on mamba2-370m at bf16: batch 4, prompt 1024, 32 new
-    tokens, greedy. The counters are set to 0 before a prefill-only run
-    (max_new=1) and before the full run, and read after each: both must
-    show one causal_conv1d launch per layer, so the 31 decode steps
-    launch none. Then the timings, a profile, and the prefill logits
-    against the conv's plain version on the card."""
+def lm_prompts(cfg, batch, length, seed):
     import numpy as np
 
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, length))).cuda()
+
+
+def lm_bounds(cfg, cparams, caches, B, S, peaks):
+    """The least time of a GQA model's prefill of (B, S) and of one decode
+    step against ``caches``: the larger of the bytes (every weight in the
+    compute dtype read once, the caches read or written once) over the
+    card's memory rate, and the matrix products' operations (the weights,
+    the full attention scores of every layer, the unembed of the positions
+    the step scores) over the compute dtype's peak."""
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.spec import flatten
+
+    leaves, cache = flatten(cparams), flatten(caches)
+    nbytes = sum(v.numel() * v.element_size() for v in leaves.values()) \
+        + sum(v.numel() * v.element_size() for v in cache.values())
+    matmul = sum(v.numel() for k, v in leaves.items()
+                 if k.startswith("seg") and v.dim() >= 3)
+    head = cfg.d_model * padded_vocab(cfg.vocab_size)
+    Lc = next(iter(cache.values())).shape[2]
+    attn = 4 * cfg.num_layers * cfg.num_heads * cfg.head_dim
+    flops = {"prefill": 2 * B * S * matmul + attn * B * S * S + 2 * B * head,
+             "decode_step": 2 * B * (matmul + head) + attn * B * Lc}
+    out = {}
+    for step, ops in flops.items():
+        t_ops = ops / peaks[cfg.dtype]
+        t_bytes = nbytes / peaks["mem_bw"]
+        out[step] = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "flops": ops, "bytes": nbytes}
+    return out
+
+
+def lm_serve_phase(path, cfg, params, counters, peaks):
+    """``generate`` at the config's published dtype: batch 4, prompt
+    1024, 32 greedy tokens, replayed as CUDA graphs (``steps.StepGraphs``)
+    and eagerly (``replay=False``) beside it. Required: the kernel
+    launches per traced prefill (``causal_conv1d`` one a Mamba layer, none
+    for an attention model) at the capture run and none on a second,
+    replayed run; the replayed tokens equal to the eager ones; the
+    prefill's and each step's logits, teacher-forced on those tokens,
+    bitwise equal between replay and eager. Timed: prefill ms and decode
+    ms per token both ways, and whole ``generate`` calls. Profiles of one
+    replayed and one eager step come back as thunks, for the caller to
+    run after every timed LM line (a profiler session slows later graph
+    replays). A Mamba model's prefill logits are also held against the
+    conv's plain version (``impl="torch"``) on the card; an attention
+    model's line carries its prefill and decode bounds."""
     from repro_torch.core.dtypes import tolerance
     from repro_torch.launch import serve, steps
 
-    path = "mamba2_370m"
-    expected = {**NO_LAUNCHES, "causal_conv1d": cfg.num_layers}
+    mamba = cfg.family == "ssm"
+    per_prefill = {**NO_LAUNCHES,
+                   **({"causal_conv1d": cfg.num_layers} if mamba else {})}
     B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
-    prompts = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, S))).cuda()
+    prompts = lm_prompts(cfg, B, S, seed=1)
+    cache_len = S + new
+    graphs = steps.StepGraphs(cfg, params)
 
-    def run(max_new):
-        return serve.generate(cfg, params, prompts, max_new=max_new,
-                              cache_len=S + max_new)
+    def generate(**kw):
+        return serve.generate(cfg, params, prompts, max_new=new,
+                              cache_len=cache_len, **kw)
     zero_counts(counters)
-    first = run(1)
+    tokens = generate(graphs=graphs)  # captures both graphs
     torch.cuda.synchronize()
-    prefill_launches = read_counts(counters)
+    traced = read_counts(counters)
+    require(traced == {k: v * graphs.prefills
+                       for k, v in per_prefill.items()},
+            f"{path}: launches at capture {traced} over {graphs.prefills} "
+            f"traced prefills, want {per_prefill} each")
     zero_counts(counters)
-    tokens = run(new)
+    again = generate(graphs=graphs)
     torch.cuda.synchronize()
-    launches = read_counts(counters)
-    require(prefill_launches == expected,
-            f"{path}: prefill launches {prefill_launches}, want {expected}")
-    require(launches == expected, f"{path}: launches over the prefill and "
-            f"{new - 1} decode steps {launches}, want {expected}")
+    on_replay = read_counts(counters)
+    require(on_replay == NO_LAUNCHES, f"{path}: launches on replay "
+                                      f"{on_replay}")
+    require(torch.equal(again, tokens), f"{path}: a second replayed "
+                                        "generate gave other tokens")
+    zero_counts(counters)
+    eager_tokens = generate(replay=False)
+    torch.cuda.synchronize()
+    eager_launches = read_counts(counters)
+    require(eager_launches == per_prefill, f"{path}: eager launches over a "
+            f"prefill and {new - 1} steps {eager_launches}, want "
+            f"{per_prefill}")
     require(tuple(tokens.shape) == (B, new) and tokens.dtype == torch.int32
             and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
             f"{path}: bad tokens {tuple(tokens.shape)} {tokens.dtype}")
-    require(torch.equal(tokens[:, :1], first), f"{path}: first token "
-            "differs between max_new=1 and max_new=32")
-    generate_ms = [host_ms(lambda: run(new))[0] for _ in range(3)]
+    require(torch.equal(tokens, eager_tokens),
+            f"{path}: replayed tokens differ from eager ones")
+
+    # teacher-forced on the replayed tokens: each step both ways, bitwise
+    cparams = steps.compute_params(params, cfg)
+    prefill_ms = {"replay": [], "eager": []}
+    decode_ms = {"replay": [], "eager": []}
     with torch.inference_mode():
-        prefill_ms = []
         for _ in range(3):
-            t, (logits, caches) = host_ms(lambda: steps.prefill_step(
-                params, cfg, prompts, cache_len=S + new))
-            prefill_ms.append(t)
-        tok = vocab_logits(logits[:, -1], cfg).argmax(-1)[:, None]
-        decode_ms = []
+            t, (rlog, rcaches) = host_ms(lambda: graphs.prefill(prompts,
+                                                                cache_len))
+            prefill_ms["replay"].append(t)
+            first = rlog.clone()
+            t, (elog, ecaches) = host_ms(lambda: steps.prefill_step(
+                cparams, cfg, prompts, cache_len=cache_len))
+            prefill_ms["eager"].append(t)
+        bitwise = [torch.equal(first, elog)]
         for i in range(new - 1):
-            t, (step_logits, caches) = host_ms(
-                lambda: steps.decode_step(params, cfg, tok, caches, S + i))
-            decode_ms.append(t)
-            tok = vocab_logits(step_logits[:, -1], cfg).argmax(-1)[:, None]
-        profiles = {
-            "prefill": device_profile(lambda: steps.prefill_step(
-                params, cfg, prompts, cache_len=S + new)),
-            "decode_step": device_profile(lambda: steps.decode_step(
-                params, cfg, tok, caches, S + new - 1))}
-        plain, _ = steps.prefill_step(params, cfg, prompts, impl="torch")
-    kernel_logits = vocab_logits(logits, cfg)
-    require(bool(torch.isfinite(kernel_logits).all()),
-            f"{path}: non-finite prefill logits")
-    rel = rel_err(kernel_logits, vocab_logits(plain, cfg))
-    require(rel <= tolerance("bfloat16"), f"{path}: prefill logits with the "
-            f"kernel vs the plain conv on the card: {rel}")
-    total_ms = statistics.median(generate_ms)
-    return {"phase": "lm", "path": path, "config": cfg.name,
+            tok = tokens[:, i:i + 1]
+            t, rlog = host_ms(lambda: graphs.decode(tok, rcaches, S + i))
+            decode_ms["replay"].append(t)
+            t, (elog, ecaches) = host_ms(lambda: steps.decode_step(
+                cparams, cfg, tok, ecaches, S + i))
+            decode_ms["eager"].append(t)
+            bitwise.append(torch.equal(rlog, elog))
+        require(all(bitwise), f"{path}: replayed logits not bitwise eager "
+                f"at steps {[i for i, b in enumerate(bitwise) if not b]}")
+        require(bool(torch.isfinite(vocab_logits(first, cfg)).all()),
+                f"{path}: non-finite prefill logits")
+        if mamba:
+            plain, _ = steps.prefill_step(cparams, cfg, prompts,
+                                          impl="torch")
+    generate_ms = {"replay": [host_ms(lambda: generate(graphs=graphs))[0]
+                              for _ in range(3)],
+                   "eager": [host_ms(lambda: generate(replay=False))[0]
+                             for _ in range(3)]}
+    tok, pos = tokens[:, -2:-1], S + new - 2
+
+    def profiled(fn):
+        def run():
+            with torch.inference_mode():
+                return device_profile(fn)
+        return run
+    profiles = {"decode_step_replay": profiled(
+                    lambda: graphs.decode(tok, rcaches, pos)),
+                "decode_step_eager": profiled(lambda: steps.decode_step(
+                    cparams, cfg, tok, ecaches, pos))}
+    line = {"phase": "lm", "path": path, "config": cfg.name,
             "entry": "repro_torch.launch.serve.generate", "dtype": cfg.dtype,
             "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
-            "d_model": cfg.d_model, "batch": B, "prompt": S, "new_tokens": new,
-            "greedy": True, "launches": launches,
-            "launches_prefill": prefill_launches,
-            "launches_per_decode_step": {
-                k: (launches[k] - prefill_launches[k]) / (new - 1)
-                for k in launches},
-            "prefill_ms_median": statistics.median(prefill_ms),
-            "prefill_ms": prefill_ms,
-            "decode_ms_per_token_median": statistics.median(decode_ms),
-            "decode_ms_per_token_mean": statistics.mean(decode_ms),
-            "generate_ms_median": total_ms, "generate_ms": generate_ms,
-            "tokens_per_s": B * new / total_ms * 1e3,
-            "prefill_tokens_per_s": B * S / statistics.median(prefill_ms)
-            * 1e3,
-            "vs_plain_conv_max_rel_err": rel,
-            "vs_plain_conv_bitwise_equal": torch.equal(
-                kernel_logits, vocab_logits(plain, cfg)),
-            "tol": tolerance("bfloat16"), "profile": profiles,
-            "sample_tokens": tokens[0, :8].tolist()}
+            "d_model": cfg.d_model, "batch": B, "prompt": S,
+            "new_tokens": new, "greedy": True, "graphs": graphs.graphs,
+            "prefills_traced": graphs.prefills,
+            "steps_traced": graphs.steps, "launches_at_capture": traced,
+            "launches_per_traced_prefill": {
+                k: v / graphs.prefills for k, v in traced.items()},
+            "launches_on_replay": on_replay,
+            "launches_eager": eager_launches,
+            "tokens_replay_equal_eager": True,
+            "logits_replay_bitwise_equal_eager": all(bitwise),
+            "steps_compared": len(bitwise)}
+    for how in ("replay", "eager"):
+        line[f"prefill_ms_{how}"] = statistics.median(prefill_ms[how])
+        line[f"decode_ms_per_token_{how}"] = statistics.median(
+            decode_ms[how])
+        line[f"generate_ms_{how}"] = statistics.median(generate_ms[how])
+        line[f"tokens_per_s_{how}"] = \
+            B * new / line[f"generate_ms_{how}"] * 1e3
+    line.update(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                generate_ms=generate_ms)
+    if mamba:
+        rel = rel_err(vocab_logits(first, cfg), vocab_logits(plain, cfg))
+        require(rel <= tolerance(cfg.dtype), f"{path}: prefill logits with "
+                f"the kernel vs the plain conv on the card: {rel}")
+        line.update(vs_plain_conv_max_rel_err=rel,
+                    vs_plain_conv_bitwise_equal=torch.equal(
+                        vocab_logits(first, cfg), vocab_logits(plain, cfg)),
+                    tol=tolerance(cfg.dtype))
+    else:
+        line["bounds"] = lm_bounds(cfg, cparams, rcaches, B, S, peaks)
+    line["sample_tokens"] = tokens[0, :8].tolist()
+    return line, profiles
 
 
-def parity_phase(cfg, params, counters):
-    """mamba2-370m in fp32 at full width: batch 1, prompt 300, 8 greedy
-    decode steps on the card, the counters set to 0 before and read after;
-    the logits of the prefill and of every step against the port on the
-    CPU fed the same tokens, within ENGINE_REL_BOUND; ``generate`` on the
-    card gives the same tokens."""
-    import numpy as np
-
+def parity_phase(path, cfg, params, counters):
+    """The model in fp32 at full width: batch 1, prompt 300, 8 greedy
+    decode steps on the card through the graphs, an eager step beside
+    each (the logits bitwise equal), the counters set to 0 before and read
+    after; the logits of the prefill and of every step against the port
+    on the CPU fed the same tokens, within ENGINE_REL_BOUND; ``generate``
+    on the card, replayed and eager, gives the same tokens."""
     from repro_torch.launch import serve, steps
     from repro_torch.models.spec import flatten, unflatten
 
-    path = "mamba2_370m/fp32"
     cfg = cfg.replace(dtype="float32")
-    expected = {**NO_LAUNCHES, "causal_conv1d": cfg.num_layers}
+    per_prefill = {**NO_LAUNCHES, **({"causal_conv1d": cfg.num_layers}
+                                     if cfg.family == "ssm" else {})}
     S = PARITY_PROMPT
-    prompts = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, S)))
-    card, fed, step_ms = [], [], []
+    prompts = lm_prompts(cfg, 1, S, seed=2)
+    cache_len = S + PARITY_STEPS
+    graphs = steps.StepGraphs(cfg, params)
+    card, fed, step_ms, bitwise = [], [], [], []
     zero_counts(counters)
     with torch.inference_mode():
-        t, (logits, caches) = host_ms(lambda: steps.prefill_step(
-            params, cfg, prompts.cuda(), cache_len=S + PARITY_STEPS))
+        t, (logits, caches) = host_ms(lambda: graphs.prefill(prompts,
+                                                             cache_len))
         step_ms.append(t)
-        card.append(logits)
+        elog, ecaches = steps.prefill_step(graphs.params, cfg, prompts,
+                                           cache_len=cache_len)
+        bitwise.append(torch.equal(logits, elog))
+        card.append(logits.clone())
         for i in range(PARITY_STEPS):
-            fed.append(vocab_logits(logits[:, -1], cfg).argmax(-1)[:, None])
-            t, (logits, caches) = host_ms(lambda: steps.decode_step(
-                params, cfg, fed[-1], caches, S + i))
+            fed.append(vocab_logits(card[-1][:, -1], cfg).argmax(-1)[:, None])
+            t, logits = host_ms(lambda: graphs.decode(fed[-1], caches, S + i))
             step_ms.append(t)
-            card.append(logits)
+            elog, ecaches = steps.decode_step(graphs.params, cfg, fed[-1],
+                                              ecaches, S + i)
+            bitwise.append(torch.equal(logits, elog))
+            card.append(logits.clone())
     torch.cuda.synchronize()
     launches = read_counts(counters)
-    require(launches == expected, f"{path}: launches {launches}, want "
-            f"{expected}")
+    want = {k: v * (graphs.prefills + 1) for k, v in per_prefill.items()}
+    require(launches == want, f"{path}: launches {launches} over "
+            f"{graphs.prefills} traced prefills and one eager, want {want}")
+    require(all(bitwise), f"{path}: replayed logits not bitwise eager at "
+            f"steps {[i for i, b in enumerate(bitwise) if not b]}")
     greedy = torch.cat(
-        fed + [vocab_logits(logits[:, -1], cfg).argmax(-1)[:, None]], dim=1)
-    tokens = serve.generate(cfg, params, prompts.cuda(),
-                            max_new=PARITY_STEPS + 1,
-                            cache_len=S + PARITY_STEPS + 1)
-    require(torch.equal(tokens.long(), greedy),
-            f"{path}: generate's tokens differ from the steps' greedy ones")
+        fed + [vocab_logits(card[-1][:, -1], cfg).argmax(-1)[:, None]], dim=1)
+    for replay in (True, False):
+        tokens = serve.generate(cfg, params, prompts,
+                                max_new=PARITY_STEPS + 1,
+                                cache_len=cache_len + 1, replay=replay)
+        require(torch.equal(tokens.long(), greedy), f"{path}: generate's "
+                f"tokens (replay={replay}) differ from the steps' greedy ones")
     cpu_params = unflatten({k: v.cpu() for k, v in flatten(params).items()})
     t0 = time.perf_counter()
     with torch.inference_mode():
-        logits, caches = steps.prefill_step(cpu_params, cfg, prompts,
-                                            cache_len=S + PARITY_STEPS)
+        logits, caches = steps.prefill_step(cpu_params, cfg, prompts.cpu(),
+                                            cache_len=cache_len)
         cpu = [logits]
         for i, tok in enumerate(fed):
             logits, caches = steps.decode_step(cpu_params, cfg, tok.cpu(),
@@ -1705,21 +1897,63 @@ def parity_phase(cfg, params, counters):
     require(max(errs) <= ENGINE_REL_BOUND, f"{path}: card vs cpu logits "
             f"{errs} > {ENGINE_REL_BOUND}")
     return {"phase": "lm", "path": path, "config": cfg.name,
-            "entry": "repro_torch.launch.steps prefill_step / decode_step, "
-                     "and serve.generate", "dtype": cfg.dtype,
-            "layers": cfg.num_layers, "batch": 1, "prompt": S,
-            "decode_steps": PARITY_STEPS, "launches": launches,
+            "entry": "repro_torch.launch.steps.StepGraphs prefill / decode "
+                     "beside prefill_step / decode_step, and serve.generate",
+            "dtype": cfg.dtype, "layers": cfg.num_layers, "batch": 1,
+            "prompt": S, "decode_steps": PARITY_STEPS, "launches": launches,
+            "prefills_traced": graphs.prefills,
+            "logits_replay_bitwise_equal_eager": all(bitwise),
             "max_rel_err_vs_cpu": max(errs),
             "rel_err_vs_cpu_per_step": errs, "bound": ENGINE_REL_BOUND,
-            "prefill_ms": step_ms[0],
-            "decode_ms_per_token_median": statistics.median(step_ms[1:]),
+            "prefill_ms_replay": step_ms[0],
+            "decode_ms_per_token_replay": statistics.median(step_ms[1:]),
             "cpu_s": cpu_s, "tokens": greedy[0].tolist()}
+
+
+def chunked_attention_phase(cfg):
+    """One ``layers.attention`` call at the model's head shape (fp32,
+    batch 1, causal) with Sq = Sk = CHUNKED_SEQ, above ``_FULL_THRESH``,
+    so it takes the online softmax over KV chunks of ``cfg.attn_chunk``:
+    required bitwise equal to ``_attend_chunked`` and within
+    ``tolerance(fp32)`` of ``_attend_full`` on the same inputs. No model
+    path on the card reaches the chunked path otherwise."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.models import layers as L
+
+    S, H, KV, D = CHUNKED_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    require(S * S > L._FULL_THRESH, "chunked attention: below the threshold")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((1, S, H, D), generator=gen, device="cuda")
+    k, v = (torch.randn((1, S, KV, D), generator=gen, device="cuda")
+            for _ in range(2))
+    pos = torch.arange(S, device="cuda")[None]
+    kw = dict(causal=True, q_pos=pos, kv_pos=pos, scale=D ** -0.5)
+    with torch.inference_mode():
+        ms, out = host_ms(lambda: L.attention(q, k, v, causal=True,
+                                              q_pos=pos, kv_pos=pos,
+                                              chunk=cfg.attn_chunk))
+        ke, ve = (torch.repeat_interleave(t, H // KV, dim=2) for t in (k, v))
+        chunked = L._attend_chunked(q, ke, ve, chunk=cfg.attn_chunk, **kw)
+        full_ms, full = host_ms(lambda: L._attend_full(q, ke, ve, **kw))
+    rel = rel_err(out, full)
+    require(torch.equal(out, chunked), "chunked attention: attention() did "
+                                       "not take the chunked path")
+    require(bool(torch.isfinite(out).all()) and rel <= tolerance("float32"),
+            f"chunked attention vs full on the card: {rel}")
+    return {"phase": "lm", "part": "chunked_attention", "config": cfg.name,
+            "dtype": "float32", "shape": [1, S, H, KV, D],
+            "chunk": cfg.attn_chunk, "chunks": -(-S // cfg.attn_chunk),
+            "full_thresh": L._FULL_THRESH, "max_rel_err_vs_full": rel,
+            "tol": tolerance("float32"), "ms_chunked": ms,
+            "ms_full": full_ms}
 
 
 def conv1d_summary(rows, launches, peaks):
     """The ``kernels`` entry of causal_conv1d: each LM path's class in the
     path's dtype times its launches per prefill, summed over the paths
-    and per path; ``launches`` counts the paths' main-path runs."""
+    and per path; ``launches`` maps each path to its main-path run's
+    counts and the prefills they cover (the traced ones, and the parity
+    path's eager one)."""
     source, replaces = KERNEL_INFO["causal_conv1d"]
 
     def per_prefill_sum(key, path=None):
@@ -1733,9 +1967,9 @@ def conv1d_summary(rows, launches, peaks):
     return {
         "name": "causal_conv1d", "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(n["causal_conv1d"] for n in launches.values()),
+        "launches": sum(n["causal_conv1d"] for n, _ in launches.values()),
         "launches_per_prefill": {
-            path: n["causal_conv1d"] for path, n in launches.items()},
+            path: n["causal_conv1d"] / k for path, (n, k) in launches.items()},
         "parity": "ok", "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_prefill_sum("kernel_ms"),
         "plain_ms": per_prefill_sum("plain_ms"),
@@ -2068,12 +2302,32 @@ def main() -> None:
            if not r["max_rel_err"] <= r["tol"]]
     require(not bad, f"causal_conv1d disagrees with its plain version: {bad}")
     lparams = steps.init_state(lcfg, 0, "cuda")["params"]
-    lm_launches = {}
-    for line in (serve_phase(lcfg, lparams, counters),
-                 parity_phase(lcfg, lparams, counters)):
-        lm_launches[line["path"]] = line["launches"]
-        emit(line)
-    del lparams
+    lm_launches, profiles = {}, []
+    line, thunks = lm_serve_phase("mamba2_370m", lcfg, lparams, counters,
+                                  peaks)
+    lm_launches[line["path"]] = (line["launches_at_capture"],
+                                 line["prefills_traced"])
+    profiles.append((line["path"], thunks))
+    emit(line)
+    line = parity_phase("mamba2_370m/fp32", lcfg, lparams, counters)
+    lm_launches[line["path"]] = (line["launches"],
+                                 line["prefills_traced"] + 1)
+    emit(line)
+    # the GQA attention LM at published width, then the chunked path
+    acfg = get(ATTN_CONFIG)
+    aparams = steps.init_state(acfg, 0, "cuda")["params"]
+    line, thunks = lm_serve_phase("qwen2_0_5b", acfg, aparams, counters,
+                                  peaks)
+    profiles.append((line["path"], thunks))
+    emit(line)
+    emit(parity_phase("qwen2_0_5b/fp32", acfg, aparams, counters))
+    emit(chunked_attention_phase(acfg))
+    # after every timed LM line: one replayed and one eager decode step
+    # of each serving path under the profiler
+    for path, thunks in profiles:
+        emit({"phase": "lm", "part": "profile", "path": path,
+              **{name: fn() for name, fn in thunks.items()}})
+    del lparams, aparams, profiles, thunks
 
     # ---- after every timed line (a profiler session slows later graph
     # replays): where an eager tuned ResNet-18 run's host time goes ------

@@ -1,4 +1,12 @@
 """Config registry: importing this package registers the configs."""
 from repro_torch.configs.base import ArchConfig, get, register  # noqa: F401
-from repro_torch.configs import mamba2_370m, mobilenet, resnet  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    granite_3_2b,
+    granite_8b,
+    mamba2_370m,
+    minitron_8b,
+    mobilenet,
+    qwen2_0_5b,
+    resnet,
+)
 from repro_torch.configs.tiny import tiny_variant  # noqa: F401

@@ -2,10 +2,10 @@
 ``repro/configs/base.py``.
 
 The fields a CNN reads, and those the decoder-only LM path (embeddings,
-norms, layer planning, Mamba-2) reads, under the reference's names and
-defaults, so a config names the same network in both packages. The
-attention, MoE and encoder-decoder hyperparameters that only later
-slices read are not here yet.
+norms, layer planning, GQA attention with rope, the dense FFN, Mamba-2)
+reads, under the reference's names and defaults, so a config names the
+same network in both packages. The MLA, MoE and encoder-decoder
+hyperparameters that only later slices read are not here yet.
 """
 from __future__ import annotations
 
@@ -27,9 +27,12 @@ class ArchConfig:
     head_dim: int = 0
     d_ff: int = 0
     vocab_size: int = 0
+    qkv_bias: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    rope_theta: float = 10_000.0
     pos_emb: str = "rope"  # rope | learned | none
+    act: str = "swiglu"  # swiglu | gelu_mlp
 
     # --- attention ---
     attn_impl: str = "gqa"  # gqa | mla | none

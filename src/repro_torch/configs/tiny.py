@@ -1,6 +1,9 @@
-"""Reduced same-family configs for CPU tests: the cnn and ssm branches of
-``repro/configs/tiny.py``."""
+"""Reduced same-family configs for CPU tests: the cnn, ssm and dense (GQA)
+branches of ``repro/configs/tiny.py``."""
 from repro_torch.configs.base import ArchConfig
+
+# the families this port's LM path runs; the others come with later slices
+_LM_FAMILIES = ("ssm", "dense")
 
 
 def tiny_variant(cfg: ArchConfig) -> ArchConfig:
@@ -8,8 +11,10 @@ def tiny_variant(cfg: ArchConfig) -> ArchConfig:
 
     CNNs: img 32, one block a stage (MobileNetV2 keeps a t=1 stage, two
     strided stages and a stride-1 stage whose block adds the identity).
-    SSMs: 2 layers, d_model 64, ssm_state 16, head_dim 16, ssd_chunk 16,
-    vocab 256."""
+    LMs: 2 layers, d_model 64, d_ff 128 where the config has an ffn, vocab
+    256; SSMs ssm_state 16, head_dim 16, ssd_chunk 16; GQA 4 heads of 16,
+    the config's kv ratio kept up to 4 (``max(1, 4 // min(ratio, 4))`` kv
+    heads)."""
     kw: dict = dict(name=cfg.name + "-tiny", dtype="float32",
                     param_dtype="float32", remat="none",
                     vocab_size=min(cfg.vocab_size, 256) or 256,
@@ -23,11 +28,16 @@ def tiny_variant(cfg: ArchConfig) -> ArchConfig:
                                    (6, 24, 1, 1), (6, 40, 1, 2)),
                          stem=16, head=64)
         return cfg.replace(**kw, extra=extra)
-    if cfg.family != "ssm":
+    if cfg.family not in _LM_FAMILIES:
         raise NotImplementedError(
             f"tiny_variant: family {cfg.family!r} comes with a later slice "
             "(ROADMAP queue 1: the rest of the LM substrate)")
-    return cfg.replace(**kw, ssm_state=16, ssm_head_dim=16,
-                       ssm_ngroups=min(cfg.ssm_ngroups, 2), ssd_chunk=16,
-                       num_layers=2 + cfg.first_dense_layers, d_model=64,
-                       d_ff=128 if cfg.d_ff else 0)
+    if cfg.attn_impl == "gqa":
+        ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
+        kw.update(num_heads=4, num_kv_heads=max(1, 4 // min(ratio, 4)),
+                  head_dim=16)
+    if cfg.family == "ssm":
+        kw.update(ssm_state=16, ssm_head_dim=16,
+                  ssm_ngroups=min(cfg.ssm_ngroups, 2), ssd_chunk=16)
+    return cfg.replace(**kw, num_layers=2 + cfg.first_dense_layers,
+                       d_model=64, d_ff=128 if cfg.d_ff else 0)

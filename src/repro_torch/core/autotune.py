@@ -32,7 +32,7 @@ from dataclasses import asdict, dataclass, field
 import torch
 
 from repro_torch.core.convspec import ConvSpec, FusedBlockSpec
-from repro_torch.core.device import CAPTURE_LOCK, resolve_device
+from repro_torch.core.device import capture, resolve_device
 from repro_torch.core.dtypes import ACC_BYTES, torch_dtype
 
 log = logging.getLogger(__name__)
@@ -251,8 +251,7 @@ def replay_times(call, repeats, algorithm=None, params=None):
         call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with CAPTURE_LOCK, torch.cuda.graph(graph, stream=side,
-                                        capture_error_mode="thread_local"):
+    with capture(graph, stream=side):
         call()
     graph.replay()
     out = []

@@ -56,7 +56,7 @@ from torch import nn
 from repro_torch.core import autotune
 from repro_torch.core.autotune import TuningPlan
 from repro_torch.core.convspec import ConvSpec
-from repro_torch.core.device import CAPTURE_LOCK, resolve_device
+from repro_torch.core.device import capture, resolve_device
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ref
 
@@ -313,9 +313,7 @@ class InferenceEngine:
                                    device=self.device)
             self._warm_up(static_x)
             graph = torch.cuda.CUDAGraph()
-            with CAPTURE_LOCK, torch.cuda.graph(
-                    graph, pool=self._pool, stream=self._side,
-                    capture_error_mode="thread_local"):
+            with capture(graph, stream=self._side, pool=self._pool):
                 out = self._forwards(static_x)
             g = graphs[key] = _Graph(graph, static_x, out)
         return g

@@ -1,12 +1,14 @@
 """Serving loop (``repro/launch/serve.py``): one batched prefill, then
-one decode step per new token.
+one decode step per new token, replayed as CUDA graphs on the card.
 
-    python -m repro_torch.launch.serve --arch mamba2-370m [--tiny] \\
-        [--batch 4] [--prompt-len 32] [--max-new 32] [--device cpu]
+    python -m repro_torch.launch.serve --arch mamba2-370m | qwen2-0.5b \\
+        [--tiny] [--batch 4] [--prompt-len 32] [--max-new 32] \\
+        [--device cpu]
 
-runs on the card unless ``--device`` names another device, and raises
-without a card. Weights come from seed 0 and the prompts from a
-``torch.Generator`` seeded 1.
+runs on the card, replaying CUDA graphs, unless ``--device`` names
+another device, and raises without a card. The SSM family (mamba2-370m) and the dense GQA family
+(qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b) run. Weights come
+from seed 0 and the prompts from a ``torch.Generator`` seeded 1.
 """
 from __future__ import annotations
 
@@ -21,19 +23,54 @@ from repro_torch.launch import steps
 
 
 def generate(cfg, params, prompts, *, max_new: int, cache_len: int,
-             temperature: float = 0.0, generator=None):
+             temperature: float = 0.0, generator=None, replay=None,
+             graphs=None):
     """prompts: (B, S) integer tokens -> (B, max_new) int32 samples:
     greedy at ``temperature`` 0, else drawn from the tempered softmax with
-    ``generator`` (a ``torch.Generator`` on the logits' device)."""
+    ``generator`` (a ``torch.Generator`` on the logits' device).
+
+    On the card ``generate`` replays CUDA graphs (``steps.StepGraphs``,
+    the counterpart of the reference's ``jax.jit`` of both steps): the
+    prefill's, then the decode step's ``max_new - 1`` times. ``graphs``, a
+    ``StepGraphs`` of these ``params``, keeps the graphs across calls and
+    implies replay (default: a new one, so the call captures both
+    graphs). ``replay=False``
+    dispatches every op eagerly, the only kind on the CPU; asking for
+    replay there raises. Either way the weights are cast to the compute
+    dtype once, not at every step, and sampling runs outside the graphs.
+    """
     B, S = prompts.shape
+    on_card = prompts.device.type == "cuda"
+    replay = (on_card if replay is None else bool(replay)) \
+        or graphs is not None
+    if replay and not on_card:
+        raise ValueError(f"CUDA graphs run on the card, not on "
+                         f"{prompts.device}: pass replay=False")
     with torch.inference_mode():
-        logits, caches = steps.prefill_step(params, cfg, prompts,
-                                            cache_len=cache_len)
+        if replay:
+            if graphs is None:
+                graphs = steps.StepGraphs(cfg, params)
+            elif graphs.source is not params or graphs.cfg != cfg:
+                raise ValueError("graphs were built for other params or "
+                                 "another config")
+            logits, caches = graphs.prefill(prompts, cache_len)
+
+            def step(tok, pos):
+                return graphs.decode(tok, caches, pos)
+        else:
+            cparams = steps.compute_params(params, cfg)
+            logits, caches = steps.prefill_step(cparams, cfg, prompts,
+                                                cache_len=cache_len)
+
+            def step(tok, pos):
+                nonlocal caches
+                logits, caches = steps.decode_step(cparams, cfg, tok,
+                                                   caches, pos)
+                return logits
         tok = _sample(logits[:, -1], temperature, generator, cfg)
         outs = [tok]
         for i in range(max_new - 1):
-            logits, caches = steps.decode_step(params, cfg, tok[:, None],
-                                               caches, S + i)
+            logits = step(tok[:, None], S + i)
             tok = _sample(logits[:, 0], temperature, generator, cfg)
             outs.append(tok)
     return torch.stack(outs, dim=1)
@@ -79,7 +116,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     total = args.batch * args.max_new
     print(f"generated {total} tokens on {device} in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s incl. the kernels' first build)")
+          f"({total / dt:.1f} tok/s incl. the kernels' first build and "
+          f"the graphs' capture)")
     print("sample row:", out[0][:16].tolist())
     return out
 

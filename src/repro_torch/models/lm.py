@@ -5,9 +5,12 @@ A config's layers are planned as (mixer, ffn) pairs, then grouped into
 repeating segments whose parameters are stacked along a leading layer
 axis. The reference scans a segment with ``jax.lax.scan``; here a Python
 loop over the layer index runs it, and the per-layer caches are stacked
-back along the same axis. This slice runs the Mamba mixer with no ffn
-(the ssm family); attention (gqa, mla) and the dense and MoE ffns come
-with later slices.
+back along the same axis. The port runs the Mamba mixer with no ffn (the
+ssm family) and the GQA mixer with the dense ffn or none (the dense
+family: qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b); a prefill
+pads each attention cache to ``cache_len`` as the reference does. MLA,
+the MoE ffn and the hybrid plan (Mamba layers with an ffn) come with
+later slices.
 
 ``LM`` is the network as an ``nn.Module``: its ``state_dict()`` keys are
 the reference's parameter paths (``embed.table``,
@@ -18,6 +21,7 @@ across unchanged.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import layers as L
@@ -85,22 +89,38 @@ def segments(cfg) -> list[tuple[tuple[Plan, ...], int]]:
 
 def _check_plan(plan: Plan) -> None:
     mixer, ffn_kind = plan
-    if mixer != "mamba":
+    if mixer not in ("mamba", "gqa"):
         raise _not_ported(f"the {mixer!r} mixer")
-    if ffn_kind != "none":
+    if ffn_kind not in ("none", "dense"):
         raise _not_ported(f"the {ffn_kind!r} ffn")
+    if mixer == "mamba" and ffn_kind != "none":
+        raise _not_ported(f"the hybrid plan {plan!r}")
 
 
 def block_specs(cfg, plan: Plan):
     _check_plan(plan)
-    return {"ln1": L.norm_spec(cfg.d_model), "mamba": S.mamba_specs(cfg)}
+    mixer, ffn_kind = plan
+    sp = {"ln1": L.norm_spec(cfg.d_model)}
+    if mixer == "gqa":
+        sp["attn"] = L.gqa_specs(cfg)
+    else:
+        sp["mamba"] = S.mamba_specs(cfg)
+    if ffn_kind != "none":
+        sp["ln2"] = L.norm_spec(cfg.d_model)
+        sp["ffn"] = L.ffn_specs(cfg)
+    return sp
 
 
 def cache_spec(cfg, plan: Plan, batch: int, max_seq: int):
     """Decode-cache entry for one layer: {name: (shape, dtype, axes)}.
-    A Mamba layer's cache does not grow with ``max_seq``."""
+    An attention layer's K and V hold ``max_seq`` positions; a Mamba
+    layer's cache does not grow with it."""
     _check_plan(plan)
     dt = torch_dtype(cfg.dtype)
+    if plan[0] == "gqa":
+        kvd = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": (kvd, dt, ("batch", "kv_seq", "kv_heads", None)),
+                "v": (kvd, dt, ("batch", "kv_seq", "kv_heads", None))}
     d_inner, G, N, P, H, Hg, conv_ch = S._dims(cfg)
     return {"conv": ((batch, cfg.ssm_conv_k - 1, conv_ch), dt,
                      ("batch", None, "ssm_inner")),
@@ -110,17 +130,50 @@ def cache_spec(cfg, plan: Plan, batch: int, max_seq: int):
 
 def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
                 impl="auto"):
-    """One layer. mode: train | prefill | decode. Returns (x, cache, aux)."""
+    """One layer. mode: train | prefill | decode. Returns (x, cache, aux).
+    ``pos`` (decode) is an int or a 0-d tensor on ``x``'s device."""
     _check_plan(plan)
+    mixer, ffn_kind = plan
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
-    if mode == "decode":
+    new_cache = None
+    if mixer == "gqa":
+        if mode == "decode":
+            out, new_cache = L.gqa_decode(p["attn"], cfg, h, cache, pos)
+        else:
+            out, (k, v) = L.gqa_attn(p["attn"], cfg, h, positions)
+            if mode == "prefill":
+                new_cache = {"k": k, "v": v}
+    elif mode == "decode":
         out, new_cache = S.mamba_decode(p["mamba"], cfg, h, cache, pos)
     else:
         out, new_cache = S.mamba_forward(p["mamba"], cfg, h,
                                          want_cache=(mode == "prefill"),
                                          impl=impl)
-    return x + out, new_cache, torch.zeros((), dtype=torch.float32,
-                                           device=x.device)
+    x = x + out
+    if ffn_kind != "none":
+        x = x + L.ffn(p["ffn"], cfg, L.apply_norm(p["ln2"], x, cfg.norm_eps))
+    return x, new_cache, torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+
+
+# ----------------------------------------------------------------------
+# cache padding: a prefill writes its caches for the prompt, padded to
+# the decode length
+
+
+def _pad_cache_seq(cfg, plan, cache, max_seq):
+    """An attention layer's prefill cache zero-padded along its sequence
+    axis to ``max_seq`` (never cut); a Mamba cache as it is."""
+    mixer, _ = plan
+    if cache is None or mixer == "mamba":
+        return cache
+
+    def pad(a):
+        s = a.shape[1]
+        if s >= max_seq:
+            return a
+        return F.pad(a, (0, 0) * (a.ndim - 2) + (0, max_seq - s))
+    return {k: pad(a) for k, a in cache.items()}
 
 
 # ----------------------------------------------------------------------
@@ -167,9 +220,10 @@ def _stack(trees):
 
 
 def _run_segment(p_seg, cfg, body, n, x, positions, *, mode, caches, pos,
-                 impl):
+                 impl, cache_len=0):
     """Run one segment: a loop over its n layers when n > 1. ``caches``
-    holds the per-sub trees, stacked when n > 1."""
+    holds the per-sub trees, stacked when n > 1; a prefill pads each
+    layer's attention cache to ``cache_len``."""
     def one_period(x, p_period, cache_period):
         new_caches = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -178,6 +232,8 @@ def _run_segment(p_seg, cfg, body, n, x, positions, *, mode, caches, pos,
             x, c_new, a = apply_block(p_period[f"sub{j}"], cfg, pl, x,
                                       positions, mode=mode, cache=c_in,
                                       pos=pos, impl=impl)
+            if c_new is not None and mode == "prefill" and cache_len:
+                c_new = _pad_cache_seq(cfg, pl, c_new, cache_len)
             if c_new is not None:
                 new_caches[f"sub{j}"] = c_new
             aux = aux + a
@@ -204,9 +260,9 @@ def forward(params, cfg, tokens, *, mode="train", prefix_embeds=None, pos=0,
 
     V is the padded vocab, its padding columns masked. ``cache_len`` is
     the length an attention layer's prefill cache is padded to; Mamba
-    caches have a fixed size and ignore it. ``impl`` is the causal
-    conv's (``ops.causal_conv1d``)."""
-    del cache_len
+    caches have a fixed size and ignore it. ``pos`` is the first
+    position: an int, or (decode) a 0-d tensor on the tokens' device.
+    ``impl`` is the causal conv's (``ops.causal_conv1d``)."""
     x = L.embed(params["embed"], cfg, tokens,
                 positions=_positions(tokens, pos)
                 if cfg.pos_emb == "learned" else None)
@@ -220,7 +276,7 @@ def forward(params, cfg, tokens, *, mode="train", prefix_embeds=None, pos=0,
         seg_caches = caches.get(f"seg{si}") if caches else None
         x, c_new, a = _run_segment(params[f"seg{si}"], cfg, body, n, x,
                                    positions, mode=mode, caches=seg_caches,
-                                   pos=pos, impl=impl)
+                                   pos=pos, impl=impl, cache_len=cache_len)
         if c_new:
             new_caches[f"seg{si}"] = c_new
         aux = aux + a

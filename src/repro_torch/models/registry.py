@@ -1,5 +1,7 @@
 """Model registry: per-family dispatch and parameter counting
-(``repro/models/registry.py``)."""
+(``repro/models/registry.py``). The CNNs, the ssm family and the dense
+GQA family build; MLA, MoE and the hybrid plan raise in ``lm``'s layer
+check, the encoder-decoder models here."""
 from __future__ import annotations
 
 from repro_torch.models import lm, mobilenet, resnet

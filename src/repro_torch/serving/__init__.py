@@ -16,10 +16,18 @@ same images through ``engine.run``.
 Public API: frozen ``ServingOptions`` (server-wide) and ``RequestOptions``
 (per call); every submit path returns a ``Ticket``; the typed rejections
 (``Rejected`` > ``Overloaded`` / ``DeadlineExceeded`` / ``CircuitOpen``)
-and ``TransientFailure`` are exported here. The wire tier
-(``ServerEndpoint``, ``AsyncClient`` and the protocol) is not ported yet.
+and ``TransientFailure`` are exported here.
+
+The wire tier puts a socket in front of the same surface:
+``ServerEndpoint`` speaks a length-prefixed binary framing
+(``protocol.py``, byte for byte the JAX package's), ``AsyncClient`` is
+the asyncio caller — ``await client.classify(net, image)`` returns
+logits bitwise equal to ``engine.run``, and typed rejections
+(``ProtocolError`` / ``BadRequest`` / ``RemoteError`` besides the
+resilience layer's) re-raise client-side.
 """
 from repro_torch.serving.batcher import MicroBatcher, bucket  # noqa: F401
+from repro_torch.serving.client import AsyncClient  # noqa: F401
 from repro_torch.serving.engine_cache import (  # noqa: F401
     EngineCache,
     EngineLease,
@@ -28,6 +36,21 @@ from repro_torch.serving.engine_cache import (  # noqa: F401
     xla_fallback_plan,
 )
 from repro_torch.serving.faults import Fault, FaultInjector  # noqa: F401
+from repro_torch.serving.protocol import (  # noqa: F401
+    MAX_FRAME_BYTES,
+    PROTOCOL_VERSION,
+    BadRequest,
+    ProtocolError,
+    RemoteError,
+    ServerEndpoint,
+    decode_request,
+    decode_response,
+    encode_request,
+    encode_response,
+    pack_frame,
+    read_frame,
+    unpack_body,
+)
 from repro_torch.serving.request import (  # noqa: F401
     Request,
     RequestOptions,
@@ -52,6 +75,8 @@ from repro_torch.serving.streaming import (  # noqa: F401
 )
 
 __all__ = [
+    "AsyncClient",
+    "BadRequest",
     "CircuitBreaker",
     "CircuitOpen",
     "DeadlineExceeded",
@@ -62,20 +87,32 @@ __all__ = [
     "FaultInjector",
     "Frame",
     "FrameDropped",
+    "MAX_FRAME_BYTES",
     "MicroBatcher",
     "Overloaded",
+    "PROTOCOL_VERSION",
+    "ProtocolError",
     "Rejected",
+    "RemoteError",
     "Request",
     "RequestOptions",
     "RetryPolicy",
     "Server",
+    "ServerEndpoint",
     "ServingOptions",
     "StreamScheduler",
     "StreamSession",
     "Ticket",
     "TransientFailure",
     "bucket",
+    "decode_request",
+    "decode_response",
+    "encode_request",
+    "encode_response",
     "engine_key",
+    "pack_frame",
     "plan_key",
+    "read_frame",
+    "unpack_body",
     "xla_fallback_plan",
 ]

@@ -14,9 +14,9 @@ deadline override, and scheduling priority, all frozen so a shared options
 object can never be mutated mid-flight.
 
 ``Ticket`` is the one result handle. ``Server.submit`` returns it,
-``Server.run`` blocks on it, and the wire endpoint (a later slice of the
-port) will resolve it into a response frame — one type for every call
-style. ``result(timeout)`` carries
+``Server.run`` blocks on it, and the wire endpoint
+(``protocol.ServerEndpoint``) resolves it into a response frame — one
+type for every call style. ``result(timeout)`` carries
 the cancel-on-timeout semantics that used to live only on ``Server.run``:
 a timed-out wait cancels the request so the batcher sheds it at dequeue
 instead of computing logits nobody is waiting for.

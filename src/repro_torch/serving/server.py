@@ -13,8 +13,8 @@ the session holds an engine lease (pinned against eviction) and its
 dispatch runs on its own thread. This is the seam every future scaling
 layer (sharding, multi-backend, remote endpoints) plugs into: everything
 above it speaks (network, image) -> logits, everything below it is the
-tuned-engine world. The wire tier (``protocol``, ``client``) will sit on
-top of exactly this surface; it is the next slice of the port. The
+tuned-engine world. The wire tier (``protocol.ServerEndpoint``,
+``client.AsyncClient``) sits on top of exactly this surface. The
 server runs on the card unless the caller passes ``device="cpu"``, and
 raises without a card and without ``device``.
 
