@@ -152,9 +152,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 7. the LM paths (``repro_torch.launch.serve.generate``: one prefill,
    then greedy decode steps, replayed as CUDA graphs by
    ``steps.StepGraphs``, an eager run beside) at full width, random
-   weights from seed 0: ``mamba2-370m`` (48 layers) and ``qwen2-0.5b``
+   weights from seed 0: ``mamba2-370m`` (48 layers), ``qwen2-0.5b``
    (24 layers, d 896, 14 heads with kv 2, head_dim 64, d_ff 4864, vocab
-   151936 padded to 152064, tied embeddings, qkv bias):
+   151936 padded to 152064, tied embeddings, qkv bias) and the two MoE
+   configs below:
    - ``causal_conv1d``, the kernel of its prefill, at the model's shapes
      (the xBC slice of the in-projection, read in place: rows 4384
      elements apart, C = 2304, K = 4) of both paths below and at the edge
@@ -181,8 +182,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      fp32, Sq = Sk = 2304 (above ``_FULL_THRESH``), bitwise
      ``_attend_chunked`` and within ``tolerance(fp32)`` of
      ``_attend_full``;
+   - the MoE LMs, which launch no port kernel either (the reference
+     writes MLA and MoE in jnp): ``granite_moe_3b`` (granite-moe-3b-a800m
+     at published width and depth: 32 layers, d 1536, 24 heads with kv 8,
+     40 experts top-8 of d_ff 512, bf16 over fp32 master weights) and
+     ``deepseek_v2_2l`` (deepseek-v2-236b at published widths, its 60
+     layers cut to 2, the dense first layer and one MoE layer: MLA with
+     128 heads, kv_lora_rank 512, q_lora_rank 1536, 192-wide queries
+     against 128-wide values; 160 routed experts top-6 and 2 shared, of
+     d_ff 1536; bf16 storage as the config has it; ``reduced`` names the
+     cut), each served as qwen2 is, with its bounds and the entries the
+     dense dispatch dropped over one eager prefill of the serving prompt
+     (``moe_drops``), then ``/fp32`` at the same depth as qwen2's;
+   - ``moe_dispatch``: layer 0's MoE ffn of granite at full width in
+     fp32, batch 4 x 256 tokens, capacity factor 8 (nothing drops): the
+     sort-based dispatch within ``tolerance(fp32)`` of the dense one on
+     the card, the only card run of the sort-based path (no serving size
+     reaches T * N > ``_DENSE_MAX``); with the serving line's drops;
    - a ``profile`` line a serving path: one replayed and one eager decode
-     step under ``torch.profiler`` (device busy ms, device operations);
+     step and one replayed prefill under ``torch.profiler`` (device busy
+     ms, device operations, the kernels that take the most time);
 8. the ``host_split`` line, after every timed line (a profiler session
    slows later graph replays): where one eager tuned ResNet-18 run's host
    time goes, by ``torch.profiler`` (host time inside aten ops against the
@@ -373,6 +392,17 @@ EDGE_LENGTHS = (1, 2, 3, 513)
 # above the full-score threshold takes the chunked path
 ATTN_CONFIG = "qwen2-0.5b"
 CHUNKED_SEQ = 2304
+# The MoE LMs: granite-moe-3b-a800m at published width and depth, and
+# deepseek-v2-236b (235.7 B parameters) at published widths cut in depth
+# to its dense first layer and one MoE layer (5.36 B); neither launches a
+# port kernel. One MoE layer runs both dispatches at a capacity factor at
+# which nothing drops, as the reference's test_moe_sorted_equals_dense.
+MOE_CONFIG = "granite-moe-3b-a800m"
+MLA_CONFIG, MLA_LAYERS = "deepseek-v2-236b", 2
+DISPATCH_BATCH, DISPATCH_SEQ, DISPATCH_CF = 4, 256, 8.0
+# leaf names of an LM's parameters that no matrix product reads: norm
+# scales and shifts, biases
+NOT_MATMUL = frozenset({"w", "b", "bq", "bk", "bv", "b1", "b2"})
 
 
 class CheckFailed(RuntimeError):
@@ -1660,26 +1690,49 @@ def lm_prompts(cfg, batch, length, seed):
         0, cfg.vocab_size, (batch, length))).cuda()
 
 
-def lm_bounds(cfg, cparams, caches, B, S, peaks):
-    """The least time of a GQA model's prefill of (B, S) and of one decode
-    step against ``caches``: the larger of the bytes (every weight in the
-    compute dtype read once, the caches read or written once) over the
-    card's memory rate, and the matrix products' operations (the weights,
-    the full attention scores of every layer, the unembed of the positions
-    the step scores) over the compute dtype's peak."""
+def lm_bounds(cfg, cparams, caches, B, S, Lc, peaks):
+    """The least time of an attention model's prefill of (B, S) and of one
+    decode step against caches of ``Lc`` positions: the larger of the
+    bytes (every weight in the compute dtype read once, the caches read
+    or written once) over the card's memory rate, and the operations of
+    the matrix products over the compute dtype's peak: the weights a token
+    visits (routed experts at ``top_k / num_experts`` of theirs, shared
+    experts whole: ``count_params(active_only=True)``'s count), the
+    attention of every layer at the widths the path computes (GQA: two
+    products of ``head_dim`` a head per query-key pair, the full scores
+    in a prefill; MLA's prefill: qk_nope + qk_rope for the scores and
+    v_head_dim for the values; its absorbed decode: kv_lora_rank +
+    qk_rope and kv_lora_rank a cached position), and the unembed of the
+    positions the step scores. The dense MoE dispatch's two contractions
+    with its (T, N, cap) tensor are the reference's way of routing, not
+    work the function needs, and are not counted."""
+    from repro_torch.models import lm
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.spec import flatten
 
     leaves, cache = flatten(cparams), flatten(caches)
     nbytes = sum(v.numel() * v.element_size() for v in leaves.values()) \
         + sum(v.numel() * v.element_size() for v in cache.values())
-    matmul = sum(v.numel() for k, v in leaves.items()
-                 if k.startswith("seg") and v.dim() >= 3)
+    routed = {f"seg{si}.sub{j}.ffn.{w}"
+              for si, (body, _) in enumerate(lm.segments(cfg))
+              for j, (_, ffn) in enumerate(body) if ffn == "moe"
+              for w in ("w1", "w2", "w3")}
+    share = cfg.top_k / cfg.num_experts if cfg.num_experts else 1.0
+    matmul = sum(v.numel() * (share if k in routed else 1.0)
+                 for k, v in leaves.items() if k.startswith("seg")
+                 and k.rsplit(".", 1)[1] not in NOT_MATMUL)
     head = cfg.d_model * padded_vocab(cfg.vocab_size)
-    Lc = next(iter(cache.values())).shape[2]
-    attn = 4 * cfg.num_layers * cfg.num_heads * cfg.head_dim
-    flops = {"prefill": 2 * B * S * matmul + attn * B * S * S + 2 * B * head,
-             "decode_step": 2 * B * (matmul + head) + attn * B * Lc}
+    H = cfg.num_heads
+    pair = {"gqa": (4 * H * cfg.head_dim, 4 * H * cfg.head_dim),
+            "mla": (2 * H * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                             + cfg.v_head_dim),
+                    2 * H * (2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim))}
+    plans = lm.layer_plan(cfg)
+    attn_pre = sum(pair[m][0] for m, _ in plans if m in pair)
+    attn_dec = sum(pair[m][1] for m, _ in plans if m in pair)
+    flops = {"prefill": 2 * B * S * matmul + attn_pre * B * S * S
+             + 2 * B * head,
+             "decode_step": 2 * B * (matmul + head) + attn_dec * B * Lc}
     out = {}
     for step, ops in flops.items():
         t_ops = ops / peaks[cfg.dtype]
@@ -1688,6 +1741,40 @@ def lm_bounds(cfg, cparams, caches, B, S, peaks):
                      "bound_by": "operations" if t_ops >= t_bytes
                      else "bytes", "flops": ops, "bytes": nbytes}
     return out
+
+
+def moe_drops(cfg, cparams, prompts):
+    """The (token, slot) entries the dense dispatch drops over one eager
+    prefill of ``prompts``: ``layers.moe`` wrapped to count, in each MoE
+    layer, the entries at or past their expert's capacity (the same
+    router, top-k and slot count as the call it wraps)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import layers as L
+
+    B, S = prompts.shape
+    require(cfg.moe_dispatch == "dense"
+            or B * S * cfg.num_experts <= L._DENSE_MAX,
+            f"{cfg.name}: a prefill of {B}x{S} takes the sorted dispatch")
+    cap = L.capacity(cfg, B * S)
+    dropped, moe = [], L.moe
+
+    def counting(p, c, x):
+        _, _, idx = L.route(p, c, x)
+        _, inside = L.dense_slots(idx.reshape(B * S, -1), c.num_experts,
+                                  cap)
+        dropped.append(int((~inside).sum()))
+        return moe(p, c, x)
+    L.moe = counting
+    try:
+        with torch.inference_mode():
+            steps.prefill_step(cparams, cfg, prompts)
+    finally:
+        L.moe = moe
+    return {"capacity_factor": cfg.capacity_factor, "capacity": cap,
+            "entries_per_layer": B * S * cfg.top_k,
+            "dropped_per_layer": dropped, "dropped": sum(dropped),
+            "dropped_share": sum(dropped) / (B * S * cfg.top_k
+                                             * len(dropped))}
 
 
 def lm_serve_phase(path, cfg, params, counters, peaks):
@@ -1700,7 +1787,8 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
     prefill's and each step's logits, teacher-forced on those tokens,
     bitwise equal between replay and eager. Timed: prefill ms and decode
     ms per token both ways, and whole ``generate`` calls. Profiles of one
-    replayed and one eager step come back as thunks, for the caller to
+    replayed and one eager step and one replayed prefill come back as
+    thunks, for the caller to
     run after every timed LM line (a profiler session slows later graph
     replays). A Mamba model's prefill logits are also held against the
     conv's plain version (``impl="torch"``) on the card; an attention
@@ -1708,6 +1796,7 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
     from repro_torch.core.dtypes import tolerance
     from repro_torch.launch import serve, steps
 
+    torch.cuda.reset_peak_memory_stats()
     mamba = cfg.family == "ssm"
     per_prefill = {**NO_LAUNCHES,
                    **({"causal_conv1d": cfg.num_layers} if mamba else {})}
@@ -1748,8 +1837,9 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
     require(torch.equal(tokens, eager_tokens),
             f"{path}: replayed tokens differ from eager ones")
 
-    # teacher-forced on the replayed tokens: each step both ways, bitwise
-    cparams = steps.compute_params(params, cfg)
+    # teacher-forced on the replayed tokens: each step both ways, bitwise;
+    # the eager steps read the graphs' weights (compute_params' values)
+    cparams = graphs.params
     prefill_ms = {"replay": [], "eager": []}
     decode_ms = {"replay": [], "eager": []}
     with torch.inference_mode():
@@ -1791,7 +1881,9 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
     profiles = {"decode_step_replay": profiled(
                     lambda: graphs.decode(tok, rcaches, pos)),
                 "decode_step_eager": profiled(lambda: steps.decode_step(
-                    cparams, cfg, tok, ecaches, pos))}
+                    cparams, cfg, tok, ecaches, pos)),
+                "prefill_replay": profiled(
+                    lambda: graphs.prefill(prompts, cache_len))}
     line = {"phase": "lm", "path": path, "config": cfg.name,
             "entry": "repro_torch.launch.serve.generate", "dtype": cfg.dtype,
             "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
@@ -1824,8 +1916,12 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
                         vocab_logits(first, cfg), vocab_logits(plain, cfg)),
                     tol=tolerance(cfg.dtype))
     else:
-        line["bounds"] = lm_bounds(cfg, cparams, rcaches, B, S, peaks)
+        line["bounds"] = lm_bounds(cfg, cparams, rcaches, B, S, cache_len,
+                                   peaks)
+    if cfg.num_experts:
+        line["moe_drops"] = moe_drops(cfg, cparams, prompts)
     line["sample_tokens"] = tokens[0, :8].tolist()
+    line["device_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return line, profiles
 
 
@@ -1835,10 +1931,12 @@ def parity_phase(path, cfg, params, counters):
     each (the logits bitwise equal), the counters set to 0 before and read
     after; the logits of the prefill and of every step against the port
     on the CPU fed the same tokens, within ENGINE_REL_BOUND; ``generate``
-    on the card, replayed and eager, gives the same tokens."""
+    on the card, replayed through the same graphs and eager, gives the
+    same tokens."""
     from repro_torch.launch import serve, steps
     from repro_torch.models.spec import flatten, unflatten
 
+    torch.cuda.reset_peak_memory_stats()
     cfg = cfg.replace(dtype="float32")
     per_prefill = {**NO_LAUNCHES, **({"causal_conv1d": cfg.num_layers}
                                      if cfg.family == "ssm" else {})}
@@ -1873,13 +1971,21 @@ def parity_phase(path, cfg, params, counters):
             f"steps {[i for i, b in enumerate(bitwise) if not b]}")
     greedy = torch.cat(
         fed + [vocab_logits(card[-1][:, -1], cfg).argmax(-1)[:, None]], dim=1)
-    for replay in (True, False):
-        tokens = serve.generate(cfg, params, prompts,
-                                max_new=PARITY_STEPS + 1,
-                                cache_len=cache_len + 1, replay=replay)
-        require(torch.equal(tokens.long(), greedy), f"{path}: generate's "
-                f"tokens (replay={replay}) differ from the steps' greedy ones")
-    cpu_params = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    traced = graphs.prefills  # those the counts above cover
+    tokens = serve.generate(cfg, params, prompts, max_new=PARITY_STEPS + 1,
+                            cache_len=cache_len + 1, graphs=graphs)
+    require(torch.equal(tokens.long(), greedy), f"{path}: generate's "
+            "tokens (replayed) differ from the steps' greedy ones")
+    # eager once the graphs are gone: at fp32 over bf16 storage each holds
+    # a cast copy of the weights
+    del graphs, ecaches, caches, logits, elog
+    tokens = serve.generate(cfg, params, prompts, max_new=PARITY_STEPS + 1,
+                            cache_len=cache_len + 1, replay=False)
+    require(torch.equal(tokens.long(), greedy), f"{path}: generate's "
+            "tokens (eager) differ from the steps' greedy ones")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cpu_params = steps.compute_params(
+        unflatten({k: v.cpu() for k, v in flatten(params).items()}), cfg)
     t0 = time.perf_counter()
     with torch.inference_mode():
         logits, caches = steps.prefill_step(cpu_params, cfg, prompts.cpu(),
@@ -1901,13 +2007,14 @@ def parity_phase(path, cfg, params, counters):
                      "beside prefill_step / decode_step, and serve.generate",
             "dtype": cfg.dtype, "layers": cfg.num_layers, "batch": 1,
             "prompt": S, "decode_steps": PARITY_STEPS, "launches": launches,
-            "prefills_traced": graphs.prefills,
+            "prefills_traced": traced,
             "logits_replay_bitwise_equal_eager": all(bitwise),
             "max_rel_err_vs_cpu": max(errs),
             "rel_err_vs_cpu_per_step": errs, "bound": ENGINE_REL_BOUND,
             "prefill_ms_replay": step_ms[0],
             "decode_ms_per_token_replay": statistics.median(step_ms[1:]),
-            "cpu_s": cpu_s, "tokens": greedy[0].tolist()}
+            "cpu_s": cpu_s, "device_peak_gb": peak_gb,
+            "tokens": greedy[0].tolist()}
 
 
 def chunked_attention_phase(cfg):
@@ -1946,6 +2053,81 @@ def chunked_attention_phase(cfg):
             "full_thresh": L._FULL_THRESH, "max_rel_err_vs_full": rel,
             "tol": tolerance("float32"), "ms_chunked": ms,
             "ms_full": full_ms}
+
+
+def moe_dispatch_phase(cfg, params, drops):
+    """The first MoE layer of ``cfg`` at full width in fp32 (its stored
+    weights cast), on DISPATCH_BATCH x DISPATCH_SEQ tokens drawn from a
+    seeded generator, with capacity factor DISPATCH_CF so that neither
+    dispatch drops an entry: ``_moe_scatter_dispatch`` on the router's
+    top-k against ``moe``'s dense dispatch, within tolerance("float32"),
+    on the card. ``drops`` is the serving line's count of the entries the
+    dense dispatch dropped at the config's own capacity factor. Also the
+    slot count's time at the serving prompt's entries (graph replay):
+    ``dense_slots``' scan along the innermost axis against the reference's
+    op order, a scan along an outer axis, the same integers."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.spec import flatten, unflatten
+
+    (si, j, n), = [(si, j, n) for si, (body, n) in enumerate(lm.segments(cfg))
+                   for j, (_, ffn) in enumerate(body) if ffn == "moe"][:1]
+    tree = params[f"seg{si}"][f"sub{j}"]["ffn"]
+    p = unflatten({k: (v[0] if n > 1 else v).float()
+                   for k, v in flatten(tree).items()})
+    c = cfg.replace(dtype="float32", capacity_factor=DISPATCH_CF,
+                    num_shared_experts=0)
+    B, S, E, N = DISPATCH_BATCH, DISPATCH_SEQ, cfg.d_model, cfg.num_experts
+    require(B * S * N <= L._DENSE_MAX, "moe_dispatch: moe() would not take "
+                                       "the dense dispatch")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((B, S, E), generator=gen, device="cuda") * 0.3
+    with torch.inference_mode():
+        dense_ms, (y_dense, aux) = host_ms(lambda: L.moe(p, c, x))
+        _, gate, idx = L.route(p, c, x)
+        sorted_ms, y_sorted = host_ms(
+            lambda: L._moe_scatter_dispatch(p, c, x, idx, gate))
+        cap = L.capacity(c, B * S)
+        _, inside = L.dense_slots(idx.reshape(B * S, -1), N, cap)
+        row_cap = L.capacity(c, S)
+        row_load = (idx.reshape(B, -1)[..., None]
+                    == torch.arange(N, device="cuda")).sum(1)
+    # the slot count at the serving prompt (T = 4 x 1024): the port's scan
+    # along the innermost axis against the reference's op order, a scan
+    # along the entries of a (T * k, N) one-hot
+    T, k = SERVE_BATCH * SERVE_PROMPT, c.top_k
+    sidx = torch.argsort(torch.rand((T, N), generator=gen, device="cuda"),
+                         dim=-1)[:, :k]
+
+    def outer_scan():
+        onehot = (sidx[..., None] == torch.arange(N, device="cuda")).to(
+            torch.int32)
+        run = torch.cumsum(onehot.reshape(T * k, N), dim=0).reshape(
+            T, k, N) - 1
+        return (run * onehot).sum(-1)
+    require(torch.equal(outer_scan(), L.dense_slots(sidx, N, cap)[0]),
+            "moe_dispatch: the slots differ from the reference's op order")
+    slots_ms = {"entries": [T * k, N],
+                "innermost_scan": time_ms(lambda: L.dense_slots(sidx, N,
+                                                                cap)),
+                "outer_scan": time_ms(outer_scan)}
+    rel = rel_err(y_sorted, y_dense)
+    require(bool(inside.all()) and int(row_load.max()) <= row_cap,
+            "moe_dispatch: an entry dropped at capacity factor "
+            f"{DISPATCH_CF}")
+    require(bool(torch.isfinite(y_dense).all()) and rel <= tolerance(
+        "float32"), f"moe_dispatch: sorted vs dense dispatch {rel}")
+    return {"phase": "lm", "part": "moe_dispatch", "config": cfg.name,
+            "layer": f"seg{si}.sub{j}" + ("[0]" if n > 1 else ""),
+            "dtype": "float32", "batch": B, "seq": S, "experts": N,
+            "top_k": c.top_k, "capacity_factor": DISPATCH_CF,
+            "dense_capacity": cap, "sorted_capacity_per_row": row_cap,
+            "max_expert_load_per_row": int(row_load.max()),
+            "sorted_vs_dense_max_rel_err": rel, "tol": tolerance("float32"),
+            "aux": float(aux), "dense_ms_eager": dense_ms,
+            "sorted_ms_eager": sorted_ms, "dense_slots_ms": slots_ms,
+            "dense_drops_at_serving_prompt": drops}
 
 
 def conv1d_summary(rows, launches, peaks):
@@ -2322,12 +2504,36 @@ def main() -> None:
     emit(line)
     emit(parity_phase("qwen2_0_5b/fp32", acfg, aparams, counters))
     emit(chunked_attention_phase(acfg))
+    del aparams
+    # the MoE LMs: granite-moe at published width and depth, bf16 over
+    # fp32 master weights, and one of its MoE layers through both
+    # dispatches; then DeepSeek-V2 at published widths, 2 of its 60
+    # layers, in its own bf16 storage
+    gcfg = get(MOE_CONFIG)
+    gparams = steps.init_state(gcfg, 0, "cuda")["params"]
+    line, thunks = lm_serve_phase("granite_moe_3b", gcfg, gparams, counters,
+                                  peaks)
+    profiles.append((line["path"], thunks))
+    emit(line)
+    emit(moe_dispatch_phase(gcfg, gparams, line["moe_drops"]))
+    emit(parity_phase("granite_moe_3b/fp32", gcfg, gparams, counters))
+    del gparams
+    dcfg = get(MLA_CONFIG).replace(num_layers=MLA_LAYERS)
+    reduced = {"num_layers": f"{get(MLA_CONFIG).num_layers} -> {MLA_LAYERS}"}
+    dparams = steps.init_state(dcfg, 0, "cuda")["params"]
+    line, thunks = lm_serve_phase("deepseek_v2_2l", dcfg, dparams, counters,
+                                  peaks)
+    profiles.append((line["path"], thunks))
+    emit({**line, "reduced": reduced})
+    emit({**parity_phase("deepseek_v2_2l/fp32", dcfg, dparams, counters),
+          "reduced": reduced})
+    del dparams
     # after every timed LM line: one replayed and one eager decode step
     # of each serving path under the profiler
     for path, thunks in profiles:
         emit({"phase": "lm", "part": "profile", "path": path,
               **{name: fn() for name, fn in thunks.items()}})
-    del lparams, aparams, profiles, thunks
+    del lparams, profiles, thunks
 
     # ---- after every timed line (a profiler session slows later graph
     # replays): where an eager tuned ResNet-18 run's host time goes ------

@@ -2,10 +2,10 @@
 ``repro/configs/base.py``.
 
 The fields a CNN reads, and those the decoder-only LM path (embeddings,
-norms, layer planning, GQA attention with rope, the dense FFN, Mamba-2)
-reads, under the reference's names and defaults, so a config names the
-same network in both packages. The MLA, MoE and encoder-decoder
-hyperparameters that only later slices read are not here yet.
+norms, layer planning, GQA and MLA attention with rope, the dense and MoE
+FFNs, Mamba-2) reads, under the reference's names and defaults, so a
+config names the same network in both packages. The encoder-decoder and
+training hyperparameters that only later slices read are not here yet.
 """
 from __future__ import annotations
 
@@ -37,12 +37,24 @@ class ArchConfig:
     # --- attention ---
     attn_impl: str = "gqa"  # gqa | mla | none
     attn_chunk: int = 2048  # kv/q chunk for online-softmax attention
+    # MLA (DeepSeek-V2)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
-    # --- MoE (the layer plan reads these) ---
+    # --- MoE ---
     num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
     moe_layer_period: int = 1  # MoE every k-th layer
     moe_layer_offset: int = 0
     first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    moe_dispatch: str = "scatter"  # scatter | dense | alltoall
 
     # --- SSM (Mamba-2 / SSD) ---
     ssm_state: int = 0
@@ -87,6 +99,13 @@ class ArchConfig:
         from repro_torch.models import registry
 
         return registry.count_params(self)
+
+    def active_params(self) -> int:
+        """Parameters a token visits: the routed experts counted at
+        ``top_k`` of ``num_experts``."""
+        from repro_torch.models import registry
+
+        return registry.count_params(self, active_only=True)
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

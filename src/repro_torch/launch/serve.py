@@ -2,13 +2,15 @@
 one decode step per new token, replayed as CUDA graphs on the card.
 
     python -m repro_torch.launch.serve --arch mamba2-370m | qwen2-0.5b \\
-        [--tiny] [--batch 4] [--prompt-len 32] [--max-new 32] \\
-        [--device cpu]
+        | granite-moe-3b-a800m [--tiny] [--batch 4] [--prompt-len 32] \\
+        [--max-new 32] [--device cpu]
 
 runs on the card, replaying CUDA graphs, unless ``--device`` names
-another device, and raises without a card. The SSM family (mamba2-370m) and the dense GQA family
-(qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b) run. Weights come
-from seed 0 and the prompts from a ``torch.Generator`` seeded 1.
+another device, and raises without a card. The SSM family (mamba2-370m),
+the dense GQA family (qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b)
+and the moe family (granite-moe-3b-a800m; deepseek-v2-236b, whose 236 B
+parameters fit only tiny or cut in depth) run. Weights come from seed 0
+and the prompts from a ``torch.Generator`` seeded 1.
 """
 from __future__ import annotations
 

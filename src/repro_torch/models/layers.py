@@ -1,14 +1,19 @@
 """LM building blocks of ``repro/models/layers.py``: the norms and
 embeddings, rotary position embedding, the attention core (full scores
 below ``_FULL_THRESH``, online softmax over KV chunks above it), the GQA
-block with its decode-cache write, and the FFN (SwiGLU or the GELU MLP).
+block with its decode-cache write, MLA (multi-head latent attention, its
+decode absorbing ``W_uk`` into the query), the FFN (SwiGLU or the GELU
+MLP) and the MoE ffn (a top-k router, then the dense or the sort-based
+capacity dispatch).
 
 Activations are (batch, seq, d_model); parameters are declared as
-``ParamSpec`` trees. The reference writes attention and the FFN in jnp,
-outside any Pallas kernel, so they are plain PyTorch here, op for op: the
-same einsums, the scores and the softmax in fp32, the GQA expansion of K
-and V to the full head count (``jnp.repeat`` as ``repeat_interleave``).
-MLA and MoE come with a later slice.
+``ParamSpec`` trees. The reference writes all of these in jnp, outside
+any Pallas kernel, so they are plain PyTorch here, op for op: the same
+einsums, the scores and the softmax in fp32, the GQA expansion of K and V
+to the full head count (``jnp.repeat`` as ``repeat_interleave``). The
+sharding hints (``constrain``) have no counterpart on one device. Nothing
+in a decode step or in ``moe`` waits on the host, so both run inside a
+CUDA graph capture.
 """
 from __future__ import annotations
 
@@ -268,6 +273,98 @@ def gqa_decode(p, cfg, x, cache, pos):
 
 
 # ----------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+
+
+def mla_specs(cfg):
+    E, H = cfg.d_model, cfg.num_heads
+    qk, qr, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    Lr, Q = cfg.kv_lora_rank, cfg.q_lora_rank
+    return {
+        "w_dq": ParamSpec((E, Q), ("embed_fsdp", "q_lora")),
+        "q_norm": norm_spec(Q),
+        "w_uq": ParamSpec((Q, H, qk + qr), ("q_lora", "heads", None)),
+        "w_dkv": ParamSpec((E, Lr), ("embed_fsdp", "kv_lora")),
+        "kv_norm": norm_spec(Lr),
+        "w_kr": ParamSpec((E, qr), ("embed_fsdp", None)),
+        "w_uk": ParamSpec((Lr, H, qk), ("kv_lora", "heads", None)),
+        "w_uv": ParamSpec((Lr, H, vd), ("kv_lora", "heads", None)),
+        "wo": ParamSpec((H, vd, E), ("heads", None, "embed_fsdp")),
+    }
+
+
+def _mla_q(p, cfg, x, positions):
+    dt = torch_dtype(cfg.dtype)
+    cq = rms_norm(torch.einsum("bse,eq->bsq", x, p["w_dq"].to(dt)),
+                  p["q_norm"]["w"], cfg.norm_eps)
+    q = torch.einsum("bsq,qhd->bshd", cq, p["w_uq"].to(dt))
+    q_nope = q[..., :cfg.qk_nope_head_dim]
+    q_rope = rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, cfg, x, positions):
+    dt = torch_dtype(cfg.dtype)
+    c_kv = rms_norm(torch.einsum("bse,el->bsl", x, p["w_dkv"].to(dt)),
+                    p["kv_norm"]["w"], cfg.norm_eps)
+    k_r = torch.einsum("bse,ed->bsd", x, p["w_kr"].to(dt))
+    k_r = rope(k_r[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_r
+
+
+def mla_attn(p, cfg, x, positions):
+    """Train / prefill MLA: K and V decompressed per head from the latent
+    (not absorbed), the nope and rope parts of q and k concatenated into
+    one inner product of ``qk_nope + qk_rope`` through the shared
+    attention core, scaled by its inverse square root. Returns (out,
+    (c_kv, k_rope)), the latent cache."""
+    dt = torch_dtype(cfg.dtype)
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_r = _mla_latent(p, cfg, x, positions)
+    k_nope = torch.einsum("bsl,lhd->bshd", c_kv, p["w_uk"].to(dt))
+    v = torch.einsum("bsl,lhd->bshd", c_kv, p["w_uv"].to(dt))
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_r[:, :, None].expand(
+        B, S, H, cfg.qk_rope_head_dim)], dim=-1)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    out = attention(q_cat, k_cat, v, causal=True, q_pos=positions,
+                    kv_pos=positions, chunk=cfg.attn_chunk, scale=scale)
+    out = torch.einsum("bshd,hde->bse", out, p["wo"].to(dt))
+    return out, (c_kv, k_r)
+
+
+def mla_decode(p, cfg, x, cache, pos):
+    """Absorbed-matrix MLA decode against a cache of the latent only,
+    {"c_kv" (B, Smax, kv_lora_rank), "k_rope" (B, Smax, qk_rope)}:
+    ``W_uk`` is folded into the query and ``W_uv`` applied after the
+    weighted sum of latents. ``pos`` is an int or a 0-d device tensor."""
+    dt = torch_dtype(cfg.dtype)
+    B = x.shape[0]
+    if isinstance(pos, torch.Tensor):
+        positions = pos.reshape(1, 1).expand(B, 1)
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int64,
+                               device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_new, kr_new = _mla_latent(p, cfg, x, positions)
+    c_kv = _masked_cache_write(cache["c_kv"], c_new, pos)
+    k_r = _masked_cache_write(cache["k_rope"], kr_new, pos)
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope, p["w_uk"].to(dt))
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    scores = (torch.einsum("bshl,btl->bhst", q_lat, c_kv.to(dt))
+              + torch.einsum("bshd,btd->bhst", q_rope, k_r.to(dt))) * scale
+    valid = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= pos
+    scores = scores.float().masked_fill(~valid[:, None, None], -math.inf)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    lat_out = torch.einsum("bhst,btl->bshl", w, c_kv.to(dt))
+    out = torch.einsum("bshl,lhd->bshd", lat_out, p["w_uv"].to(dt))
+    out = torch.einsum("bshd,hde->bse", out, p["wo"].to(dt))
+    return out, {"c_kv": c_kv, "k_rope": k_r}
+
+
+# ----------------------------------------------------------------------
 # FFN: SwiGLU / GELU MLP
 
 
@@ -297,3 +394,186 @@ def ffn(p, cfg, x):
         return h @ p["w2"].to(dt)
     h = F.gelu(x @ p["w1"].to(dt) + p["b1"].to(dt), approximate="tanh")
     return h @ p["w2"].to(dt) + p["b2"].to(dt)
+
+
+# ----------------------------------------------------------------------
+# MoE: top-k router, then the dense (GShard one-hot) or the sort-based
+# capacity dispatch
+
+# the dense dispatch up to this many (token, expert) pairs (T * N)
+_DENSE_MAX = 1 << 22
+
+
+def moe_specs(cfg):
+    E, F_, N = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    sp = {
+        "router": ParamSpec((E, N), ("embed_fsdp", None), scale=E ** -0.5),
+        "w1": ParamSpec((N, E, F_), ("experts", "embed_fsdp", "moe_ff")),
+        "w3": ParamSpec((N, E, F_), ("experts", "embed_fsdp", "moe_ff")),
+        "w2": ParamSpec((N, F_, E), ("experts", "moe_ff", "embed_fsdp")),
+    }
+    if cfg.num_shared_experts:
+        sp["shared"] = ffn_specs(cfg,
+                                 d_ff=cfg.moe_d_ff * cfg.num_shared_experts)
+    return sp
+
+
+def top_k(probs, k):
+    """The ``k`` largest values along the last axis and their indices,
+    largest first, the lower index first among equal values, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order on
+    ties, which bf16 router logits make common)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(p, cfg, x):
+    """The router over (B, S, E) activations: logits in the compute dtype
+    cast to fp32, softmax, top-k, the gates renormalised over the k.
+    Returns (probs (B,S,N) fp32, gate (B,S,k) fp32, idx (B,S,k))."""
+    logits = torch.einsum("bse,ef->bsf", x, p["router"].to(
+        torch_dtype(cfg.dtype))).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = top_k(probs, cfg.top_k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate, idx
+
+
+def capacity(cfg, T):
+    """Slots an expert has for T tokens: the capacity factor's share of
+    the T * top_k entries, rounded up to 8 (the dense dispatch counts all
+    B * S tokens, the sort-based one each batch row's S)."""
+    cap = max(int(cfg.capacity_factor * T * cfg.top_k / cfg.num_experts), 1)
+    return -(-cap // 8) * 8
+
+
+def dense_slots(idxf, N, cap):
+    """Each (token, j) entry's slot in its expert's buffer, counted in
+    token-major order over all T tokens, and whether it is below ``cap``
+    (the entries at or past it are dropped). idxf: (T, k).
+
+    The reference's running count of its (T * k, N) one-hot along the
+    entries, taken here along the innermost axis of the (N, T * k)
+    one-hot: the same integers, but a CUDA scan along an outer axis runs
+    one thread a column (on an H100, 6.1 ms against 0.09 ms for the
+    32768 x 40 entries of a 4 x 1024 prompt at top-8 of 40)."""
+    T, k = idxf.shape
+    flat = idxf.reshape(1, T * k)
+    onehot = (torch.arange(N, device=idxf.device)[:, None] == flat).to(
+        torch.int32)                                           # (N,T*k)
+    run = torch.cumsum(onehot, dim=1) - 1
+    pos = torch.gather(run, 0, flat).reshape(T, k)             # (T,k)
+    return pos, pos < cap
+
+
+def dispatch_mask(idxf, pos, inside, N, cap, dtype):
+    """The dense dispatch tensor (T, N, cap): 1 at (t, idx[t, j],
+    pos[t, j]) for each entry inside capacity. Written by one scatter
+    instead of the reference's (T, k, N, cap) one-hot product summed over
+    k; the two are equal because a token's k experts are distinct, so no
+    two entries share a slot (a dropped entry writes 0 at its clamped
+    slot, in its own expert's row)."""
+    T = idxf.shape[0]
+    slot = idxf * cap + torch.clamp(pos, max=cap - 1)
+    disp = torch.zeros((T, N * cap), dtype=dtype, device=idxf.device)
+    disp.scatter_(1, slot, inside.to(dtype))
+    return disp.reshape(T, N, cap)
+
+
+def _expert_ffn(p, cfg, buf):
+    """buf: (experts, cap, E) -> (experts, cap, E), SwiGLU per expert."""
+    dt = torch_dtype(cfg.dtype)
+    h = F.silu(torch.einsum("xcd,xdf->xcf", buf, p["w1"].to(dt))) \
+        * torch.einsum("xcd,xdf->xcf", buf, p["w3"].to(dt))
+    return torch.einsum("xcf,xfd->xcd", h, p["w2"].to(dt))
+
+
+def moe(p, cfg, x):
+    """Mixture of experts over (B, S, E) activations -> (out, aux).
+
+    ``aux`` is the Switch load-balancing loss N * sum(me * ce). The
+    dispatch is the dense one (every token against every expert slot, by
+    two contractions with the dispatch tensor) when ``moe_dispatch`` is
+    "dense" or T * N <= ``_DENSE_MAX``, else the sort-based one; they drop
+    different entries (capacity over all T tokens, or per batch row), so
+    the choice is the reference's, exactly."""
+    B, S, E = x.shape
+    dt = torch_dtype(cfg.dtype)
+    T = B * S
+    k, N = cfg.top_k, cfg.num_experts
+    probs, gate, idx = route(p, cfg, x)
+
+    me = probs.mean(dim=(0, 1))
+    ce = (idx[..., None] == torch.arange(N, device=x.device)).float().sum(
+        dim=(0, 1, 2)) / (T * k)
+    aux = N * torch.sum(me * ce)
+
+    if cfg.moe_dispatch == "dense" or T * N <= _DENSE_MAX:
+        xf = x.reshape(T, E)
+        idxf, gatef = idx.reshape(T, k), gate.reshape(T, k)
+        cap = capacity(cfg, T)
+        pos, inside = dense_slots(idxf, N, cap)
+        disp = dispatch_mask(idxf, pos, inside, N, cap, dt)
+        buf = torch.einsum("tnc,te->nce", disp, xf.to(dt))
+        out_buf = _expert_ffn(p, cfg, buf)
+        gates_tn = ((idxf[..., None] == torch.arange(N, device=x.device))
+                    .float() * gatef[..., None]).sum(1)
+        # the reference's einsum("tnc,nce,tn->te"), in a fixed order: the
+        # gates onto the 0/1 dispatch tensor (exact), then one contraction
+        yf = torch.einsum("tnc,nce->te", disp * gates_tn.to(dt)[..., None],
+                          out_buf)
+        y = yf.reshape(B, S, E)
+    else:
+        y = _moe_scatter_dispatch(p, cfg, x, idx, gate)
+
+    if cfg.num_shared_experts:
+        y = y + ffn(p["shared"], cfg, x)
+    return y, aux
+
+
+def _moe_scatter_dispatch(p, cfg, x, idx, gate):
+    """Sort-based (MegaBlocks-style) capacity dispatch, gathers only, in
+    one group (the reference's G = 1 with no mesh): capacity is counted
+    per batch row. The entries sorted by expert (stable), each expert's
+    ``cap`` buffer slots gather their tokens, the experts run, and each
+    (token, j) entry reads its slot back, weighted by its gate, 0 where
+    dropped."""
+    dt = torch_dtype(cfg.dtype)
+    B, S, E = x.shape
+    k, N = cfg.top_k, cfg.num_experts
+    Lk = S * k
+    cap = capacity(cfg, S)
+    dev = x.device
+
+    e_flat = idx.reshape(B, Lk)                         # expert of (tok, j)
+    g_flat = gate.reshape(B, Lk)
+    order = torch.argsort(e_flat, dim=-1, stable=True)  # sorted by expert
+    counts = (e_flat[..., None] == torch.arange(N, device=dev)).to(
+        torch.int64).sum(1)                             # (B,N)
+    starts = torch.cumsum(counts, dim=-1) - counts      # exclusive
+
+    # dispatch: for each buffer slot (n, c), which sorted entry?
+    slot_n = torch.arange(N * cap, device=dev) // cap
+    slot_c = torch.arange(N * cap, device=dev) % cap
+    src = starts[:, slot_n] + slot_c                    # (B,N*cap)
+    valid = slot_c[None] < counts[:, slot_n]
+    entry = torch.gather(order, 1, torch.clamp(src, max=Lk - 1))
+    tok = entry // k
+    xbuf = torch.gather(x, 1, tok[..., None].expand(B, N * cap, E)) \
+        * valid[..., None].to(dt)
+    buf = xbuf.reshape(B, N, cap, E)
+
+    h = F.silu(torch.einsum("bxcd,xdf->bxcf", buf, p["w1"].to(dt))) \
+        * torch.einsum("bxcd,xdf->bxcf", buf, p["w3"].to(dt))
+    out_flat = torch.einsum("bxcf,xfd->bxcd", h, p["w2"].to(dt)).reshape(
+        B, N * cap, E)
+
+    # combine: each (tok, j) entry reads its slot back
+    inv = torch.argsort(order, dim=-1)                  # entry -> sorted pos
+    rank = inv - torch.gather(starts, 1, e_flat)
+    inside = rank < cap
+    slot = torch.clamp(e_flat * cap + rank, max=N * cap - 1)
+    y_ent = torch.gather(out_flat, 1, slot[..., None].expand(B, Lk, E))
+    y_ent = y_ent * (g_flat * inside.float())[..., None].to(dt)
+    y = y_ent.reshape(B, S, k, E).sum(2)
+    return y.to(dt)

@@ -6,11 +6,13 @@ repeating segments whose parameters are stacked along a leading layer
 axis. The reference scans a segment with ``jax.lax.scan``; here a Python
 loop over the layer index runs it, and the per-layer caches are stacked
 back along the same axis. The port runs the Mamba mixer with no ffn (the
-ssm family) and the GQA mixer with the dense ffn or none (the dense
-family: qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b); a prefill
-pads each attention cache to ``cache_len`` as the reference does. MLA,
-the MoE ffn and the hybrid plan (Mamba layers with an ffn) come with
-later slices.
+ssm family), and the GQA or MLA mixer with a dense, MoE or no ffn (the
+dense family: qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b; the moe
+family: granite-moe-3b-a800m, deepseek-v2-236b). A prefill pads each
+attention cache to ``cache_len`` as the reference does; an MLA layer
+caches its latent (``c_kv``, ``k_rope``), not per-head K and V. Each MoE
+layer's load-balancing loss is summed into the forward's ``aux``. The
+hybrid plan (Mamba layers with an ffn) comes with a later slice.
 
 ``LM`` is the network as an ``nn.Module``: its ``state_dict()`` keys are
 the reference's parameter paths (``embed.table``,
@@ -89,10 +91,10 @@ def segments(cfg) -> list[tuple[tuple[Plan, ...], int]]:
 
 def _check_plan(plan: Plan) -> None:
     mixer, ffn_kind = plan
-    if mixer not in ("mamba", "gqa"):
-        raise _not_ported(f"the {mixer!r} mixer")
-    if ffn_kind not in ("none", "dense"):
-        raise _not_ported(f"the {ffn_kind!r} ffn")
+    if mixer not in ("mamba", "gqa", "mla"):
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if ffn_kind not in ("none", "dense", "moe"):
+        raise ValueError(f"unknown ffn {ffn_kind!r}")
     if mixer == "mamba" and ffn_kind != "none":
         raise _not_ported(f"the hybrid plan {plan!r}")
 
@@ -103,24 +105,33 @@ def block_specs(cfg, plan: Plan):
     sp = {"ln1": L.norm_spec(cfg.d_model)}
     if mixer == "gqa":
         sp["attn"] = L.gqa_specs(cfg)
+    elif mixer == "mla":
+        sp["attn"] = L.mla_specs(cfg)
     else:
         sp["mamba"] = S.mamba_specs(cfg)
     if ffn_kind != "none":
         sp["ln2"] = L.norm_spec(cfg.d_model)
-        sp["ffn"] = L.ffn_specs(cfg)
+        sp["ffn"] = L.moe_specs(cfg) if ffn_kind == "moe" \
+            else L.ffn_specs(cfg)
     return sp
 
 
 def cache_spec(cfg, plan: Plan, batch: int, max_seq: int):
     """Decode-cache entry for one layer: {name: (shape, dtype, axes)}.
-    An attention layer's K and V hold ``max_seq`` positions; a Mamba
-    layer's cache does not grow with it."""
+    A GQA layer's K and V, and an MLA layer's latent ``c_kv`` and
+    ``k_rope``, hold ``max_seq`` positions; a Mamba layer's cache does not
+    grow with it."""
     _check_plan(plan)
     dt = torch_dtype(cfg.dtype)
     if plan[0] == "gqa":
         kvd = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
         return {"k": (kvd, dt, ("batch", "kv_seq", "kv_heads", None)),
                 "v": (kvd, dt, ("batch", "kv_seq", "kv_heads", None))}
+    if plan[0] == "mla":
+        return {"c_kv": ((batch, max_seq, cfg.kv_lora_rank), dt,
+                         ("batch", "kv_seq", None)),
+                "k_rope": ((batch, max_seq, cfg.qk_rope_head_dim), dt,
+                           ("batch", "kv_seq", None))}
     d_inner, G, N, P, H, Hg, conv_ch = S._dims(cfg)
     return {"conv": ((batch, cfg.ssm_conv_k - 1, conv_ch), dt,
                      ("batch", None, "ssm_inner")),
@@ -130,10 +141,12 @@ def cache_spec(cfg, plan: Plan, batch: int, max_seq: int):
 
 def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
                 impl="auto"):
-    """One layer. mode: train | prefill | decode. Returns (x, cache, aux).
-    ``pos`` (decode) is an int or a 0-d tensor on ``x``'s device."""
+    """One layer. mode: train | prefill | decode. Returns (x, cache, aux):
+    ``aux`` is an MoE layer's load-balancing loss, else 0. ``pos``
+    (decode) is an int or a 0-d tensor on ``x``'s device."""
     _check_plan(plan)
     mixer, ffn_kind = plan
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
     new_cache = None
     if mixer == "gqa":
@@ -143,6 +156,13 @@ def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
             out, (k, v) = L.gqa_attn(p["attn"], cfg, h, positions)
             if mode == "prefill":
                 new_cache = {"k": k, "v": v}
+    elif mixer == "mla":
+        if mode == "decode":
+            out, new_cache = L.mla_decode(p["attn"], cfg, h, cache, pos)
+        else:
+            out, (c_kv, k_r) = L.mla_attn(p["attn"], cfg, h, positions)
+            if mode == "prefill":
+                new_cache = {"c_kv": c_kv, "k_rope": k_r}
     elif mode == "decode":
         out, new_cache = S.mamba_decode(p["mamba"], cfg, h, cache, pos)
     else:
@@ -151,9 +171,13 @@ def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
                                          impl=impl)
     x = x + out
     if ffn_kind != "none":
-        x = x + L.ffn(p["ffn"], cfg, L.apply_norm(p["ln2"], x, cfg.norm_eps))
-    return x, new_cache, torch.zeros((), dtype=torch.float32,
-                                     device=x.device)
+        h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
+        if ffn_kind == "moe":
+            out, aux = L.moe(p["ffn"], cfg, h)
+        else:
+            out = L.ffn(p["ffn"], cfg, h)
+        x = x + out
+    return x, new_cache, aux
 
 
 # ----------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Model registry: per-family dispatch and parameter counting
-(``repro/models/registry.py``). The CNNs, the ssm family and the dense
-GQA family build; MLA, MoE and the hybrid plan raise in ``lm``'s layer
-check, the encoder-decoder models here."""
+(``repro/models/registry.py``). The CNNs and the decoder-only LMs (the
+ssm, dense and moe families: GQA or MLA attention, a dense or MoE ffn)
+build; the hybrid plan raises in ``lm``'s layer check, the
+encoder-decoder models here."""
 from __future__ import annotations
 
 from repro_torch.models import lm, mobilenet, resnet
@@ -41,6 +42,15 @@ def cache_struct(cfg, batch, max_seq):
     return lm.cache_struct(cfg, batch, max_seq)
 
 
-def count_params(cfg) -> int:
-    """Parameter count from the spec tree."""
-    return pspec.count(model_specs(cfg))
+def count_params(cfg, active_only: bool = False) -> int:
+    """Parameter count from the spec tree; ``active_only`` counts only the
+    routed experts a token visits (``top_k`` of ``num_experts`` in each
+    MoE layer)."""
+    if cfg.family == "cnn":
+        return pspec.count(cnn_module(cfg).model_specs(cfg))
+    total = pspec.count(model_specs(cfg))
+    if active_only and cfg.num_experts:
+        per_expert = cfg.d_model * cfg.moe_d_ff * 3
+        n_moe_layers = sum(1 for _, f in lm.layer_plan(cfg) if f == "moe")
+        total -= (cfg.num_experts - cfg.top_k) * per_expert * n_moe_layers
+    return total

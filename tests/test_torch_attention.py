@@ -7,7 +7,9 @@ GELU ``ffn``; then the tiny variants of the four dense configs
 granite-3-2b: tied, no bias; granite-8b and minitron-8b: untied, head_dim
 128 at full width) in train, prefill and decode modes, the prefill caches
 padded to ``cache_len``, and ``generate`` step by step; plus the configs,
-parameter counts and the plans that still raise.
+parameter counts, layer plans and cache structs (of the two MoE configs
+too, whose layers ``tests/test_torch_mla_moe.py`` holds) and what still
+raises.
 
 Inputs are numpy-seeded; the weights are drawn once by the reference,
 their constant leaves (norm scales, biases) perturbed so a missing bias
@@ -41,6 +43,7 @@ from repro_torch.models import lm, registry
 from repro_torch.models.spec import unflatten
 
 DENSE = ("qwen2-0.5b", "granite-3-2b", "granite-8b", "minitron-8b")
+MOE = ("granite-moe-3b-a800m", "deepseek-v2-236b")
 PROMPT, NEW = 21, 4
 DTYPES = ("float32", "bfloat16")
 
@@ -374,18 +377,47 @@ def test_compute_params_casts_once_to_the_same_values(models):
 
 
 @pytest.mark.parametrize("tiny", [False, True])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_config_fields_and_param_count_match_reference(name, tiny):
+    """Every field of the port's config, the parameter count (total and
+    active: the routed experts at top_k of num_experts) and the spec tree
+    (shapes, axes, init, scale) equal the reference's."""
     jcfg, tcfg = jget(name), tget(name)
     if tiny:
         jcfg, tcfg = jtiny(jcfg), ttiny(tcfg)
     for f in dataclasses.fields(tcfg):
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     assert registry.count_params(tcfg) == jregistry.count_params(jcfg)
+    assert registry.count_params(tcfg, active_only=True) \
+        == jregistry.count_params(jcfg, active_only=True) \
+        == tcfg.active_params()
     specs = dict(_leaves(registry.model_specs(tcfg)))
     jspecs = dict(_leaves(jregistry.model_specs(jcfg)))
-    assert {k: (s.shape, s.axes, s.init) for k, s in specs.items()} == {
-        k: (s.shape, s.axes, s.init) for k, s in jspecs.items()}
+    assert {k: (s.shape, s.axes, s.init, s.scale)
+            for k, s in specs.items()} == {
+        k: (s.shape, s.axes, s.init, s.scale) for k, s in jspecs.items()}
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_layer_plans_match_reference(name):
+    """The layer plans and segments of the full MoE configs: granite-moe
+    32 GQA + MoE layers in one stacked segment; DeepSeek-V2 its dense MLA
+    first layer, then 59 MLA + MoE layers; a token visits under a fifth
+    of DeepSeek's parameters (the reference's ``test_active_params_moe``)."""
+    jcfg, tcfg = jget(name), tget(name)
+    assert lm.layer_plan(tcfg) == jlm.layer_plan(jcfg)
+    assert lm.segments(tcfg) == jlm.segments(jcfg)
+    plan = lm.layer_plan(tcfg)
+    if name == "deepseek-v2-236b":
+        assert plan[0] == ("mla", "dense")
+        assert plan[1:] == [("mla", "moe")] * 59
+        assert lm.segments(tcfg) == [((("mla", "dense"),), 1),
+                                     ((("mla", "moe"),), 59)]
+        assert tcfg.active_params() < 0.2 * tcfg.num_params()
+    else:
+        assert lm.segments(tcfg) == [((("gqa", "moe"),), 32)]
+        assert tcfg.num_params() == 3_299_575_296
+        assert tcfg.active_params() == 883_656_192
 
 
 def test_qwen2_is_the_published_width():
@@ -398,15 +430,22 @@ def test_qwen2_is_the_published_width():
     assert cfg.num_params() == jget("qwen2-0.5b").num_params()
 
 
-@pytest.mark.parametrize("name", DENSE)
-def test_cache_struct_matches_reference(name):
-    jcfg, tcfg = jtiny(jget(name)), ttiny(tget(name))
+@pytest.mark.parametrize("tiny", [False, True])
+@pytest.mark.parametrize("name", DENSE + MOE)
+def test_cache_struct_matches_reference(name, tiny):
+    """K and V a GQA layer, the latent ``c_kv`` and ``k_rope`` an MLA
+    layer, stacked as the segments are, in the compute dtype."""
+    jcfg, tcfg = jget(name), tget(name)
+    if tiny:
+        jcfg, tcfg = jtiny(jcfg), ttiny(tcfg)
     jflat = dict(_leaves(jlm.cache_struct(jcfg, 3, 50)))
     tflat = dict(_leaves(registry.cache_struct(tcfg, 3, 50)))
-    assert set(tflat) == set(jflat) == {"seg0.sub0.k", "seg0.sub0.v"}
+    want = {"seg0.sub0.k", "seg0.sub0.v"} if tcfg.attn_impl == "gqa" else {
+        f"seg{i}.sub0.{k}" for i in (0, 1) for k in ("c_kv", "k_rope")}
+    assert set(tflat) == set(jflat) == want
     for key, (shape, dt, axes) in tflat.items():
         assert (shape, axes) == jflat[key][::2], key
-        assert dt == torch.float32
+        assert dt == getattr(torch, tcfg.dtype)
 
 
 @pytest.mark.parametrize("name", DENSE)
@@ -422,15 +461,31 @@ def test_dense_family_no_longer_raises(name):
     assert out.shape == (1, 2)
 
 
-def test_mla_and_moe_still_raise(models):
+def test_unported_plans_still_raise(models):
+    """What is still unported raises: the hybrid plans (a Mamba mixer with
+    a dense or MoE ffn), tiny jamba-1.5-large-398b (the hybrid family) and
+    the full one through the registry, and whisper-base (an
+    encoder-decoder) through the registry; MLA and MoE no longer do."""
     tcfg = models["qwen2-0.5b"][1]
-    for plan in (("mla", "none"), ("mla", "dense"), ("gqa", "moe")):
+    for plan in (("mamba", "dense"), ("mamba", "moe")):
         with pytest.raises(NotImplementedError, match="later slice"):
             lm.block_specs(tcfg, plan)
-    for cfg in (tcfg.replace(attn_impl="mla"),
-                tcfg.replace(num_experts=8)):
+    for plan in (("mla", "none"), ("mla", "dense"), ("mla", "moe"),
+                 ("gqa", "moe")):
+        lm._check_plan(plan)
+
+    def port(name):  # the reference's config as the port's fields
+        j = jget(name)
+        return ArchConfig(**{f.name: getattr(j, f.name)
+                             for f in dataclasses.fields(ArchConfig)})
+    jamba, whisper = port("jamba-1.5-large-398b"), port("whisper-base")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ttiny(jamba)
+    for cfg in (jamba, whisper):
         with pytest.raises(NotImplementedError, match="later slice"):
             registry.model_specs(cfg)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        registry.cache_struct(whisper, 1, 8)
 
 
 def test_serve_cli_runs_an_attention_lm_on_the_cpu(capsys):

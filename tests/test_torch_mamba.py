@@ -328,8 +328,8 @@ def test_cache_struct_matches_reference(cfgs):
 def test_unported_families_and_mixers_raise(cfgs):
     tcfg = cfgs[1]
     with pytest.raises(NotImplementedError, match="later slice"):
-        ttiny(ArchConfig(name="moe-lm", family="moe"))
-    for plan in (("mla", "none"), ("mamba", "dense"), ("mamba", "moe")):
+        ttiny(ArchConfig(name="hybrid-lm", family="hybrid"))
+    for plan in (("mamba", "dense"), ("mamba", "moe")):
         with pytest.raises(NotImplementedError, match="later slice"):
             lm.block_specs(tcfg, plan)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
