@@ -152,15 +152,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 7. the LM paths (``repro_torch.launch.serve.generate``: one prefill,
    then greedy decode steps, replayed as CUDA graphs by
    ``steps.StepGraphs``, an eager run beside) at full width, random
-   weights from seed 0: ``mamba2-370m`` (48 layers), ``qwen2-0.5b``
-   (24 layers, d 896, 14 heads with kv 2, head_dim 64, d_ff 4864, vocab
-   151936 padded to 152064, tied embeddings, qkv bias) and the two MoE
-   configs below:
+   weights from seed 0: the hybrid, encoder-decoder and vision-language
+   models first (each model's weights freed before the next is drawn;
+   the earlier models' profiles, taken last, keep theirs), then
+   ``mamba2-370m`` (48 layers), ``qwen2-0.5b`` (24 layers, d 896, 14
+   heads with kv 2, head_dim 64, d_ff 4864, vocab 151936 padded to
+   152064, tied embeddings, qkv bias) and the two MoE configs below:
    - ``causal_conv1d``, the kernel of its prefill, at the model's shapes
      (the xBC slice of the in-projection, read in place: rows 4384
-     elements apart, C = 2304, K = 4) of both paths below and at the edge
-     lengths L = 1, 2, 3, 513, in fp32 and bf16, then in fp16 at each
-     (no path runs it), against its plain version
+     elements apart, C = 2304, K = 4) of both Mamba-2 paths below, at
+     Jamba's (rows 33920 apart, C = 17408) of both of its paths, and at
+     the edge lengths L = 1, 2, 3, 513 at Mamba-2's width, in fp32 and
+     bf16, then in fp16 at each (no path runs it), against its plain
+     version
      within ``tolerance(dtype)``, with the same times as the kernel phase
      and ``F.conv1d(groups=C)`` as the library call;
    - ``mamba2_370m`` and ``qwen2_0_5b``, serving at the published dtype
@@ -194,6 +198,39 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      cut), each served as qwen2 is, with its bounds and the entries the
      dense dispatch dropped over one eager prefill of the serving prompt
      (``moe_drops``), then ``/fp32`` at the same depth as qwen2's;
+   - ``jamba_1_5_large_5l``: jamba-1.5-large-398b at published widths
+     (d 8192, 64 heads with kv 8, Mamba-2 with d_inner 16384, 8 groups
+     of state 64, 128 heads of 128; d_ff 24576; 16 experts top-2), its 72
+     layers cut to the first 5 of its 8-layer period (``reduced``): Mamba
+     + dense, Mamba + MoE, Mamba + dense, Mamba + MoE, GQA + dense, so
+     every hybrid block kind runs, in its own bf16 storage (24.0 B
+     parameters, 48.0 GB; one period is 45.2 B and does not fit a card),
+     served as Mamba-2 is: ``causal_conv1d`` 4 per traced prefill, 0 on
+     replay, the prefill logits against the conv's plain version, with
+     its bounds and ``moe_drops``; ``jamba_1_5_large_2l/fp32``: its first
+     two layers (the same weights, the other three freed, cast to fp32:
+     12.2 B parameters, 48.7 GB) held against the port on the CPU;
+   - ``internvl2_26b``: internvl2-26b's backbone at published widths and
+     depth (48 layers, d 6144, 48 heads with kv 8, d_ff 16384) in bf16
+     storage instead of the config's fp32 master weights (19.9 B
+     parameters, 39.7 GB against 79.5 GB; ``reduced``), fed 256 seeded
+     patch embeddings before a 768-token prompt (1024 positions) through
+     ``StepGraphs`` (``prefill(tokens, prefix_embeds=...)``), 32 greedy
+     tokens from position 1024; no port kernel; replay bitwise eager;
+     its bounds; ``internvl2_26b/fp32``: its first 8 layers (4.3 B) in
+     fp32 against the CPU;
+   - ``whisper_base``: whisper-base at full size (88.4 M parameters, bf16
+     over fp32 weights) on seeded frame embeddings (4, 1500, 512), a
+     4-token decoder prompt and 32 greedy tokens with the published
+     448-position decoder cache, through ``StepGraphs`` (the prefill runs
+     the encoder and ``cross_kv``, each decode step reads ``cross``); no
+     port kernel; replay bitwise eager; prefill ms (encoder included) and
+     decode ms a token with their bounds; ``whisper_base/fp32`` against
+     the CPU;
+   - ``audio_stem``: ``frontends.audio_stem`` at the published shape, mel
+     (1, 3000, 80) -> (1, 1500, 512), fp32, against the CPU and timed;
+     ``vit_patch_embed``: (1, 448, 448, 3) with patch 14 -> (1, 1024,
+     6144), fp32, against the CPU and timed;
    - ``moe_dispatch``: layer 0's MoE ffn of granite at full width in
      fp32, batch 4 x 256 tokens, capacity factor 8 (nothing drops): the
      sort-based dispatch within ``tolerance(fp32)`` of the dense one on
@@ -400,9 +437,29 @@ CHUNKED_SEQ = 2304
 MOE_CONFIG = "granite-moe-3b-a800m"
 MLA_CONFIG, MLA_LAYERS = "deepseek-v2-236b", 2
 DISPATCH_BATCH, DISPATCH_SEQ, DISPATCH_CF = 4, 256, 8.0
+# The hybrid: jamba-1.5-large-398b (398 B parameters) at published widths
+# cut to the first 5 layers of its period, in its bf16 storage, and its
+# first 2 in fp32 for parity (the 5-layer cut would need 96 GB in fp32)
+HYBRID_CONFIG, HYBRID_LAYERS, HYBRID_PARITY_LAYERS = \
+    "jamba-1.5-large-398b", 5, 2
+HYBRID_PATH = "jamba_1_5_large_5l"
+HYBRID_PARITY_PATH = "jamba_1_5_large_2l/fp32"
+LM_PATHS.update({HYBRID_PATH: "bfloat16", HYBRID_PARITY_PATH: "float32"})
+# The vision-language backbone at published widths and depth in bf16
+# storage, fed its 256 patch embeddings before a 768-token prompt; its
+# parity line at 8 layers in fp32
+VLM_CONFIG, VLM_PROMPT, VLM_PARITY_LAYERS = "internvl2-26b", 768, 8
+# The encoder-decoder at full size on 1500 frame embeddings, a 4-token
+# decoder prompt, the published 448-position decoder context
+ENCDEC_CONFIG, ENCDEC_PROMPT, ENCDEC_CACHE = "whisper-base", 4, 448
+# The frontends at the published shapes: 30 s of 80-bin mel frames, and
+# one 448 x 448 image in 14 x 14 patches
+MEL_FRAMES, MEL_BINS, IMAGE_SIDE, PATCH = 3000, 80, 448, 14
 # leaf names of an LM's parameters that no matrix product reads: norm
-# scales and shifts, biases
-NOT_MATMUL = frozenset({"w", "b", "bq", "bk", "bv", "b1", "b2"})
+# scales and shifts, biases, the Mamba conv (counted on its own) and its
+# per-head decay, skip and time-step bias
+NOT_MATMUL = frozenset({"w", "b", "bq", "bk", "bv", "b1", "b2", "conv_w",
+                        "conv_b", "A_log", "D", "dt_bias"})
 
 
 class CheckFailed(RuntimeError):
@@ -1614,23 +1671,40 @@ def per_layer_vs_tuned(line, tuned, per_layer):
             f"card ({line['vs_tuned_max_rel_err']} relative)")
 
 
-def conv1d_classes(cfg):
-    """causal_conv1d's shape classes, (B, L, C, K, row stride, channel
-    offset) -> {path: launches per prefill}: the prefill of each LM path
-    (one launch a layer, on the xBC slice of the in-projection) and the
-    edge lengths at the same width, which no path launches."""
+def mamba_layers(cfg) -> int:
+    """The Mamba mixers of a config's plan: causal_conv1d's launches in
+    one prefill."""
+    from repro_torch.models import lm
+
+    return sum(mixer == "mamba" for mixer, _ in lm.layer_plan(cfg))
+
+
+def conv1d_class(cfg, B, L):
+    """causal_conv1d's shape class in a prefill of (B, L): (B, L, C, K,
+    row stride, channel offset) of the xBC slice of the in-projection."""
     from repro_torch.models import ssm
 
     d_inner, G, N, P, H, Hg, conv_ch = ssm._dims(cfg)
     row = 2 * d_inner + 2 * G * N + H  # the in-projection's width
-    K, layers = cfg.ssm_conv_k, cfg.num_layers
-    classes = {
-        (SERVE_BATCH, SERVE_PROMPT, conv_ch, K, row, d_inner):
-            {"mamba2_370m": layers},
-        (1, PARITY_PROMPT, conv_ch, K, row, d_inner):
-            {"mamba2_370m/fp32": layers}}
+    return (B, L, conv_ch, cfg.ssm_conv_k, row, d_inner)
+
+
+def conv1d_classes(cfg, hybrid, hybrid_parity):
+    """causal_conv1d's shape classes -> {path: launches per prefill}: the
+    prefill of each LM path (one launch a Mamba layer) of Mamba-2 and of
+    the hybrid, and the edge lengths at Mamba-2's width, which no path
+    launches."""
+    classes = {conv1d_class(cfg, SERVE_BATCH, SERVE_PROMPT):
+               {"mamba2_370m": mamba_layers(cfg)},
+               conv1d_class(cfg, 1, PARITY_PROMPT):
+               {"mamba2_370m/fp32": mamba_layers(cfg)}}
     for L in EDGE_LENGTHS:
-        classes.setdefault((1, L, conv_ch, K, row, d_inner), {})
+        classes.setdefault(conv1d_class(cfg, 1, L), {})
+    # after Mamba-2's, so those draw the inputs they drew before
+    classes[conv1d_class(hybrid, SERVE_BATCH, SERVE_PROMPT)] = {
+        HYBRID_PATH: mamba_layers(hybrid)}
+    classes[conv1d_class(hybrid_parity, 1, PARITY_PROMPT)] = {
+        HYBRID_PARITY_PATH: mamba_layers(hybrid_parity)}
     return classes
 
 
@@ -1690,29 +1764,51 @@ def lm_prompts(cfg, batch, length, seed):
         0, cfg.vocab_size, (batch, length))).cuda()
 
 
+def _bounds(flops, nbytes, dtype, peaks):
+    """{step: bound} from each step's operations and the bytes it must
+    move: the larger of the two times."""
+    out = {}
+    for step, ops in flops.items():
+        t_ops = ops / peaks[dtype]
+        t_bytes = nbytes[step] / peaks["mem_bw"]
+        out[step] = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "flops": ops, "bytes": nbytes[step]}
+    return out
+
+
+def _nbytes(*trees):
+    from repro_torch.models.spec import flatten
+
+    return sum(v.numel() * v.element_size() for tree in trees
+               for v in flatten(tree).values())
+
+
 def lm_bounds(cfg, cparams, caches, B, S, Lc, peaks):
-    """The least time of an attention model's prefill of (B, S) and of one
-    decode step against caches of ``Lc`` positions: the larger of the
-    bytes (every weight in the compute dtype read once, the caches read
-    or written once) over the card's memory rate, and the operations of
-    the matrix products over the compute dtype's peak: the weights a token
-    visits (routed experts at ``top_k / num_experts`` of theirs, shared
-    experts whole: ``count_params(active_only=True)``'s count), the
-    attention of every layer at the widths the path computes (GQA: two
-    products of ``head_dim`` a head per query-key pair, the full scores
-    in a prefill; MLA's prefill: qk_nope + qk_rope for the scores and
-    v_head_dim for the values; its absorbed decode: kv_lora_rank +
-    qk_rope and kv_lora_rank a cached position), and the unembed of the
-    positions the step scores. The dense MoE dispatch's two contractions
-    with its (T, N, cap) tensor are the reference's way of routing, not
-    work the function needs, and are not counted."""
-    from repro_torch.models import lm
+    """The least time of a decoder-only model's prefill of (B, S)
+    positions and of one decode step against caches of ``Lc`` positions:
+    the larger of the bytes (every weight in the compute dtype read once,
+    the caches read or written once) over the card's memory rate, and the
+    operations over the compute dtype's peak: the matrix products of the
+    weights a token visits (routed experts at ``top_k / num_experts`` of
+    theirs, shared experts whole: ``count_params(active_only=True)``'s
+    count), the attention of every layer at the widths the path computes
+    (GQA: two products of ``head_dim`` a head per query-key pair, the
+    full scores in a prefill; MLA's prefill: qk_nope + qk_rope for the
+    scores and v_head_dim for the values; its absorbed decode:
+    kv_lora_rank + qk_rope and kv_lora_rank a cached position), every
+    Mamba layer's SSD as the chunked scan computes it (per token the
+    chunk's C Bᵀ scores, Q N a group, and their product with x, Q P a
+    head, the chunk state and its readout, N P a head each; a decode
+    step the state update and readout) and its K-tap conv, and the
+    unembed of the positions the step scores. The dense MoE dispatch's
+    two contractions with its (T, N, cap) tensor are the reference's way
+    of routing, not work the function needs, and are not counted."""
+    from repro_torch.models import lm, ssm
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.spec import flatten
 
-    leaves, cache = flatten(cparams), flatten(caches)
-    nbytes = sum(v.numel() * v.element_size() for v in leaves.values()) \
-        + sum(v.numel() * v.element_size() for v in cache.values())
+    leaves = flatten(cparams)
     routed = {f"seg{si}.sub{j}.ffn.{w}"
               for si, (body, _) in enumerate(lm.segments(cfg))
               for j, (_, ffn) in enumerate(body) if ffn == "moe"
@@ -1730,17 +1826,54 @@ def lm_bounds(cfg, cparams, caches, B, S, Lc, peaks):
     plans = lm.layer_plan(cfg)
     attn_pre = sum(pair[m][0] for m, _ in plans if m in pair)
     attn_dec = sum(pair[m][1] for m, _ in plans if m in pair)
+    ssd_pre = ssd_dec = 0
+    if mamba_layers(cfg):
+        _, G, N, P, Hm, _, conv_ch = ssm._dims(cfg)
+        Q, conv = min(cfg.ssd_chunk, S), 2 * cfg.ssm_conv_k * conv_ch
+        ssd_pre = mamba_layers(cfg) * (
+            2 * (G * Q * N + Hm * Q * P + 2 * Hm * N * P) + conv)
+        ssd_dec = mamba_layers(cfg) * (4 * Hm * N * P + conv)
     flops = {"prefill": 2 * B * S * matmul + attn_pre * B * S * S
+             + ssd_pre * B * S + 2 * B * head,
+             "decode_step": 2 * B * (matmul + head) + attn_dec * B * Lc
+             + ssd_dec * B}
+    nbytes = _nbytes(cparams, caches)
+    return _bounds(flops, {"prefill": nbytes, "decode_step": nbytes},
+                   cfg.dtype, peaks)
+
+
+def encdec_bounds(cfg, cparams, caches, frames, B, S, Lc, peaks):
+    """The least time of an encoder-decoder's prefill (the encoder over
+    the T frames, every decoder layer's cross K and V, the decoder over S
+    tokens) and of one decode step (against ``Lc`` self positions and the
+    T cross positions): the bytes (every weight in the compute dtype, the
+    caches, the prefill's frames, each once) over the memory rate, or the
+    operations of the matrix products (the weights a position visits,
+    the attention's two products of ``head_dim`` a head per query-key
+    pair, the unembed of the scored positions) over the compute dtype's
+    peak."""
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.spec import flatten
+
+    def product_weights(prefix, keep=lambda k: True):
+        return sum(v.numel() for k, v in flatten(cparams).items()
+                   if k.startswith(prefix) and keep(k)
+                   and k.rsplit(".", 1)[1] not in NOT_MATMUL)
+    cross = (".xattn.wk", ".xattn.wv")
+    enc = product_weights("enc.")
+    dec = product_weights("dec.", lambda k: not k.endswith(cross))
+    xkv = product_weights("dec.", lambda k: k.endswith(cross))
+    T = frames.shape[1]
+    attn = 4 * cfg.num_heads * cfg.head_dim
+    head = cfg.d_model * padded_vocab(cfg.vocab_size)
+    L, Le = cfg.num_layers, cfg.num_encoder_layers
+    flops = {"prefill": 2 * B * T * (enc + xkv) + Le * attn * B * T * T
+             + 2 * B * S * dec + L * attn * B * (S * S + S * T)
              + 2 * B * head,
-             "decode_step": 2 * B * (matmul + head) + attn_dec * B * Lc}
-    out = {}
-    for step, ops in flops.items():
-        t_ops = ops / peaks[cfg.dtype]
-        t_bytes = nbytes / peaks["mem_bw"]
-        out[step] = {"bound_ms": max(t_ops, t_bytes) * 1e3,
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes", "flops": ops, "bytes": nbytes}
-    return out
+             "decode_step": 2 * B * (dec + head) + L * attn * B * (Lc + T)}
+    nbytes = _nbytes(cparams, caches)
+    return _bounds(flops, {"prefill": nbytes + _nbytes({"f": frames}),
+                           "decode_step": nbytes}, cfg.dtype, peaks)
 
 
 def moe_drops(cfg, cparams, prompts):
@@ -1777,37 +1910,88 @@ def moe_drops(cfg, cparams, prompts):
                                              * len(dropped))}
 
 
-def lm_serve_phase(path, cfg, params, counters, peaks):
-    """``generate`` at the config's published dtype: batch 4, prompt
-    1024, 32 greedy tokens, replayed as CUDA graphs (``steps.StepGraphs``)
-    and eagerly (``replay=False``) beside it. Required: the kernel
-    launches per traced prefill (``causal_conv1d`` one a Mamba layer, none
-    for an attention model) at the capture run and none on a second,
-    replayed run; the replayed tokens equal to the eager ones; the
-    prefill's and each step's logits, teacher-forced on those tokens,
-    bitwise equal between replay and eager. Timed: prefill ms and decode
-    ms per token both ways, and whole ``generate`` calls. Profiles of one
-    replayed and one eager step and one replayed prefill come back as
-    thunks, for the caller to
-    run after every timed LM line (a profiler session slows later graph
-    replays). A Mamba model's prefill logits are also held against the
-    conv's plain version (``impl="torch"``) on the card; an attention
-    model's line carries its prefill and decode bounds."""
-    from repro_torch.core.dtypes import tolerance
+def prefix_len(inputs) -> int:
+    """The positions before the tokens: a VLM's patch embeddings."""
+    p = inputs.get("prefix_embeds")
+    return 0 if p is None else p.shape[1]
+
+
+def greedy_tokens(cfg, params, prompts, inputs, new, cache_len, **kw):
+    """Greedy tokens (B, new), int32: ``serve.generate`` for a prompt of
+    tokens alone (``kw`` its ``graphs`` or ``replay``); with an
+    encoder-decoder's ``frames`` or a VLM's ``prefix_embeds``, which
+    ``generate`` does not take, the same loop on ``kw["graphs"]`` (a
+    ``StepGraphs``) or, with ``replay=False``, on the eager steps."""
     from repro_torch.launch import serve, steps
 
+    if not inputs:
+        return serve.generate(cfg, params, prompts, max_new=new,
+                              cache_len=cache_len, **kw)
+    graphs, start = kw.get("graphs"), prompts.shape[1] + prefix_len(inputs)
+    require(graphs is not None or kw.get("replay") is False,
+            "greedy_tokens: pass graphs= or replay=False")
+    with torch.inference_mode():
+        if graphs is not None:
+            logits, caches = graphs.prefill(prompts, cache_len, **inputs)
+
+            def step(tok, pos):
+                return graphs.decode(tok, caches, pos)
+        else:
+            cparams = steps.compute_params(params, cfg)
+            logits, caches = steps.prefill_step(cparams, cfg, prompts,
+                                                cache_len=cache_len,
+                                                **inputs)
+
+            def step(tok, pos):
+                nonlocal caches
+                logits, caches = steps.decode_step(cparams, cfg, tok,
+                                                   caches, pos)
+                return logits
+        outs = [vocab_logits(logits[:, -1], cfg).argmax(-1).to(torch.int32)]
+        for i in range(new - 1):
+            logits = step(outs[-1][:, None], start + i)
+            outs.append(vocab_logits(logits[:, 0], cfg).argmax(-1).to(
+                torch.int32))
+    return torch.stack(outs, dim=1)
+
+
+def lm_serve_phase(path, cfg, params, counters, peaks, inputs=None,
+                   prompt=SERVE_PROMPT, cache_len=None):
+    """Greedy serving at the config's published dtype: batch 4, a prompt
+    of ``prompt`` tokens (after a VLM's patch embeddings, ``inputs``'
+    ``prefix_embeds``; an encoder-decoder reads ``inputs``' ``frames``),
+    32 greedy tokens, replayed as CUDA graphs (``steps.StepGraphs``) and
+    eagerly (``replay=False``) beside it: through ``generate`` for tokens
+    alone, else ``greedy_tokens``' loop on the same steps. Required: the
+    kernel launches per traced prefill (``causal_conv1d`` one a Mamba
+    layer, none for an attention-only model) at the capture run and none
+    on a second, replayed run; the replayed tokens equal to the eager
+    ones; the prefill's and each step's logits, teacher-forced on those
+    tokens, bitwise equal between replay and eager. Timed: prefill ms and
+    decode ms per token both ways, and whole greedy runs. Profiles of one
+    replayed and one eager step and one replayed prefill come back as
+    thunks, for the caller to run after every timed LM line (a profiler
+    session slows later graph replays), or to drop. A model with Mamba
+    layers has its prefill logits also held against the conv's plain
+    version (``impl="torch"``) on the card; a model with attention layers
+    carries its prefill and decode bounds."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.launch import steps
+
     torch.cuda.reset_peak_memory_stats()
-    mamba = cfg.family == "ssm"
-    per_prefill = {**NO_LAUNCHES,
-                   **({"causal_conv1d": cfg.num_layers} if mamba else {})}
-    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    inputs = inputs or {}
+    mamba = mamba_layers(cfg)
+    per_prefill = {**NO_LAUNCHES, **({"causal_conv1d": mamba}
+                                     if mamba else {})}
+    B, S, new = SERVE_BATCH, prompt, SERVE_NEW
     prompts = lm_prompts(cfg, B, S, seed=1)
-    cache_len = S + new
+    start = S + prefix_len(inputs)  # the first decode position
+    cache_len = cache_len or start + new
     graphs = steps.StepGraphs(cfg, params)
 
     def generate(**kw):
-        return serve.generate(cfg, params, prompts, max_new=new,
-                              cache_len=cache_len, **kw)
+        return greedy_tokens(cfg, params, prompts, inputs, new, cache_len,
+                             **kw)
     zero_counts(counters)
     tokens = generate(graphs=graphs)  # captures both graphs
     torch.cuda.synchronize()
@@ -1844,20 +2028,20 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
     decode_ms = {"replay": [], "eager": []}
     with torch.inference_mode():
         for _ in range(3):
-            t, (rlog, rcaches) = host_ms(lambda: graphs.prefill(prompts,
-                                                                cache_len))
+            t, (rlog, rcaches) = host_ms(lambda: graphs.prefill(
+                prompts, cache_len, **inputs))
             prefill_ms["replay"].append(t)
             first = rlog.clone()
             t, (elog, ecaches) = host_ms(lambda: steps.prefill_step(
-                cparams, cfg, prompts, cache_len=cache_len))
+                cparams, cfg, prompts, cache_len=cache_len, **inputs))
             prefill_ms["eager"].append(t)
         bitwise = [torch.equal(first, elog)]
         for i in range(new - 1):
             tok = tokens[:, i:i + 1]
-            t, rlog = host_ms(lambda: graphs.decode(tok, rcaches, S + i))
+            t, rlog = host_ms(lambda: graphs.decode(tok, rcaches, start + i))
             decode_ms["replay"].append(t)
             t, (elog, ecaches) = host_ms(lambda: steps.decode_step(
-                cparams, cfg, tok, ecaches, S + i))
+                cparams, cfg, tok, ecaches, start + i))
             decode_ms["eager"].append(t)
             bitwise.append(torch.equal(rlog, elog))
         require(all(bitwise), f"{path}: replayed logits not bitwise eager "
@@ -1866,12 +2050,12 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
                 f"{path}: non-finite prefill logits")
         if mamba:
             plain, _ = steps.prefill_step(cparams, cfg, prompts,
-                                          impl="torch")
+                                          impl="torch", **inputs)
     generate_ms = {"replay": [host_ms(lambda: generate(graphs=graphs))[0]
                               for _ in range(3)],
                    "eager": [host_ms(lambda: generate(replay=False))[0]
                              for _ in range(3)]}
-    tok, pos = tokens[:, -2:-1], S + new - 2
+    tok, pos = tokens[:, -2:-1], start + new - 2
 
     def profiled(fn):
         def run():
@@ -1883,11 +2067,15 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
                 "decode_step_eager": profiled(lambda: steps.decode_step(
                     cparams, cfg, tok, ecaches, pos)),
                 "prefill_replay": profiled(
-                    lambda: graphs.prefill(prompts, cache_len))}
+                    lambda: graphs.prefill(prompts, cache_len, **inputs))}
     line = {"phase": "lm", "path": path, "config": cfg.name,
-            "entry": "repro_torch.launch.serve.generate", "dtype": cfg.dtype,
+            "entry": "repro_torch.launch.steps.StepGraphs prefill / decode"
+                     if inputs else "repro_torch.launch.serve.generate",
+            "dtype": cfg.dtype,
             "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "batch": B, "prompt": S,
+            **{f"{k}_shape": list(v.shape) for k, v in inputs.items()},
+            "first_decode_position": start, "cache_len": cache_len,
             "new_tokens": new, "greedy": True, "graphs": graphs.graphs,
             "prefills_traced": graphs.prefills,
             "steps_traced": graphs.steps, "launches_at_capture": traced,
@@ -1915,9 +2103,13 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
                     vs_plain_conv_bitwise_equal=torch.equal(
                         vocab_logits(first, cfg), vocab_logits(plain, cfg)),
                     tol=tolerance(cfg.dtype))
-    else:
-        line["bounds"] = lm_bounds(cfg, cparams, rcaches, B, S, cache_len,
-                                   peaks)
+    if cfg.is_encoder_decoder:
+        line["bounds"] = encdec_bounds(cfg, cparams, rcaches,
+                                       inputs["frames"], B, S, cache_len,
+                                       peaks)
+    elif mamba < cfg.num_layers:
+        line["bounds"] = lm_bounds(cfg, cparams, rcaches, B, start,
+                                   cache_len, peaks)
     if cfg.num_experts:
         line["moe_drops"] = moe_drops(cfg, cparams, prompts)
     line["sample_tokens"] = tokens[0, :8].tolist()
@@ -1925,41 +2117,46 @@ def lm_serve_phase(path, cfg, params, counters, peaks):
     return line, profiles
 
 
-def parity_phase(path, cfg, params, counters):
-    """The model in fp32 at full width: batch 1, prompt 300, 8 greedy
-    decode steps on the card through the graphs, an eager step beside
-    each (the logits bitwise equal), the counters set to 0 before and read
-    after; the logits of the prefill and of every step against the port
-    on the CPU fed the same tokens, within ENGINE_REL_BOUND; ``generate``
-    on the card, replayed through the same graphs and eager, gives the
-    same tokens."""
-    from repro_torch.launch import serve, steps
+def parity_phase(path, cfg, params, counters, inputs=None):
+    """The model in fp32 at full width: batch 1, prompt 300 (after a
+    VLM's patch embeddings; an encoder-decoder reads its frames), 8
+    greedy decode steps on the card through the graphs, an eager step
+    beside each (the logits bitwise equal), the counters set to 0 before
+    and read after; the logits of the prefill and of every step against
+    the port on the CPU fed the same tokens, within ENGINE_REL_BOUND;
+    greedy serving on the card (``generate``, or ``greedy_tokens``' loop
+    with ``inputs``), replayed through the same graphs and eager, gives
+    the same tokens."""
+    from repro_torch.launch import steps
     from repro_torch.models.spec import flatten, unflatten
 
     torch.cuda.reset_peak_memory_stats()
     cfg = cfg.replace(dtype="float32")
-    per_prefill = {**NO_LAUNCHES, **({"causal_conv1d": cfg.num_layers}
-                                     if cfg.family == "ssm" else {})}
+    inputs = inputs or {}
+    per_prefill = {**NO_LAUNCHES, **({"causal_conv1d": mamba_layers(cfg)}
+                                     if mamba_layers(cfg) else {})}
     S = PARITY_PROMPT
+    start = S + prefix_len(inputs)
     prompts = lm_prompts(cfg, 1, S, seed=2)
-    cache_len = S + PARITY_STEPS
+    cache_len = start + PARITY_STEPS
     graphs = steps.StepGraphs(cfg, params)
     card, fed, step_ms, bitwise = [], [], [], []
     zero_counts(counters)
     with torch.inference_mode():
-        t, (logits, caches) = host_ms(lambda: graphs.prefill(prompts,
-                                                             cache_len))
+        t, (logits, caches) = host_ms(lambda: graphs.prefill(
+            prompts, cache_len, **inputs))
         step_ms.append(t)
         elog, ecaches = steps.prefill_step(graphs.params, cfg, prompts,
-                                           cache_len=cache_len)
+                                           cache_len=cache_len, **inputs)
         bitwise.append(torch.equal(logits, elog))
         card.append(logits.clone())
         for i in range(PARITY_STEPS):
             fed.append(vocab_logits(card[-1][:, -1], cfg).argmax(-1)[:, None])
-            t, logits = host_ms(lambda: graphs.decode(fed[-1], caches, S + i))
+            t, logits = host_ms(lambda: graphs.decode(fed[-1], caches,
+                                                      start + i))
             step_ms.append(t)
             elog, ecaches = steps.decode_step(graphs.params, cfg, fed[-1],
-                                              ecaches, S + i)
+                                              ecaches, start + i)
             bitwise.append(torch.equal(logits, elog))
             card.append(logits.clone())
     torch.cuda.synchronize()
@@ -1972,28 +2169,30 @@ def parity_phase(path, cfg, params, counters):
     greedy = torch.cat(
         fed + [vocab_logits(card[-1][:, -1], cfg).argmax(-1)[:, None]], dim=1)
     traced = graphs.prefills  # those the counts above cover
-    tokens = serve.generate(cfg, params, prompts, max_new=PARITY_STEPS + 1,
-                            cache_len=cache_len + 1, graphs=graphs)
+    tokens = greedy_tokens(cfg, params, prompts, inputs, PARITY_STEPS + 1,
+                           cache_len + 1, graphs=graphs)
     require(torch.equal(tokens.long(), greedy), f"{path}: generate's "
             "tokens (replayed) differ from the steps' greedy ones")
     # eager once the graphs are gone: at fp32 over bf16 storage each holds
     # a cast copy of the weights
     del graphs, ecaches, caches, logits, elog
-    tokens = serve.generate(cfg, params, prompts, max_new=PARITY_STEPS + 1,
-                            cache_len=cache_len + 1, replay=False)
+    tokens = greedy_tokens(cfg, params, prompts, inputs, PARITY_STEPS + 1,
+                           cache_len + 1, replay=False)
     require(torch.equal(tokens.long(), greedy), f"{path}: generate's "
             "tokens (eager) differ from the steps' greedy ones")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cpu_params = steps.compute_params(
         unflatten({k: v.cpu() for k, v in flatten(params).items()}), cfg)
+    cpu_inputs = {k: v.cpu() for k, v in inputs.items()}
     t0 = time.perf_counter()
     with torch.inference_mode():
         logits, caches = steps.prefill_step(cpu_params, cfg, prompts.cpu(),
-                                            cache_len=cache_len)
+                                            cache_len=cache_len,
+                                            **cpu_inputs)
         cpu = [logits]
         for i, tok in enumerate(fed):
             logits, caches = steps.decode_step(cpu_params, cfg, tok.cpu(),
-                                               caches, S + i)
+                                               caches, start + i)
             cpu.append(logits)
     cpu_s = time.perf_counter() - t0
     errs = [rel_err(vocab_logits(a.cpu(), cfg), vocab_logits(b, cfg))
@@ -2004,9 +2203,13 @@ def parity_phase(path, cfg, params, counters):
             f"{errs} > {ENGINE_REL_BOUND}")
     return {"phase": "lm", "path": path, "config": cfg.name,
             "entry": "repro_torch.launch.steps.StepGraphs prefill / decode "
-                     "beside prefill_step / decode_step, and serve.generate",
+                     "beside prefill_step / decode_step, and serve.generate"
+                     if not inputs else "repro_torch.launch.steps.StepGraphs"
+                     " prefill / decode beside prefill_step / decode_step",
             "dtype": cfg.dtype, "layers": cfg.num_layers, "batch": 1,
-            "prompt": S, "decode_steps": PARITY_STEPS, "launches": launches,
+            "prompt": S, **{f"{k}_shape": list(v.shape)
+                            for k, v in inputs.items()},
+            "decode_steps": PARITY_STEPS, "launches": launches,
             "prefills_traced": traced,
             "logits_replay_bitwise_equal_eager": all(bitwise),
             "max_rel_err_vs_cpu": max(errs),
@@ -2130,6 +2333,41 @@ def moe_dispatch_phase(cfg, params, drops):
             "dense_drops_at_serving_prompt": drops}
 
 
+def frontend_phase(part, fn, args, out_shape, peaks, flops):
+    """One frontend at its published shape in fp32 on the card (its
+    parameters and input drawn on the host from seeds, then moved):
+    ``fn(*args)`` against the same call on the CPU within
+    ENGINE_REL_BOUND (the products sum in another order on the card),
+    its device time (graph replay) and the least time the card could
+    take (the input, the parameters and the output moved once, or
+    ``flops`` at the fp32 peak)."""
+    from repro_torch.models.spec import flatten
+
+    with torch.inference_mode():
+        y = fn(*args)
+        cpu = fn(*(({k: v.cpu() for k, v in a.items()}
+                    if isinstance(a, dict) else a.cpu() if
+                    isinstance(a, torch.Tensor) else a) for a in args))
+        ms = time_ms(lambda: fn(*args))
+    rel = rel_err(y.cpu(), cpu)
+    require(tuple(y.shape) == out_shape and bool(torch.isfinite(y).all())
+            and rel <= ENGINE_REL_BOUND, f"{part}: shape {tuple(y.shape)} "
+            f"want {out_shape}, card vs cpu {rel}")
+    nbytes = sum(v.numel() * v.element_size()
+                 for a in args if isinstance(a, (dict, torch.Tensor))
+                 for v in (flatten(a).values() if isinstance(a, dict)
+                           else [a])) + y.numel() * y.element_size()
+    t_ops, t_bytes = flops / peaks["float32"], nbytes / peaks["mem_bw"]
+    return {"phase": "lm", "part": part, "dtype": "float32",
+            "input_shape": [list(a.shape) for a in args
+                            if isinstance(a, torch.Tensor)],
+            "output_shape": list(y.shape), "max_rel_err_vs_cpu": rel,
+            "bound": ENGINE_REL_BOUND, "ms": ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
 def conv1d_summary(rows, launches, peaks):
     """The ``kernels`` entry of causal_conv1d: each LM path's class in the
     path's dtype times its launches per prefill, summed over the paths
@@ -2162,6 +2400,116 @@ def conv1d_summary(rows, launches, peaks):
             key: per_prefill_sum(key, path=path)
             for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms")}
             for path in launches}}
+
+
+def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
+    """The new LM lines, before Mamba-2's: jamba's 5-layer cut served and
+    its first 2 layers in fp32, internvl2's backbone served and its first
+    8 layers in fp32, whisper-base served and in fp32, then the audio
+    stem and the ViT patch embed. Each model's weights are freed before
+    the next is drawn, and no profile keeps jamba's 48 GB or internvl2's
+    40 GB for the end (whisper's is kept, in ``profiles``); the hybrid's
+    causal_conv1d counts go into ``lm_launches``."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps
+    from repro_torch.models import frontends
+    from repro_torch.models.spec import flatten, init_params, unflatten
+
+    full = get(HYBRID_CONFIG).num_layers
+    t0 = time.perf_counter()
+    hparams = steps.init_state(hcfg, 0, "cuda")["params"]
+    draw_s = time.perf_counter() - t0
+    line, thunks = lm_serve_phase(HYBRID_PATH, hcfg, hparams, counters,
+                                  peaks)
+    lm_launches[HYBRID_PATH] = (line["launches_at_capture"],
+                                line["prefills_traced"])
+    emit({**line, "reduced": {"num_layers": f"{full} -> {HYBRID_LAYERS}"},
+          "parameters": hcfg.num_params(), "draw_s": draw_s})
+    del line, thunks
+    # its first two layers in fp32: the same weights (a leaf's draw is
+    # seeded by its path), the other three layers freed, each leaf cast
+    # as its bf16 copy goes
+    flat = flatten({"embed": hparams["embed"], "ln_f": hparams["ln_f"],
+                    "seg0": {f"sub{j}": hparams["seg0"][f"sub{j}"]
+                             for j in range(HYBRID_PARITY_LAYERS)}})
+    del hparams
+    for key in flat:
+        flat[key] = flat[key].float()
+    torch.cuda.empty_cache()
+    h2params = unflatten(flat)
+    del flat
+    line = parity_phase(HYBRID_PARITY_PATH, h2cfg, h2params, counters)
+    lm_launches[HYBRID_PARITY_PATH] = (line["launches"],
+                                       line["prefills_traced"] + 1)
+    emit({**line, "reduced": {
+        "num_layers": f"{full} -> {HYBRID_PARITY_LAYERS}",
+        "param_dtype": "bfloat16 -> float32 (the serving line's weights)"},
+        "parameters": h2cfg.num_params()})
+    del h2params
+    torch.cuda.empty_cache()
+    # the VLM backbone at published widths and depth in bf16 storage, fed
+    # patch embeddings at the token embeddings' scale
+    vcfg = get(VLM_CONFIG).replace(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    vparams = steps.init_state(vcfg, 0, "cuda")["params"]
+    draw_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    prefix = torch.randn((SERVE_BATCH, vcfg.frontend_tokens, vcfg.d_model),
+                         generator=gen, device="cuda") * 0.02
+    line, thunks = lm_serve_phase(
+        "internvl2_26b", vcfg, vparams, counters, peaks,
+        inputs={"prefix_embeds": prefix}, prompt=VLM_PROMPT)
+    emit({**line, "reduced": {"param_dtype": "float32 -> bfloat16"},
+          "parameters": vcfg.num_params(), "draw_s": draw_s})
+    del line, thunks
+    v8cfg = vcfg.replace(num_layers=VLM_PARITY_LAYERS, param_dtype="float32")
+    flat = {k: (v[:VLM_PARITY_LAYERS] if k.startswith("seg") else v).float()
+            for k, v in flatten(vparams).items()}
+    del vparams
+    torch.cuda.empty_cache()
+    v8params = unflatten(flat)
+    del flat
+    emit({**parity_phase("internvl2_26b/fp32", v8cfg, v8params, counters,
+                         inputs={"prefix_embeds": prefix[:1]}),
+          "reduced": {"num_layers": f"{vcfg.num_layers} -> "
+                                    f"{VLM_PARITY_LAYERS}",
+                      "param_dtype": "bfloat16 -> float32 (the serving "
+                                     "line's first layers)"},
+          "parameters": v8cfg.num_params()})
+    del v8params, prefix
+    torch.cuda.empty_cache()
+    # the encoder-decoder at full size, then both frontends
+    wcfg = get(ENCDEC_CONFIG)
+    wparams = steps.init_state(wcfg, 0, "cuda")["params"]
+    frames = torch.randn((SERVE_BATCH, wcfg.encoder_seq, wcfg.d_model),
+                         generator=gen, device="cuda")
+    line, thunks = lm_serve_phase(
+        "whisper_base", wcfg, wparams, counters, peaks,
+        inputs={"frames": frames}, prompt=ENCDEC_PROMPT,
+        cache_len=ENCDEC_CACHE)
+    profiles.append((line["path"], thunks))
+    emit({**line, "parameters": wcfg.num_params()})
+    emit(parity_phase("whisper_base/fp32", wcfg, wparams, counters,
+                      inputs={"frames": frames[:1]}))
+    stem = init_params(frontends.audio_stem_specs(wcfg, n_mels=MEL_BINS), 0,
+                       "float32", device="cuda")
+    mel = torch.randn((1, MEL_FRAMES, MEL_BINS), generator=gen,
+                      device="cuda")
+    D, T2 = wcfg.d_model, MEL_FRAMES // 2
+    emit(frontend_phase(
+        "audio_stem", lambda p, m: frontends.audio_stem(p, wcfg, m),
+        (stem, mel), (1, T2, D), peaks,
+        flops=2 * 3 * (MEL_FRAMES * MEL_BINS * D + T2 * D * D)))
+    patch = init_params(frontends.vit_patch_specs(vcfg, patch=PATCH), 0,
+                        "float32", device="cuda")
+    image = torch.randn((1, IMAGE_SIDE, IMAGE_SIDE, 3), generator=gen,
+                        device="cuda")
+    n = (IMAGE_SIDE // PATCH) ** 2
+    emit(frontend_phase(
+        "vit_patch_embed",
+        lambda p, x: frontends.vit_patch_embed(p, vcfg, x, patch=PATCH),
+        (patch, image), (1, n, vcfg.d_model), peaks,
+        flops=2 * n * PATCH * PATCH * 3 * vcfg.d_model))
 
 
 def main() -> None:
@@ -2465,13 +2813,16 @@ def main() -> None:
     for line in serving_phase():
         emit(line)
 
-    # ---- the Mamba-2 LM path: its kernel, serving, fp32 parity ---------
+    # ---- the LM paths: causal_conv1d at their classes -------------------
     lcfg = get(LM_CONFIG)
+    hcfg = get(HYBRID_CONFIG).replace(num_layers=HYBRID_LAYERS)
+    h2cfg = hcfg.replace(num_layers=HYBRID_PARITY_LAYERS,
+                         param_dtype="float32")
     conv_gen = torch.Generator(device="cuda").manual_seed(2)
     conv_results = []
     # fp32 and bf16 at every class, then fp16 at every class (no path runs
     # it), so the classes before draw the inputs they drew before them
-    classes = conv1d_classes(lcfg)
+    classes = conv1d_classes(lcfg, hcfg, h2cfg)
     for dtypes in ((torch.float32, torch.bfloat16), (torch.float16,)):
         for shape, paths in classes.items():
             for dtype in dtypes:
@@ -2483,8 +2834,13 @@ def main() -> None:
     bad = [(r["dtype"], r["shape"]) for r in conv_results
            if not r["max_rel_err"] <= r["tol"]]
     require(not bad, f"causal_conv1d disagrees with its plain version: {bad}")
-    lparams = steps.init_state(lcfg, 0, "cuda")["params"]
     lm_launches, profiles = {}, []
+
+    # ---- the hybrid, the VLM and the encoder-decoder, first ------------
+    hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles)
+
+    # ---- Mamba-2, qwen2 and the MoE LMs --------------------------------
+    lparams = steps.init_state(lcfg, 0, "cuda")["params"]
     line, thunks = lm_serve_phase("mamba2_370m", lcfg, lparams, counters,
                                   peaks)
     lm_launches[line["path"]] = (line["launches_at_capture"],

@@ -1,11 +1,12 @@
-"""Architecture configs: the CNN and LM-trunk subset of
+"""Architecture configs: the CNN and serving subset of
 ``repro/configs/base.py``.
 
-The fields a CNN reads, and those the decoder-only LM path (embeddings,
-norms, layer planning, GQA and MLA attention with rope, the dense and MoE
-FFNs, Mamba-2) reads, under the reference's names and defaults, so a
-config names the same network in both packages. The encoder-decoder and
-training hyperparameters that only later slices read are not here yet.
+The fields a CNN reads, and those the LM paths (embeddings, norms, layer
+planning, GQA and MLA attention with rope, the dense and MoE FFNs,
+Mamba-2, the hybrid interleave, the encoder-decoder and the frontend's
+token count) read, under the reference's names and defaults, so a config
+names the same network in both packages. The training hyperparameters
+(optimizer and its state dtype) come with the training slice.
 """
 from __future__ import annotations
 
@@ -68,9 +69,14 @@ class ArchConfig:
     attn_layer_period: int = 0  # 1 attention layer per this many layers
     attn_layer_offset: int = 0
 
-    # --- encoder/decoder and modality frontend ---
+    # --- encoder/decoder ---
     is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500  # whisper: 30s of audio -> 1500 frames
+
+    # --- modality frontend ---
     frontend: str = "none"  # none | vit_stub | audio_stub
+    frontend_tokens: int = 0  # frame/patch embeddings folded into the seq
 
     # --- numerics / policy ---
     dtype: str = "bfloat16"  # activation/compute dtype

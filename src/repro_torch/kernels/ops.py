@@ -138,6 +138,13 @@ def causal_conv1d(x, w, b=None, *, impl="auto", block_l=None):
     return fn(x, w, b)
 
 
+def conv1d_dense(x, w, b=None, *, stride=1):
+    """Dense 1-D conv, SAME padding (the audio stem): x (B, L, Cin), w
+    (K, Cin, Cout), b (Cout,) or None. The reference computes it with an
+    XLA conv, no Pallas kernel, so it has no kernel here either."""
+    return ref.conv1d_dense(x, w, b, stride=stride)
+
+
 ALGORITHMS = {"ilpm": ilpm, "direct": direct, "im2col": im2col,
               "libdnn": libdnn, "winograd": winograd,
               "pointwise": pointwise, "depthwise": depthwise}

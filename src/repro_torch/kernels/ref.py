@@ -16,7 +16,8 @@ are what a CPU tensor runs and what the CUDA kernels are held against on
 the card.
 
 Layouts: activations NHWC, filters HWIO (R, S, C, K); the causal 1-D
-conv of the Mamba stem takes (B, L, C) and (K, C).
+conv of the Mamba stem takes (B, L, C) and (K, C), the dense 1-D conv of
+the audio stem (B, L, Cin) and (K, Cin, Cout).
 """
 from __future__ import annotations
 
@@ -364,3 +365,20 @@ def causal_conv1d(x, w, b=None):
     if b is not None:
         acc = acc + b.float()
     return acc.to(x.dtype)
+
+
+def conv1d_dense(x, w, b=None, *, stride=1):
+    """Dense 1-D conv with SAME padding: x (B, L, Cin), w (K, Cin, Cout),
+    b (Cout,) or None -> (B, ceil(L / stride), Cout), the bias added
+    after the conv (promoting as the reference's add does). The reference
+    runs it as an XLA conv, not a Pallas kernel, so this is the port's
+    only version. The total pad ``(out-1)*stride + K - L`` gives
+    its smaller half to the start, as XLA does (at stride 2 and even L
+    the single pad goes at the end); ``F.conv1d(padding="same")`` refuses
+    stride > 1 and would split it the other way."""
+    K, L = w.shape[0], x.shape[1]
+    pad = max((-(-L // stride) - 1) * stride + K - L, 0)
+    xp = F.pad(x, (0, 0, pad // 2, pad - pad // 2)).transpose(1, 2)
+    y = F.conv1d(xp, w.permute(2, 1, 0), stride=stride)
+    y = y.transpose(1, 2)
+    return y if b is None else y + b

@@ -2,15 +2,22 @@
 one decode step per new token, replayed as CUDA graphs on the card.
 
     python -m repro_torch.launch.serve --arch mamba2-370m | qwen2-0.5b \\
-        | granite-moe-3b-a800m [--tiny] [--batch 4] [--prompt-len 32] \\
-        [--max-new 32] [--device cpu]
+        | granite-moe-3b-a800m | jamba-1.5-large-398b [--tiny] \\
+        [--batch 4] [--prompt-len 32] [--max-new 32] [--device cpu]
 
 runs on the card, replaying CUDA graphs, unless ``--device`` names
-another device, and raises without a card. The SSM family (mamba2-370m),
-the dense GQA family (qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b)
-and the moe family (granite-moe-3b-a800m; deepseek-v2-236b, whose 236 B
-parameters fit only tiny or cut in depth) run. Weights come from seed 0
-and the prompts from a ``torch.Generator`` seeded 1.
+another device, and raises without a card. Every decoder-only LM runs:
+the ssm family (mamba2-370m), the dense GQA family (qwen2-0.5b,
+granite-3-2b, granite-8b, minitron-8b), the moe family
+(granite-moe-3b-a800m; deepseek-v2-236b), the hybrid family
+(jamba-1.5-large-398b) and internvl2-26b's backbone on tokens alone;
+the largest fit only tiny or cut in depth. ``generate`` takes tokens
+only, as the reference's does: an encoder-decoder (whisper-base) needs
+its frame embeddings, and is served through ``steps`` (``StepGraphs``'s
+``prefill(tokens, frames=...)`` and ``decode``, or ``steps.prefill_step``
+and ``steps.decode_step``), as is a prompt with patch embeddings
+(``prefix_embeds=``). Weights come from seed 0 and the prompts from a
+``torch.Generator`` seeded 1.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ def generate(cfg, params, prompts, *, max_new: int, cache_len: int,
     replay there raises. Either way the weights are cast to the compute
     dtype once, not at every step, and sampling runs outside the graphs.
     """
+    _tokens_only(cfg)
     B, S = prompts.shape
     on_card = prompts.device.type == "cuda"
     replay = (on_card if replay is None else bool(replay)) \
@@ -78,6 +86,15 @@ def generate(cfg, params, prompts, *, max_new: int, cache_len: int,
     return torch.stack(outs, dim=1)
 
 
+def _tokens_only(cfg):
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: generate takes tokens only; "
+            "serve it through repro_torch.launch.steps (StepGraphs.prefill("
+            "tokens, cache_len, frames=...) then StepGraphs.decode, or "
+            "steps.prefill_step(..., frames=...) then steps.decode_step)")
+
+
 def _sample(logits, temperature, generator, cfg):
     logits = logits[:, :cfg.vocab_size]
     if temperature <= 0:
@@ -104,6 +121,7 @@ def main(argv=None):
     cfg = get(args.arch)
     if args.tiny:
         cfg = tiny_variant(cfg)
+    _tokens_only(cfg)
     device = resolve_device(args.device)
     params = steps.init_state(cfg, 0, device)["params"]
     prompts = torch.randint(0, cfg.vocab_size,

@@ -1,11 +1,17 @@
-"""Step functions of the LM path (``repro/launch/steps.py``): the state a
-run starts from, one prefill and one decode step, and ``StepGraphs``,
-the two steps captured as CUDA graphs (the port's ``jax.jit`` of them).
+"""Step functions of the serving paths (``repro/launch/steps.py``): the
+state a run starts from, one prefill and one decode step, and
+``StepGraphs``, the two steps captured as CUDA graphs (the port's
+``jax.jit`` of them).
 
 The reference builds these as closures for ``jax.jit`` over a device
 mesh; here they are plain functions on one device, and on the card
-``StepGraphs`` captures each once per shape and replays it. The train
-step and its optimizer state come with a later slice.
+``StepGraphs`` captures each once per shape and replays it. A
+decoder-only LM (``lm``) may take patch embeddings before its tokens
+(``prefix_embeds``, the reference's ``patch_embeds``); an
+encoder-decoder (``encdec``) takes its frame embeddings (``frames``) at
+the prefill, which runs the encoder, and reads their cross-attention K
+and V from the cache at every decode step. The train step and its
+optimizer state come with a later slice.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ import torch
 
 from repro_torch.core.device import capture, resolve_device
 from repro_torch.core.dtypes import torch_dtype
-from repro_torch.models import lm, registry
+from repro_torch.models import encdec, lm, registry
 from repro_torch.models.spec import flatten, init_params, unflatten
 
 # the leaves a forward reads in fp32 whatever the compute dtype (norm
@@ -48,11 +54,20 @@ def compute_params(params, cfg):
     return out
 
 
-def prefill_step(params, cfg, tokens, *, cache_len=0, impl="auto"):
+def prefill_step(params, cfg, tokens, *, cache_len=0, impl="auto",
+                 frames=None, prefix_embeds=None):
     """The prompt ``tokens`` (B, S) -> (last-position logits (B, 1, V),
-    caches); an attention layer's cache is padded to ``cache_len``."""
-    logits, caches, _ = lm.forward(params, cfg, tokens, mode="prefill",
-                                   cache_len=cache_len, impl=impl)
+    caches); an attention layer's cache is padded to ``cache_len``. An
+    encoder-decoder reads ``frames`` (B, T_enc, d_model); a decoder-only
+    LM may read ``prefix_embeds`` (B, P, d_model) before the tokens."""
+    if cfg.is_encoder_decoder:
+        logits, caches, _ = encdec.forward(params, cfg, tokens, frames,
+                                           mode="prefill",
+                                           cache_len=cache_len)
+    else:
+        logits, caches, _ = lm.forward(params, cfg, tokens, mode="prefill",
+                                       prefix_embeds=prefix_embeds,
+                                       cache_len=cache_len, impl=impl)
     return logits, caches
 
 
@@ -60,18 +75,25 @@ def decode_step(params, cfg, tokens, caches, pos, *, impl="auto"):
     """One new token per row, ``tokens`` (B, 1), at position ``pos`` (an
     int or a 0-d tensor on the tokens' device) -> (logits (B, 1, V),
     caches)."""
-    logits, caches, _ = lm.decode_step(params, cfg, tokens, caches, pos,
-                                       impl=impl)
+    if cfg.is_encoder_decoder:
+        logits, caches, _ = encdec.forward(params, cfg, tokens, None,
+                                           mode="decode", caches=caches,
+                                           pos=pos)
+    else:
+        logits, caches, _ = lm.decode_step(params, cfg, tokens, caches, pos,
+                                           impl=impl)
     return logits, caches
 
 
 class _Graph:
     """A captured step: its graph, static inputs and static logits; a
-    prefill's ``sig`` names the static caches it writes."""
+    prefill's ``sig`` names the static caches it writes and ``inputs``
+    holds its static ``frames`` or ``prefix_embeds``."""
 
-    def __init__(self, graph, tokens, logits, pos=None, sig=None):
+    def __init__(self, graph, tokens, logits, pos=None, sig=None,
+                 inputs=None):
         self.graph, self.tokens, self.logits = graph, tokens, logits
-        self.pos, self.sig = pos, sig
+        self.pos, self.sig, self.inputs = pos, sig, inputs or {}
 
 
 def _signature(caches) -> tuple:
@@ -85,11 +107,14 @@ class StepGraphs:
 
     ``params`` are cast to the compute dtype once (``compute_params``).
     One prefill graph a (batch, prompt length, ``cache_len``, token
-    dtype); its caches are copied, inside the graph, into static cache
-    buffers, one set a cache shape, i.e. a (batch, cache length). One
-    decode graph a set of static caches: the tokens (B, 1) and the
-    position, a 0-d device tensor, are static inputs, and the step's new
-    caches are copied back into the static caches inside the graph. The
+    dtype, and the shape and dtype of its ``frames`` or
+    ``prefix_embeds``, static inputs too); its caches are copied, inside
+    the graph, into static cache buffers, one set a cache shape, i.e. a
+    (batch, cache length). One decode graph a set of static caches: the
+    tokens (B, 1) and the position, a 0-d device tensor, are static
+    inputs, and the step's new caches are copied back into the static
+    caches inside the graph, but for those it passes through unchanged
+    (an encoder-decoder's ``cross`` K and V, read and never written). The
     logits returned are the graph's static buffer: read them before the
     next replay. One caller at a time.
 
@@ -130,18 +155,21 @@ class StepGraphs:
             out = fn()
         return graph, out
 
-    def _prefill_graph(self, tokens, cache_len):
-        key = (*tokens.shape, cache_len, tokens.dtype)
+    def _prefill_graph(self, tokens, cache_len, inputs):
+        key = (*tokens.shape, cache_len, tokens.dtype,
+               *((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
         g = self._prefills.get(key)
         if g is not None:
             return g
         static = torch.zeros_like(tokens)
+        static_inputs = {k: torch.zeros_like(v) for k, v in inputs.items()}
         box = {}
 
         def run():
             self.prefills += 1
             logits, caches = prefill_step(self.params, self.cfg, static,
-                                          cache_len=cache_len)
+                                          cache_len=cache_len,
+                                          **static_inputs)
             if "caches" in box:  # the capture: into the static caches
                 for k, v in flatten(caches).items():
                     box["caches"][k].copy_(v)
@@ -155,14 +183,23 @@ class StepGraphs:
 
         graph, logits = self._capture(run)
         g = self._prefills[key] = _Graph(graph, static, logits,
-                                         sig=box["sig"])
+                                         sig=box["sig"],
+                                         inputs=static_inputs)
         return g
 
-    def prefill(self, tokens, cache_len=0):
-        """Replay the prefill of ``tokens`` (B, S) on the card -> (static
-        logits (B, 1, V), the static caches the decode graph reads)."""
-        g = self._prefill_graph(tokens, cache_len)
+    def prefill(self, tokens, cache_len=0, *, frames=None,
+                prefix_embeds=None):
+        """Replay the prefill of ``tokens`` (B, S) on the card, with an
+        encoder-decoder's ``frames`` or an LM's ``prefix_embeds`` (see
+        ``prefill_step``) -> (static logits (B, 1, V), the static caches
+        the decode graph reads)."""
+        inputs = {k: v for k, v in (("frames", frames),
+                                    ("prefix_embeds", prefix_embeds))
+                  if v is not None}
+        g = self._prefill_graph(tokens, cache_len, inputs)
         g.tokens.copy_(tokens)
+        for k, v in inputs.items():
+            g.inputs[k].copy_(v)
         g.graph.replay()
         return g.logits, unflatten(self._caches[g.sig])
 
@@ -189,7 +226,8 @@ class StepGraphs:
                                       pos)
             if captured[0]:  # the capture: back into the static caches
                 for k, v in flatten(new).items():
-                    static[k].copy_(v)
+                    if v is not static[k]:
+                        static[k].copy_(v)
             captured[0] = True
             return logits
 

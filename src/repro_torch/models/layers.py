@@ -212,25 +212,31 @@ def gqa_specs(cfg):
     return sp
 
 
-def gqa_qkv(p, cfg, x, positions):
+def _gqa_proj(p, cfg, x, positions, w, b, rotate):
     dt = torch_dtype(cfg.dtype)
-    q = torch.einsum("bse,ehd->bshd", x, p["wq"].to(dt))
-    k = torch.einsum("bse,ehd->bshd", x, p["wk"].to(dt))
-    v = torch.einsum("bse,ehd->bshd", x, p["wv"].to(dt))
+    y = torch.einsum("bse,ehd->bshd", x, p[w].to(dt))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    if cfg.pos_emb == "rope":
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+        y = y + p[b].to(dt)
+    if rotate and cfg.pos_emb == "rope":
+        y = rope(y, positions, cfg.rope_theta)
+    return y
+
+
+def gqa_qkv(p, cfg, x, positions):
+    return (_gqa_proj(p, cfg, x, positions, "wq", "bq", True),
+            _gqa_proj(p, cfg, x, positions, "wk", "bk", True),
+            _gqa_proj(p, cfg, x, positions, "wv", "bv", False))
 
 
 def gqa_attn(p, cfg, x, positions, *, causal=True, kv=None, kv_pos=None):
-    """Full-sequence attention (train / prefill). Returns (out, (k, v))."""
-    q, k, v = gqa_qkv(p, cfg, x, positions)
-    if kv is not None:  # cross-attention: precomputed encoder kv
+    """Full-sequence attention (train / prefill). Returns (out, (k, v)).
+    Cross-attention passes the encoder's K and V as ``kv`` (and their
+    positions as ``kv_pos``): the reference computes K and V from ``x``
+    and drops them, so only the query is projected here."""
+    if kv is None:
+        q, k, v = gqa_qkv(p, cfg, x, positions)
+    else:
+        q = _gqa_proj(p, cfg, x, positions, "wq", "bq", True)
         k, v = kv
     kvp = kv_pos if kv_pos is not None else positions
     out = attention(q, k, v, causal=causal, q_pos=positions, kv_pos=kvp,

@@ -5,14 +5,18 @@ A config's layers are planned as (mixer, ffn) pairs, then grouped into
 repeating segments whose parameters are stacked along a leading layer
 axis. The reference scans a segment with ``jax.lax.scan``; here a Python
 loop over the layer index runs it, and the per-layer caches are stacked
-back along the same axis. The port runs the Mamba mixer with no ffn (the
-ssm family), and the GQA or MLA mixer with a dense, MoE or no ffn (the
-dense family: qwen2-0.5b, granite-3-2b, granite-8b, minitron-8b; the moe
-family: granite-moe-3b-a800m, deepseek-v2-236b). A prefill pads each
-attention cache to ``cache_len`` as the reference does; an MLA layer
-caches its latent (``c_kv``, ``k_rope``), not per-head K and V. Each MoE
-layer's load-balancing loss is summed into the forward's ``aux``. The
-hybrid plan (Mamba layers with an ffn) comes with a later slice.
+back along the same axis. A layer's mixer is Mamba-2, GQA or MLA, its
+ffn dense, MoE or none: the ssm family (mamba2-370m) runs Mamba with no
+ffn, the dense and moe families (qwen2-0.5b, granite-3-2b, granite-8b,
+minitron-8b, internvl2-26b's backbone; granite-moe-3b-a800m,
+deepseek-v2-236b) attention with an ffn, and the hybrid family
+(jamba-1.5-large-398b) Mamba with a dense or MoE ffn beside GQA layers,
+so one segment may hold Mamba ``conv``/``state`` caches and GQA ``k``/
+``v`` caches side by side. A prefill pads each attention cache to
+``cache_len`` as the reference does (a Mamba cache has a fixed size); an
+MLA layer caches its latent (``c_kv``, ``k_rope``), not per-head K and
+V. Each MoE layer's load-balancing loss is summed into the forward's
+``aux``.
 
 ``LM`` is the network as an ``nn.Module``: its ``state_dict()`` keys are
 the reference's parameter paths (``embed.table``,
@@ -32,13 +36,6 @@ from repro_torch.models.module import SpecNetwork
 from repro_torch.models.spec import stack_tree
 
 Plan = tuple  # (mixer, ffn)
-
-LATER = "(ROADMAP queue 1: the rest of the LM substrate)"
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} comes with a later slice {LATER}")
-
 
 # ----------------------------------------------------------------------
 # layer planning
@@ -95,8 +92,6 @@ def _check_plan(plan: Plan) -> None:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn_kind not in ("none", "dense", "moe"):
         raise ValueError(f"unknown ffn {ffn_kind!r}")
-    if mixer == "mamba" and ffn_kind != "none":
-        raise _not_ported(f"the hybrid plan {plan!r}")
 
 
 def block_specs(cfg, plan: Plan):

@@ -13,12 +13,12 @@ from torch import nn
 from repro_torch.models.spec import flatten, unflatten, walk
 
 
-def _tree_module(tree) -> nn.Module:
-    """A module whose parameters mirror a nested dict of tensors."""
-    m = nn.Module()
+def _add_tree(m: nn.Module, tree) -> nn.Module:
+    """Add a nested dict of tensors to ``m``: a submodule a dict, a
+    parameter a tensor."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            m.add_module(k, _tree_module(v))
+            m.add_module(k, _add_tree(nn.Module(), v))
         else:
             m.register_parameter(k, nn.Parameter(v, requires_grad=False))
     return m
@@ -43,8 +43,7 @@ class SpecNetwork(nn.Module):
             raise ValueError(f"params do not match {cfg.name}: missing "
                              f"{sorted(expected - got)}, extra "
                              f"{sorted(got - expected)}")
-        for k, v in tree.items():
-            self.add_module(k, _tree_module(v))
+        _add_tree(self, tree)
 
     def params(self) -> dict:
         """The parameters as the nested dict ``forward`` takes."""

@@ -1,11 +1,10 @@
 """Model registry: per-family dispatch and parameter counting
-(``repro/models/registry.py``). The CNNs and the decoder-only LMs (the
-ssm, dense and moe families: GQA or MLA attention, a dense or MoE ffn)
-build; the hybrid plan raises in ``lm``'s layer check, the
-encoder-decoder models here."""
+(``repro/models/registry.py``): the CNNs, the decoder-only LMs (``lm``:
+the ssm, dense, moe, hybrid and vlm families) and the encoder-decoder
+(``encdec``: whisper-base)."""
 from __future__ import annotations
 
-from repro_torch.models import lm, mobilenet, resnet
+from repro_torch.models import encdec, lm, mobilenet, resnet
 from repro_torch.models import spec as pspec
 
 
@@ -16,29 +15,25 @@ def cnn_module(cfg):
     return mobilenet if cfg.extra.get("arch") == "mobilenet" else resnet
 
 
-def _lm_only(cfg):
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder models come with a later "
-            f"slice {lm.LATER}")
-
-
 def model_specs(cfg):
     if cfg.family == "cnn":
         return cnn_module(cfg).model_specs(cfg)
-    _lm_only(cfg)
+    if cfg.is_encoder_decoder:
+        return encdec.model_specs(cfg)
     return lm.model_specs(cfg)
 
 
 def forward_fn(cfg):
     if cfg.family == "cnn":
         return cnn_module(cfg).forward
-    _lm_only(cfg)
+    if cfg.is_encoder_decoder:
+        return encdec.forward
     return lm.forward
 
 
 def cache_struct(cfg, batch, max_seq):
-    _lm_only(cfg)
+    if cfg.is_encoder_decoder:
+        return encdec.cache_struct(cfg, batch, max_seq)
     return lm.cache_struct(cfg, batch, max_seq)
 
 

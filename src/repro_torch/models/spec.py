@@ -10,6 +10,7 @@ not JAX's: tests carry weights across with ``repro_torch.convert``.
 from __future__ import annotations
 
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,20 +59,49 @@ def _fan_in(spec: ParamSpec) -> int:
     return max(fan, 1)
 
 
+# a leaf above this many elements is drawn in flat pieces of this size
+# (a multiple of 16, see ``init_leaf``)
+_PIECE = 1 << 24
+# leaves drawn at once by ``init_params`` (each holds one piece on the host)
+_DRAW_THREADS = 4
+
+
+def _std(spec: ParamSpec) -> float:
+    if spec.init == "embed":
+        return 0.02
+    return spec.scale if spec.scale is not None else _fan_in(spec) ** -0.5
+
+
 def init_leaf(spec: ParamSpec, generator: torch.Generator,
-              default_dtype) -> torch.Tensor:
+              default_dtype, device="cpu") -> torch.Tensor:
+    """One leaf on ``device``: zeros, ones, or ``torch.randn(shape,
+    generator=generator)`` times its scale, cast to its dtype.
+
+    A large leaf is drawn in flat pieces of ``_PIECE`` elements, each
+    scaled, cast and copied to the device, so the host holds one piece at
+    a time. The pieces are its whole draw: the CPU generator fills a
+    contiguous fp32 tensor of at least 16 elements with all its uniforms
+    first, then maps them to normals 16 at a time, so consecutive draws
+    whose sizes are multiples of 16 give the values of one draw
+    (``tests/test_torch_hybrid_encdec.py`` holds them equal); a leaf
+    whose size is not a multiple of 16 is drawn whole."""
     dtype = torch_dtype(spec.dtype or default_dtype)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype)
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype)
-    if spec.init == "embed":
-        scale = 0.02
-    else:
-        scale = spec.scale if spec.scale is not None \
-            else _fan_in(spec) ** -0.5
-    z = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
-    return (z * scale).to(dtype)
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    scale = _std(spec)
+    n = int(np.prod(spec.shape))
+    if n <= _PIECE or n % 16:
+        z = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
+        return (z * scale).to(dtype).to(device)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for start in range(0, n, _PIECE):
+        m = min(_PIECE, n - start)
+        z = torch.randn((m,), generator=generator, dtype=torch.float32)
+        flat[start:start + m].copy_((z * scale).to(dtype))
+    return out
 
 
 def walk(tree, path=()):
@@ -88,18 +118,28 @@ def init_params(spec_tree, seed: int, param_dtype: str,
     """Materialise a spec tree as a nested dict of tensors on ``device``.
 
     Leaves are drawn on the CPU, so a seed gives the same weights on every
-    device."""
-    out: dict = {}
-    for path, spec in walk(spec_tree):
+    device; ``_DRAW_THREADS`` leaves are drawn at once (each from its own
+    generator, so the order does not change a value)."""
+    leaves = list(walk(spec_tree))
+    for path, spec in leaves:
         if not isinstance(spec, ParamSpec):
             raise TypeError(f"bad spec node at {path}: {type(spec)}")
+
+    def draw(item):
+        path, spec = item
         gen = torch.Generator().manual_seed(
             (seed * 0x9E3779B1 + zlib.crc32(".".join(path).encode()))
             % 2 ** 63)
+        return init_leaf(spec, gen, param_dtype, device)
+
+    with ThreadPoolExecutor(_DRAW_THREADS) as pool:
+        drawn = list(pool.map(draw, leaves))
+    out: dict = {}
+    for (path, _), leaf in zip(leaves, drawn):
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = init_leaf(spec, gen, param_dtype).to(device)
+        node[path[-1]] = leaf
     return out
 
 

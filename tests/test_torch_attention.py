@@ -303,11 +303,39 @@ def test_prefill_caches_padded_as_the_reference(models, cache_len):
         assert not tflat[key][:, :, PROMPT:].any(), key
 
 
+def _clear_top1(logits, cfg, tol):
+    """Per row, whether the reference's top-1 logit leads its top-2 by
+    more than ``tol * max|logits|``: where it does not, a port within
+    ``tol`` of the reference may pick the other token without a fault."""
+    a = np.asarray(jnp.asarray(_vocab(logits, cfg), jnp.float32))[:, -1]
+    top2 = np.sort(a, axis=-1)[:, -2:]
+    return top2[:, 1] - top2[:, 0] > tol * np.abs(a).max()
+
+
+def assert_greedy_agrees(ttokens, jtokens, clear):
+    """Greedy tokens compared step by step while the reference's choice
+    is clear (``clear[i]``: per row, at step i); a row's comparison stops
+    at its first near-tie, after which the sequences may diverge. Returns
+    the number of tokens compared per row."""
+    compared = []
+    for row in range(jtokens.shape[0]):
+        n = 0
+        while n < jtokens.shape[1] and clear[n][row]:
+            n += 1
+        np.testing.assert_array_equal(ttokens[row, :n], jtokens[row, :n])
+        compared.append(n)
+    return compared
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", DENSE)
 def test_generate_matches_reference_step_by_step(models, name, dtype):
-    """Greedy ``generate`` against the reference's, and each step's logits
-    with the reference's tokens fed to both (teacher forcing)."""
+    """Each step's logits with the reference's tokens fed to both (teacher
+    forcing), and greedy ``generate`` against the reference's while the
+    reference's top-1 leads its top-2 by more than the tolerance (the
+    weights are the reference's ``init_params``, which change from
+    process to process: a near-tie flips greedy argmax within the bound);
+    in fp32 at least the first token is compared."""
     jcfg, tcfg, jp, tp = models[name]
     jcfg, tcfg = jcfg.replace(dtype=dtype), tcfg.replace(dtype=dtype)
     tol = tolerance(dtype)
@@ -319,7 +347,6 @@ def test_generate_matches_reference_step_by_step(models, name, dtype):
     ttokens = serve.generate(tcfg, tp, torch.from_numpy(prompts),
                              max_new=NEW, cache_len=cache_len)
     assert ttokens.dtype == torch.int32 and ttokens.shape == (2, NEW)
-    np.testing.assert_array_equal(ttokens.numpy(), jtokens)
 
     jpre = jsteps.make_prefill_step(jcfg, cache_len=cache_len)
     jdec = jsteps.make_decode_step(jcfg)
@@ -328,12 +355,17 @@ def test_generate_matches_reference_step_by_step(models, name, dtype):
     tlog, tc = steps.prefill_step(cparams, tcfg, torch.from_numpy(prompts),
                                   cache_len=cache_len)
     assert _rel(_vocab(tlog, tcfg), _vocab(jlog, tcfg)) <= tol
+    clear = [_clear_top1(jlog, tcfg, tol)]
     for i in range(NEW - 1):
         tok = np.array(jtokens[:, i:i + 1])
         jlog, jc = jdec(jp, jnp.asarray(tok), jc, PROMPT + i)
         tlog, tc = steps.decode_step(cparams, tcfg, torch.from_numpy(tok),
                                      tc, PROMPT + i)
         assert _rel(_vocab(tlog, tcfg), _vocab(jlog, tcfg)) <= tol, i
+        clear.append(_clear_top1(jlog, tcfg, tol))
+    compared = assert_greedy_agrees(ttokens.numpy(), jtokens, clear)
+    if dtype == "float32":
+        assert min(compared) >= 1, compared
 
 
 def test_prefill_then_decode_matches_train_logits(models):
@@ -462,30 +494,31 @@ def test_dense_family_no_longer_raises(name):
 
 
 def test_unported_plans_still_raise(models):
-    """What is still unported raises: the hybrid plans (a Mamba mixer with
-    a dense or MoE ffn), tiny jamba-1.5-large-398b (the hybrid family) and
-    the full one through the registry, and whisper-base (an
-    encoder-decoder) through the registry; MLA and MoE no longer do."""
+    """The hybrid plans (a Mamba mixer with a dense or MoE ffn), tiny
+    jamba-1.5-large-398b (the hybrid family) and the full one, and
+    whisper-base (an encoder-decoder) through the registry now build, as
+    do MLA and MoE; an unknown mixer or ffn still raises."""
     tcfg = models["qwen2-0.5b"][1]
     for plan in (("mamba", "dense"), ("mamba", "moe")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            lm.block_specs(tcfg, plan)
+        assert "mamba" in lm.block_specs(tcfg.replace(ssm_state=16), plan)
     for plan in (("mla", "none"), ("mla", "dense"), ("mla", "moe"),
                  ("gqa", "moe")):
         lm._check_plan(plan)
+    for plan in (("rwkv", "dense"), ("gqa", "glu")):
+        with pytest.raises(ValueError, match="unknown"):
+            lm._check_plan(plan)
 
     def port(name):  # the reference's config as the port's fields
         j = jget(name)
         return ArchConfig(**{f.name: getattr(j, f.name)
                              for f in dataclasses.fields(ArchConfig)})
     jamba, whisper = port("jamba-1.5-large-398b"), port("whisper-base")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttiny(jamba)
+    assert ttiny(jamba).num_layers == jamba.attn_layer_period
     for cfg in (jamba, whisper):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            registry.model_specs(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.cache_struct(whisper, 1, 8)
+        assert registry.count_params(cfg) == jregistry.count_params(
+            jget(cfg.name))
+    assert registry.cache_struct(whisper, 1, 8)["cross"]["xk"][0] == (
+        6, 1, 1500, 8, 64)
 
 
 def test_serve_cli_runs_an_attention_lm_on_the_cpu(capsys):

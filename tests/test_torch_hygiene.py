@@ -52,3 +52,13 @@ def test_port_sources_have_no_jax_or_repro_imports():
                           for n in names if _forbidden(n)]
     assert len(_port_files()) > 15
     assert not offenders, offenders
+
+
+def test_the_serving_modules_of_every_family_are_covered():
+    """The scans above reach the encoder-decoder, the frontends and the
+    new configs (no list to keep: every file under the port is walked)."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"models/encdec.py", "models/frontends.py", "models/lm.py",
+            "configs/jamba_1_5_large.py", "configs/whisper_base.py",
+            "configs/internvl2_26b.py", "launch/steps.py"} <= names

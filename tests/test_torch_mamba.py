@@ -326,14 +326,28 @@ def test_cache_struct_matches_reference(cfgs):
 
 
 def test_unported_families_and_mixers_raise(cfgs):
+    """The hybrid family and Mamba with a dense or MoE ffn now build, as
+    does an encoder-decoder config; an unknown family, mixer or ffn
+    still raises."""
     tcfg = cfgs[1]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttiny(ArchConfig(name="hybrid-lm", family="hybrid"))
+    hybrid = ttiny(ArchConfig(name="hybrid-lm", family="hybrid",
+                              vocab_size=256, attn_layer_period=4,
+                              attn_layer_offset=2))
+    assert hybrid.num_layers == 4 and hybrid.ssm_state == 16
     for plan in (("mamba", "dense"), ("mamba", "moe")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            lm.block_specs(tcfg, plan)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        registry.model_specs(tcfg.replace(is_encoder_decoder=True))
+        assert {"ln1", "mamba", "ln2", "ffn"} <= set(
+            lm.block_specs(tcfg.replace(d_ff=128, num_experts=4,
+                                        moe_d_ff=32), plan))
+    with pytest.raises(ValueError, match="unknown family"):
+        ttiny(ArchConfig(name="rnn-lm", family="rnn"))
+    with pytest.raises(ValueError, match="unknown mixer"):
+        lm.block_specs(tcfg, ("rwkv", "none"))
+    with pytest.raises(ValueError, match="unknown ffn"):
+        lm.block_specs(tcfg, ("mamba", "glu"))
+    enc = registry.model_specs(tcfg.replace(
+        is_encoder_decoder=True, num_heads=4, num_kv_heads=4, head_dim=16,
+        d_ff=128, act="gelu_mlp", num_encoder_layers=1, encoder_seq=8))
+    assert {"enc", "dec", "enc_pos"} <= set(enc)
 
 
 def test_entry_points_run_on_the_card_unless_told_otherwise(cfgs,
