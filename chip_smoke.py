@@ -236,9 +236,43 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      sort-based dispatch within ``tolerance(fp32)`` of the dense one on
      the card, the only card run of the sort-based path (no serving size
      reaches T * N > ``_DENSE_MAX``); with the serving line's drops;
+   - training, after the serving lines: ``causal_conv1d_grad``, the
+     kernel's gradient at the train class (4, 1024, 2304), K 4, x the
+     xBC view, in fp32 and bf16: the wrapper under autograd (the
+     ``CausalConv1d`` Function: dx by the forward kernel on the reversed
+     sequence, dw and db plain reductions) against the plain version's
+     autograd, dx, dw and db within ``tolerance(dtype)``, forward plus
+     backward timed by graph replay beside the plain path,
+     ``F.conv1d(groups=C)`` with its autograd and the byte bound;
+     ``optim``: ``adamw.update`` and ``adafactor.update`` on mamba2-370m's
+     11 leaf shapes in fp32, three seeded steps, within 2e-5 of the CPU,
+     one AdamW update of the whole tree timed against its byte bound
+     (28 bytes a parameter); ``train/mamba2_370m_2l/fp32``: its first 2
+     layers at full width in fp32, two train steps of 2 x 512 tokens on
+     the card and on the CPU from one state (the second from the CPU's),
+     the loss, the grad norm and every gradient within 1e-4, the
+     parameters within 1e-4 where the CPU's first moment exceeds 1e-3 of
+     its leaf's largest; ``train/resume``: the same 2 layers through
+     ``launch.train.train``, 12 steps of 2 x 256 tokens with a checkpoint
+     every 4, twice uninterrupted (bitwise equal: the step is
+     deterministic) and once with a ``TransientFailure`` at step 9 (one
+     restart, bitwise the uninterrupted state); ``train/mamba2_370m``,
+     the main path: ``launch.train.train`` of mamba2-370m at full width
+     and depth (368.8 M parameters, bf16 over fp32 masters, AdamW,
+     remat="full") for 20 steps of 4 x 1024 tokens from a 16-token
+     vocabulary, peak lr 1e-3, one checkpoint at step 20: every loss
+     finite, the last 5 losses' mean at least 0.2 below the first 5's,
+     ``causal_conv1d`` exactly 144 launches a step (48 layers: the
+     forward, its rematerialized recompute and dx), the checkpoint
+     restored with its digest checked bitwise the live state; the median
+     step ms (steps 3-20), tokens/s, peak device memory, save and restore
+     seconds, and the step's bound;
    - a ``profile`` line a serving path: one replayed and one eager decode
      step and one replayed prefill under ``torch.profiler`` (device busy
-     ms, device operations, the kernels that take the most time);
+     ms, device operations, the kernels that take the most time), and one
+     for the main train path: one step and its gradients alone (the
+     optimizer's share), the top kernels, ``causal_conv1d``'s forward,
+     recompute and dx;
 8. the ``host_split`` line, after every timed line (a profiler session
    slows later graph replays): where one eager tuned ResNet-18 run's host
    time goes, by ``torch.profiler`` (host time inside aten ops against the
@@ -249,7 +283,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    on, each class in the path's compute dtype, and per path
    (``per_path``); one ``gemm`` launch is two device kernels where its
    plan splits the contraction; the launches are those of the engine
-   phases' traced forwards;
+   phases' traced forwards and of the LM and training runs
+   (``causal_conv1d``'s ``train``: its launches a train step and its
+   forward-plus-backward times);
 10. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -260,6 +296,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -455,6 +492,37 @@ ENCDEC_CONFIG, ENCDEC_PROMPT, ENCDEC_CACHE = "whisper-base", 4, 448
 # The frontends at the published shapes: 30 s of 80-bin mel frames, and
 # one 448 x 448 image in 14 x 14 patches
 MEL_FRAMES, MEL_BINS, IMAGE_SIDE, PATCH = 3000, 80, 448, 14
+# The training lines (after the LM serving lines, before the profiles):
+# mamba2-370m at full width and depth, bf16 over fp32 master weights with
+# the config's AdamW and remat="full", through launch/train.py's run on a
+# 16-token vocabulary so the loss can fall (as the reference's
+# test_lm_loss_decreases), 20 steps of 4 x 1024 tokens, one checkpoint at
+# the end; its first 2 layers in fp32 against the CPU, two steps of 2 x
+# 512 (two SSD chunks); the crash-resume run of the reference's
+# test_crash_resume_bitwise on the same 2 layers; both optimizers alone on
+# mamba2-370m's 11 leaf shapes; causal_conv1d's gradient at the train
+# class. Each Mamba layer's train step launches causal_conv1d three times:
+# the forward, its rematerialized recompute and dx.
+TRAIN_PATH, TRAIN_PARITY_PATH = "train/mamba2_370m", \
+    "train/mamba2_370m_2l/fp32"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_VOCAB = \
+    20, 4, 1024, 1e-3, 16
+TRAIN_DROP, TRAIN_TIMED_FROM = 0.2, 2  # step ms: steps 3-20
+CONV_PER_LAYER_STEP = 3
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 512
+TRAIN_PARITY_STEPS, TRAIN_BOUND = 2, 1e-4
+# the parameters after a step are held where the CPU's new first moment
+# (the gradient at the first step) exceeds this share of its leaf's
+# largest: Adam's m / (sqrt(v) + eps) makes a whole step of a near-zero
+# entry's sign, and near zero it magnifies the gradients' rounding
+# (tests/test_torch_train.py)
+TRAIN_LIVE = 1e-3
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 12, 4, 9
+RESUME_BATCH, RESUME_SEQ = 2, 256
+OPTIM_STEPS, OPTIM_BOUND = 3, 2e-5
+# bytes a parameter costs an AdamW step at least: p, g, m, v read, p, m, v
+# written, fp32
+ADAMW_BYTES = 28
 # leaf names of an LM's parameters that no matrix product reads: norm
 # scales and shifts, biases, the Mamba conv (counted on its own) and its
 # per-head decay, skip and time-step bias
@@ -2368,12 +2436,15 @@ def frontend_phase(part, fn, args, out_shape, peaks, flops):
             "flops": flops, "bytes": nbytes}
 
 
-def conv1d_summary(rows, launches, peaks):
+def conv1d_summary(rows, launches, peaks, grad_lines, train_launches):
     """The ``kernels`` entry of causal_conv1d: each LM path's class in the
     path's dtype times its launches per prefill, summed over the paths
     and per path; ``launches`` maps each path to its main-path run's
     counts and the prefills they cover (the traced ones, and the parity
-    path's eager one)."""
+    path's eager one). ``train`` adds the training paths: their launches
+    (``train_launches``, one run each) and a step's, and the forward
+    plus backward times of the gradient line (``grad_lines``) a
+    dtype."""
     source, replaces = KERNEL_INFO["causal_conv1d"]
 
     def per_prefill_sum(key, path=None):
@@ -2387,7 +2458,8 @@ def conv1d_summary(rows, launches, peaks):
     return {
         "name": "causal_conv1d", "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(n["causal_conv1d"] for n, _ in launches.values()),
+        "launches": sum(n["causal_conv1d"] for n, _ in launches.values())
+        + sum(train_launches.values()),
         "launches_per_prefill": {
             path: n["causal_conv1d"] / k for path, (n, k) in launches.items()},
         "parity": "ok", "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2399,7 +2471,17 @@ def conv1d_summary(rows, launches, peaks):
         "per_path": {path: {
             key: per_prefill_sum(key, path=path)
             for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms")}
-            for path in launches}}
+            for path in launches},
+        "train": {
+            "launches": train_launches,
+            "launches_per_step": {
+                TRAIN_PATH: train_launches[TRAIN_PATH] / TRAIN_STEPS},
+            "fwd_bwd_at": [TRAIN_BATCH, TRAIN_SEQ],
+            "fwd_bwd": {r["dtype"]: {
+                "ms": r["fwd_bwd_ms"], "plain_ms": r["plain_fwd_bwd_ms"],
+                "library_ms": r["library_fwd_bwd_ms"],
+                "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"]}
+                for r in grad_lines}}}
 
 
 def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
@@ -2417,7 +2499,7 @@ def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
 
     full = get(HYBRID_CONFIG).num_layers
     t0 = time.perf_counter()
-    hparams = steps.init_state(hcfg, 0, "cuda")["params"]
+    hparams = steps.init_params(hcfg, 0, "cuda")
     draw_s = time.perf_counter() - t0
     line, thunks = lm_serve_phase(HYBRID_PATH, hcfg, hparams, counters,
                                   peaks)
@@ -2451,7 +2533,7 @@ def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
     # patch embeddings at the token embeddings' scale
     vcfg = get(VLM_CONFIG).replace(param_dtype="bfloat16")
     t0 = time.perf_counter()
-    vparams = steps.init_state(vcfg, 0, "cuda")["params"]
+    vparams = steps.init_params(vcfg, 0, "cuda")
     draw_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(6)
     prefix = torch.randn((SERVE_BATCH, vcfg.frontend_tokens, vcfg.d_model),
@@ -2480,7 +2562,7 @@ def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
     torch.cuda.empty_cache()
     # the encoder-decoder at full size, then both frontends
     wcfg = get(ENCDEC_CONFIG)
-    wparams = steps.init_state(wcfg, 0, "cuda")["params"]
+    wparams = steps.init_params(wcfg, 0, "cuda")
     frames = torch.randn((SERVE_BATCH, wcfg.encoder_seq, wcfg.d_model),
                          generator=gen, device="cuda")
     line, thunks = lm_serve_phase(
@@ -2510,6 +2592,456 @@ def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
         lambda p, x: frontends.vit_patch_embed(p, vcfg, x, patch=PATCH),
         (patch, image), (1, n, vcfg.d_model), peaks,
         flops=2 * n * PATCH * PATCH * 3 * vcfg.d_model))
+
+
+# ----------------------------------------------------------------------
+# training
+
+
+def train_bounds(cfg, params, B, S, peaks):
+    """The least time of one train step of (B, S) tokens in the compute
+    dtype: the larger of the operations over its peak and the optimizer's
+    bytes (``ADAMW_BYTES`` a parameter) over the memory rate. The
+    operations count the forward of every matrix product of the weights
+    (the segments' and the tied unembed) and every Mamba layer's SSD as
+    the chunked scan computes it (``lm_bounds``' count), four times for
+    the segments (the forward, its rematerialized recompute and the two
+    products of the backward) and three for the unembed (it is not
+    rematerialized); ``8 N T`` is that count without the SSD's terms.
+    Left out: the elementwise work (norms, the softmax of the loss, the
+    optimizer's arithmetic), bytes that the optimizer's bound covers."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.spec import flatten
+
+    leaves = flatten(params)
+    n = sum(v.numel() for v in leaves.values())
+    matmul = sum(v.numel() for k, v in leaves.items() if k.startswith("seg")
+                 and k.rsplit(".", 1)[1] not in NOT_MATMUL)
+    head = cfg.d_model * padded_vocab(cfg.vocab_size)
+    _, G, N, P, Hm, _, conv_ch = ssm._dims(cfg)
+    Q = min(cfg.ssd_chunk, S)
+    ssd = mamba_layers(cfg) * (2 * (G * Q * N + Hm * Q * P + 2 * Hm * N * P)
+                               + 2 * cfg.ssm_conv_k * conv_ch)
+    T = B * S
+    flops = T * (4 * (2 * matmul + ssd) + 3 * 2 * head)
+    line = _bounds({"train_step": flops}, {"train_step": ADAMW_BYTES * n},
+                   cfg.dtype, peaks)["train_step"]
+    return {**line, "parameters": n, "ssd_flops": 4 * T * ssd,
+            "bound_ms_8NT": max(8 * n * T / peaks[cfg.dtype],
+                                ADAMW_BYTES * n / peaks["mem_bw"]) * 1e3}
+
+
+def conv_grad_phase(cfg, peaks):
+    """causal_conv1d's gradient at the train class of Mamba-2, (4, 1024,
+    2304), K 4, x the xBC view of an in-projection-shaped buffer, in
+    fp32 and bf16: the wrapper under autograd (the ``CausalConv1d``
+    Function: the kernel forward, dx by the kernel on the reversed
+    sequence, dw and db plain reductions) against the plain version's
+    autograd, dx, dw and db within ``tolerance(dtype)``; forward plus
+    backward timed by graph replay for the kernel path, the plain path
+    and ``F.conv1d(groups=C)`` with its autograd, beside the byte bound
+    (x, dy, y and dx moved once)."""
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import causal_conv1d as cc
+    from repro_torch.kernels import ref
+
+    B, L, C, K, row, off = conv1d_class(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn((B, L, row), generator=gen, device="cuda").to(
+            dtype).requires_grad_()
+        w = (torch.randn((K, C), generator=gen, device="cuda")
+             * K ** -0.5).to(dtype).requires_grad_()
+        b = (torch.randn((C,), generator=gen, device="cuda")
+             * 0.1).to(dtype).requires_grad_()
+        dy = torch.randn((B, L, C), generator=gen, device="cuda").to(dtype)
+
+        def library(x, w, b):
+            y = F.conv1d(x.transpose(1, 2), w.t()[:, None, :], b,
+                         padding=K - 1, groups=C)
+            return y[..., :L].transpose(1, 2)
+
+        def fwd_bwd(f):
+            def run():
+                x = buf[..., off:off + C]
+                return torch.autograd.grad(f(x, w, b), (x, w, b), dy)
+            return run
+
+        cc.causal_conv1d.launches = 0
+        got = fwd_bwd(cc.causal_conv1d)()
+        launches = cc.causal_conv1d.launches
+        want = fwd_bwd(ref.causal_conv1d)()
+        errs = {name: rel_err(a.float(), r.float())
+                for name, a, r in zip(("dx", "dw", "db"), got, want)}
+        tol = tolerance(dtype)
+        name = str(dtype).replace("torch.", "")
+        require(launches == 2, f"causal_conv1d_grad {name}: {launches} "
+                "launches for a forward and a backward, want 2")
+        require(all(e <= tol for e in errs.values()),
+                f"causal_conv1d_grad {name}: {errs} > {tol}")
+        nbytes = 4 * B * L * C * buf.element_size() \
+            + 2 * (K + 1) * C * w.element_size()
+        flops = 2 * K * B * L * C * 3 + B * L * C
+        bound = _bounds({"fwd_bwd": flops}, {"fwd_bwd": nbytes}, name,
+                        peaks)["fwd_bwd"]
+        lines.append({
+            "phase": "causal_conv1d_grad", "dtype": name,
+            "shape": [B, L, C], "taps": K, "x_row_stride": row,
+            "entry": "repro_torch.kernels.causal_conv1d.causal_conv1d "
+                     "under autograd (CausalConv1d)",
+            "launches_fwd_bwd": launches, "tol": tol,
+            **{f"{k}_max_rel_err": v for k, v in errs.items()},
+            "max_abs_err": max((a.float() - r.float()).abs().max().item()
+                               for a, r in zip(got, want)),
+            "fwd_bwd_ms": time_ms(fwd_bwd(cc.causal_conv1d)),
+            "plain_fwd_bwd_ms": time_ms(fwd_bwd(ref.causal_conv1d)),
+            "library_fwd_bwd_ms": time_ms(fwd_bwd(library)),
+            "library": "F.conv1d(groups=C, padding=K-1)[..., :L] with "
+                       "its autograd", **bound})
+        del buf, w, b, dy, got, want
+    return lines
+
+
+def optim_phase(cfg, peaks):
+    """``adamw.update`` and ``adafactor.update`` on the card against the
+    CPU on the config's leaf shapes in fp32 (params N(0, 0.02²), three
+    seeded gradients N(0, 1e-3²), zero fp32 states, lr 1e-3), three steps:
+    every parameter and state leaf within ``OPTIM_BOUND``; one AdamW
+    update of the whole tree timed (CUDA events, eager) against its byte
+    bound, and one Adafactor update."""
+    from repro_torch import optim
+    from repro_torch.models import registry
+    from repro_torch.models.spec import flatten, unflatten
+    from repro_torch.optim import schedule
+
+    shapes = {k: s.shape for k, s in
+              flatten(registry.model_specs(cfg)).items()}
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def draw(scale):
+        return unflatten({k: torch.randn(s, generator=gen, device="cuda")
+                          * scale for k, s in shapes.items()})
+
+    def cpu(tree):
+        return unflatten({k: v.cpu() for k, v in flatten(tree).items()})
+    params = draw(0.02)
+    grads = [draw(1e-3) for _ in range(OPTIM_STEPS)]
+    cpu_params, cpu_grads = cpu(params), [cpu(g) for g in grads]
+    n = sum(v.numel() for v in flatten(params).values())
+    line = {"phase": "optim", "config": cfg.name, "leaves": len(shapes),
+            "parameters": n, "steps": OPTIM_STEPS, "bound": OPTIM_BOUND}
+    for name in ("adamw", "adafactor"):
+        mod = optim.get(name)
+        card = (params, mod.init(params, "float32"))
+        host = (cpu_params, mod.init(cpu_params, "float32"))
+        lr, cpu_lr = schedule.const(1e-3, params["ln_f"]["w"]), \
+            schedule.const(1e-3, cpu_params["ln_f"]["w"])
+        t0 = time.perf_counter()
+        for g in cpu_grads:
+            host = mod.update(g, host[1], host[0], lr=cpu_lr)
+        cpu_s = time.perf_counter() - t0
+        for g in grads:
+            card = mod.update(g, card[1], card[0], lr=lr)
+        got = flatten({"params": card[0], "opt": card[1]})
+        want = flatten({"params": host[0], "opt": host[1]})
+        errs = {k: rel_err(v.cpu().float(), want[k].float())
+                for k, v in got.items()
+                if v.numel() and v.is_floating_point()}
+        worst = max(errs, key=errs.get)
+        require(all(e <= OPTIM_BOUND for e in errs.values()),
+                f"optim {name}: {worst} {errs[worst]} > {OPTIM_BOUND} of "
+                "the CPU")
+        require(int(card[1]["step"]) == OPTIM_STEPS, f"optim {name}: step")
+        ms = call_ms(lambda mod=mod, card=card: mod.update(
+            grads[0], card[1], card[0], lr=lr), samples=5, inner=1)
+        line[name] = {"max_rel_err_vs_cpu": errs[worst], "worst_leaf": worst,
+                      "update_ms": ms, "cpu_s_3_steps": cpu_s}
+        del card, host, got, want
+    line["adamw"].update(_bounds({"update": 0}, {"update": ADAMW_BYTES * n},
+                                 "float32", peaks)["update"])
+    return line
+
+
+def _to(tree, device):
+    from repro_torch.models.spec import tree_map
+
+    return tree_map(lambda v: v.to(device), tree)
+
+
+def train_parity_phase(cfg, counters):
+    """The first ``TRAIN_PARITY_LAYERS`` layers of the full-width model
+    (a leaf is seeded by its path, so these are the full draw's first
+    layers) in fp32, two train steps of 2 x 512 tokens on the card and on
+    the port's CPU from one state and batch, the second from the CPU's
+    state after the first: the loss, the grad norm and every gradient
+    leaf (``steps.loss_and_grads``) within ``TRAIN_BOUND``, and the
+    parameters after the step, within it, on the entries whose first
+    moment on the CPU (AdamW's ``m``: the gradient at the first step)
+    exceeds ``TRAIN_LIVE`` times its leaf's largest (an entry nearer zero
+    may take its sign from rounding, and Adam moves it by a whole
+    step)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models.spec import flatten
+
+    cfg2 = cfg.replace(num_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+    pipe = TokenPipeline(cfg2.vocab_size, TRAIN_PARITY_SEQ,
+                         TRAIN_PARITY_BATCH, seed=1)
+    step_fn = steps.make_train_step(cfg2, peak_lr=TRAIN_LR, warmup=1,
+                                    total_steps=TRAIN_STEPS)
+    state = steps.init_state(cfg2, 0, "cuda")
+    host = _to(state, "cpu")
+    per_step, card_ms, cpu_s = [], [], 0.0
+    zero_counts(counters)
+    for i in range(TRAIN_PARITY_STEPS):
+        batch, cbatch = pipe.batch(i, "cuda"), pipe.batch(i, "cpu")
+        g, m = steps.loss_and_grads(cfg2, state["params"], batch)
+        t0 = time.perf_counter()
+        cg, cm = steps.loss_and_grads(cfg2, host["params"], cbatch)
+        new_host, chm = step_fn(host, cbatch)
+        cpu_s += time.perf_counter() - t0
+        t, (new, hm) = host_ms(lambda: step_fn(state, batch))
+        card_ms.append(t)
+        cg, g = flatten(cg), flatten(g)
+        grad_err = max(rel_err(g[k].cpu(), cg[k]) for k in g)
+        newp, cnewp = flatten(new["params"]), flatten(new_host["params"])
+        cm1 = flatten(new_host["opt"]["m"])
+        param_err = 0.0
+        for k, ref in cnewp.items():
+            live = cm1[k].abs() > TRAIN_LIVE * cm1[k].abs().max()
+            diff = (newp[k].cpu() - ref).abs()[live]
+            if diff.numel():
+                param_err = max(param_err, (diff.max() / ref.abs().max())
+                                .item())
+        errs = {"loss": rel_err(m["loss"].cpu(), cm["loss"]),
+                "step_loss": rel_err(hm["loss"].cpu(), chm["loss"]),
+                "grad_norm": rel_err(hm["grad_norm"].cpu(),
+                                     chm["grad_norm"]),
+                "grads": grad_err, "params": param_err}
+        require(all(e <= TRAIN_BOUND for e in errs.values()),
+                f"{TRAIN_PARITY_PATH} step {i + 1}: {errs} > {TRAIN_BOUND}")
+        per_step.append({"step": i + 1, "loss": float(chm["loss"]),
+                         "grad_norm": float(chm["grad_norm"]),
+                         **{f"{k}_max_rel_err": v for k, v in errs.items()}})
+        host = new_host
+        state = _to(new_host, "cuda")
+    launches = read_counts(counters)
+    want = {**NO_LAUNCHES, "causal_conv1d": 2 * TRAIN_PARITY_STEPS
+            * CONV_PER_LAYER_STEP * mamba_layers(cfg2)}
+    require(launches == want, f"{TRAIN_PARITY_PATH}: launches {launches}, "
+            f"want {want} (loss_and_grads and the step, each step)")
+    return {"phase": "train", "path": TRAIN_PARITY_PATH, "config": cfg.name,
+            "entry": "repro_torch.launch.steps.make_train_step and "
+                     "loss_and_grads, card against CPU",
+            "dtype": "float32", "layers": cfg2.num_layers,
+            "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+            "optimizer": cfg2.optimizer, "remat": cfg2.remat,
+            "launches": launches, "bound": TRAIN_BOUND,
+            "steps": per_step, "card_step_ms": card_ms, "cpu_s": cpu_s,
+            "parameters": sum(v.numel() for v in
+                              flatten(state["params"]).values()),
+            "reduced": {"num_layers": f"{cfg.num_layers} -> "
+                                      f"{TRAIN_PARITY_LAYERS}",
+                        "dtype": "bfloat16 -> float32"}}
+
+
+def resume_phase(cfg, counters):
+    """The reference's test_crash_resume_bitwise on the card: the 2-layer
+    full-width cut in fp32, ``train.train`` for 12 steps of 2 x 256
+    tokens with a checkpoint every 4, twice uninterrupted (the step is
+    deterministic: the two states bitwise equal) and once with a
+    ``TransientFailure`` injected at step 9 (one restart, from step 8's
+    checkpoint): every leaf of the state bitwise the uninterrupted
+    run's."""
+    import tempfile
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models.spec import flatten
+    from repro_torch.runtime import TransientFailure
+
+    cfg2 = cfg.replace(num_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+    pipe = TokenPipeline(cfg2.vocab_size, RESUME_SEQ, RESUME_BATCH, seed=5)
+
+    def run(tmp, injector=None, max_failures=0):
+        return train.train(cfg2, steps_total=RESUME_STEPS, lr=TRAIN_LR,
+                           ckpt_dir=tmp, ckpt_every=RESUME_EVERY, seed=1,
+                           device="cuda", pipeline=pipe,
+                           fail_injector=injector,
+                           max_failures=max_failures)
+
+    hits = {RESUME_FAIL_AT: True}
+
+    def injector(step):
+        if hits.pop(step, None):
+            raise TransientFailure("injected")
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_a = run(f"{tmp}/a")
+        ref_b = run(f"{tmp}/b")
+        ft = run(f"{tmp}/ft", injector, max_failures=2)
+    wall_s = time.perf_counter() - t0
+    a, b, f = (flatten(r.state) for r in (ref_a, ref_b, ft))
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    require(not differ, f"train/resume: two uninterrupted runs differ at "
+            f"{differ[:5]}: the step is not deterministic")
+    off = sorted(k for k in a if not torch.equal(a[k], f[k]))
+    require(ft.restarts == 1 and ft.step == RESUME_STEPS,
+            f"train/resume: {ft.restarts} restarts, step {ft.step}")
+    require(not off, f"train/resume: the resumed state differs at {off[:5]}")
+    return {"phase": "train", "path": "train/resume", "config": cfg.name,
+            "entry": "repro_torch.launch.train.train with a fail injector",
+            "dtype": "float32", "layers": cfg2.num_layers,
+            "batch": RESUME_BATCH, "seq": RESUME_SEQ, "steps": RESUME_STEPS,
+            "ckpt_every": RESUME_EVERY, "failure_at": RESUME_FAIL_AT,
+            "restarts": ft.restarts, "uninterrupted_runs_bitwise_equal": True,
+            "resumed_bitwise_equal": True, "leaves": len(a),
+            "launches": read_counts(counters)["causal_conv1d"],
+            "wall_s": wall_s,
+            "reduced": {"num_layers": f"{cfg.num_layers} -> "
+                                      f"{TRAIN_PARITY_LAYERS}",
+                        "dtype": "bfloat16 -> float32"}}
+
+
+def train_phase(cfg, counters, peaks):
+    """The main training path: ``launch.train.train`` of mamba2-370m at
+    full width and depth, bf16 over fp32 masters, AdamW, remat="full",
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens from
+    ``TokenPipeline(TRAIN_VOCAB, ...)``, peak lr ``TRAIN_LR``, one
+    checkpoint at the last step into a temporary directory; the counters
+    set to 0 before and read after: causal_conv1d exactly
+    ``CONV_PER_LAYER_STEP`` a Mamba layer a step, nothing else. Every
+    loss finite, the last 5 losses' mean below the first 5's by
+    ``TRAIN_DROP``; the checkpoint restored with its digest checked,
+    bitwise the live state. Returns (line, the profile thunks: one step
+    and its loss_and_grads under the profiler, run with the profiles)."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.models.spec import flatten
+
+    pipe = TokenPipeline(TRAIN_VOCAB, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        run = train.train(cfg, steps_total=TRAIN_STEPS, lr=TRAIN_LR,
+                          ckpt_dir=tmp, ckpt_every=TRAIN_STEPS, seed=0,
+                          device="cuda", pipeline=pipe)
+        wall_s = time.perf_counter() - t0
+        launches = read_counts(counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        step, host = CheckpointManager(tmp).restore(TRAIN_STEPS)
+        restore_s = time.perf_counter() - t0
+        live, got = flatten(run.state), flatten(host)
+        restored = step == TRAIN_STEPS and set(got) == set(live) and all(
+            torch.equal(got[k], v.cpu()) for k, v in live.items())
+        del host, got
+        t0 = time.perf_counter()
+        CheckpointManager(Path(tmp) / "again", async_save=False).save(
+            TRAIN_STEPS, run.state)
+        save_s = time.perf_counter() - t0
+    want = {**NO_LAUNCHES, "causal_conv1d": TRAIN_STEPS
+            * CONV_PER_LAYER_STEP * mamba_layers(cfg)}
+    require(launches == want, f"{TRAIN_PATH}: launches {launches}, want "
+            f"{want}")
+    losses = [run.metrics[i]["loss"] for i in range(TRAIN_STEPS)]
+    drop = statistics.mean(losses[:5]) - statistics.mean(losses[-5:])
+    require(all(map(math.isfinite, losses)), f"{TRAIN_PATH}: losses "
+            f"{losses}")
+    require(drop >= TRAIN_DROP, f"{TRAIN_PATH}: the loss fell by {drop}, "
+            f"want {TRAIN_DROP}: {losses}")
+    require(run.restarts == 0 and run.step == TRAIN_STEPS,
+            f"{TRAIN_PATH}: {run.restarts} restarts, step {run.step}")
+    require(restored, f"{TRAIN_PATH}: the checkpoint of step {TRAIN_STEPS} "
+            "is not bitwise the live state")
+    step_ms = [run.metrics[i]["seconds"] * 1e3
+               for i in range(TRAIN_TIMED_FROM, TRAIN_STEPS)]
+    median_ms = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound = train_bounds(cfg, run.state["params"], TRAIN_BATCH, TRAIN_SEQ,
+                         peaks)
+    line = {"phase": "train", "path": TRAIN_PATH, "config": cfg.name,
+            "entry": "repro_torch.launch.train.train",
+            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+            "optimizer": cfg.optimizer, "remat": cfg.remat,
+            "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "vocab_fed": TRAIN_VOCAB,
+            "steps": TRAIN_STEPS, "peak_lr": TRAIN_LR,
+            "warmup": train.warmup_steps(TRAIN_STEPS),
+            "launches": launches,
+            "launches_per_step": launches["causal_conv1d"] / TRAIN_STEPS,
+            "losses": losses, "loss_drop": drop,
+            "grad_norms": [run.metrics[i]["grad_norm"]
+                           for i in range(TRAIN_STEPS)],
+            "step_ms": [run.metrics[i]["seconds"] * 1e3
+                        for i in range(TRAIN_STEPS)],
+            "step_ms_median": median_ms,
+            "tokens_per_s": tokens / median_ms * 1e3,
+            "bound": bound, "bound_share": bound["bound_ms"] / median_ms,
+            "checkpoint_restored_bitwise": restored,
+            "save_s": save_s, "restore_s": restore_s, "wall_s": wall_s,
+            "device_allocated_before_gb": base_gb,
+            "device_peak_gb": peak_gb}
+    state = run.state
+    step_fn = steps.make_train_step(cfg, peak_lr=TRAIN_LR,
+                                    warmup=train.warmup_steps(TRAIN_STEPS),
+                                    total_steps=TRAIN_STEPS)
+    batch = pipe.batch(TRAIN_STEPS, "cuda")
+    thunks = {"train_step": lambda: train_profile(
+        lambda: step_fn(state, batch),
+        lambda: steps.loss_and_grads(cfg, state["params"], batch),
+        mamba_layers(cfg))}
+    return line, thunks
+
+
+def train_profile(step, grads, layers, top=10):
+    """One train step under torch.profiler, then its ``loss_and_grads``
+    alone: the device busy ms of each, the optimizer's and the clip's
+    share (1 - the gradients' busy ms over the step's), the top kernels
+    of the step, and causal_conv1d's kernels split by their order (a
+    step's first ``layers`` are the forward; in the backward each layer's
+    recompute comes before its dx)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def events(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, _ = host_ms(fn)
+        return wall, sorted(
+            ((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
+             for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e[0])
+    wall, ev = events(step)
+    gwall, gev = events(grads)
+    busy, gbusy = sum(e[2] for e in ev), sum(e[2] for e in gev)
+    ms, calls = Counter(), Counter()
+    for _, name, t in ev:
+        ms[name] += t
+        calls[name] += 1
+    conv = [t for _, name, t in ev if "causal_conv1d" in name]
+    fwd, back = conv[:layers], conv[layers:]
+    return {"wall_ms_profiled": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall,
+            "device_launches": len(ev),
+            "loss_and_grads_busy_ms": gbusy,
+            "optimizer_and_clip_share": 1 - gbusy / busy,
+            "causal_conv1d": {
+                "launches": len(conv), "ms": sum(conv),
+                "share": sum(conv) / busy, "forward_ms": sum(fwd),
+                "recompute_ms": sum(back[0::2]), "dx_ms": sum(back[1::2])},
+            "top": [{"name": name[:100], "ms": t, "launches": calls[name]}
+                    for name, t in ms.most_common(top)]}
 
 
 def main() -> None:
@@ -2840,7 +3372,7 @@ def main() -> None:
     hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles)
 
     # ---- Mamba-2, qwen2 and the MoE LMs --------------------------------
-    lparams = steps.init_state(lcfg, 0, "cuda")["params"]
+    lparams = steps.init_params(lcfg, 0, "cuda")
     line, thunks = lm_serve_phase("mamba2_370m", lcfg, lparams, counters,
                                   peaks)
     lm_launches[line["path"]] = (line["launches_at_capture"],
@@ -2853,7 +3385,7 @@ def main() -> None:
     emit(line)
     # the GQA attention LM at published width, then the chunked path
     acfg = get(ATTN_CONFIG)
-    aparams = steps.init_state(acfg, 0, "cuda")["params"]
+    aparams = steps.init_params(acfg, 0, "cuda")
     line, thunks = lm_serve_phase("qwen2_0_5b", acfg, aparams, counters,
                                   peaks)
     profiles.append((line["path"], thunks))
@@ -2866,7 +3398,7 @@ def main() -> None:
     # dispatches; then DeepSeek-V2 at published widths, 2 of its 60
     # layers, in its own bf16 storage
     gcfg = get(MOE_CONFIG)
-    gparams = steps.init_state(gcfg, 0, "cuda")["params"]
+    gparams = steps.init_params(gcfg, 0, "cuda")
     line, thunks = lm_serve_phase("granite_moe_3b", gcfg, gparams, counters,
                                   peaks)
     profiles.append((line["path"], thunks))
@@ -2876,7 +3408,7 @@ def main() -> None:
     del gparams
     dcfg = get(MLA_CONFIG).replace(num_layers=MLA_LAYERS)
     reduced = {"num_layers": f"{get(MLA_CONFIG).num_layers} -> {MLA_LAYERS}"}
-    dparams = steps.init_state(dcfg, 0, "cuda")["params"]
+    dparams = steps.init_params(dcfg, 0, "cuda")
     line, thunks = lm_serve_phase("deepseek_v2_2l", dcfg, dparams, counters,
                                   peaks)
     profiles.append((line["path"], thunks))
@@ -2884,8 +3416,22 @@ def main() -> None:
     emit({**parity_phase("deepseek_v2_2l/fp32", dcfg, dparams, counters),
           "reduced": reduced})
     del dparams
+    # ---- training: causal_conv1d's gradient, the optimizers, the 2-layer
+    # parity and crash-resume lines, then mamba2-370m at full size --------
+    grad_lines = conv_grad_phase(lcfg, peaks)
+    for line in grad_lines:
+        emit(line)
+    emit(optim_phase(lcfg, peaks))
+    line = train_parity_phase(lcfg, counters)
+    train_launches = {TRAIN_PARITY_PATH: line["launches"]["causal_conv1d"]}
+    emit(line)
+    emit(resume_phase(lcfg, counters))
+    line, thunks = train_phase(lcfg, counters, peaks)
+    train_launches[TRAIN_PATH] = line["launches"]["causal_conv1d"]
+    profiles.append((line["path"], thunks))
+    emit(line)
     # after every timed LM line: one replayed and one eager decode step
-    # of each serving path under the profiler
+    # of each serving path under the profiler, and one train step
     for path, thunks in profiles:
         emit({"phase": "lm", "part": "profile", "path": path,
               **{name: fn() for name, fn in thunks.items()}})
@@ -2902,7 +3448,8 @@ def main() -> None:
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         if name == "causal_conv1d":
-            kernels.append(conv1d_summary(conv_results, lm_launches, peaks))
+            kernels.append(conv1d_summary(conv_results, lm_launches, peaks,
+                                          grad_lines, train_launches))
             continue
         rows = [r for r in results if r["kernel"] == name]
 

@@ -1,5 +1,13 @@
 """Config registry: importing this package registers the configs."""
-from repro_torch.configs.base import ArchConfig, get, register  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ArchConfig,
+    ShapeSpec,
+    applicable_shapes,
+    get,
+    names,
+    register,
+)
 from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
     granite_3_2b,
@@ -15,3 +23,17 @@ from repro_torch.configs import (  # noqa: F401
     whisper_base,
 )
 from repro_torch.configs.tiny import tiny_variant  # noqa: F401
+
+# The 10 assigned LM-pool architectures (resnet* are the paper's own nets).
+ASSIGNED = (
+    "granite-8b",
+    "granite-3-2b",
+    "qwen2-0.5b",
+    "minitron-8b",
+    "mamba2-370m",
+    "deepseek-v2-236b",
+    "granite-moe-3b-a800m",
+    "internvl2-26b",
+    "jamba-1.5-large-398b",
+    "whisper-base",
+)

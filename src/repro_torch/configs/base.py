@@ -1,12 +1,12 @@
-"""Architecture configs: the CNN and serving subset of
-``repro/configs/base.py``.
+"""Architecture configs (``repro/configs/base.py``).
 
-The fields a CNN reads, and those the LM paths (embeddings, norms, layer
+The fields a CNN reads, those the LM paths (embeddings, norms, layer
 planning, GQA and MLA attention with rope, the dense and MoE FFNs,
 Mamba-2, the hybrid interleave, the encoder-decoder and the frontend's
-token count) read, under the reference's names and defaults, so a config
-names the same network in both packages. The training hyperparameters
-(optimizer and its state dtype) come with the training slice.
+token count) read, and the training policy (remat, the optimizer and its
+state dtype), under the reference's names and defaults, so a config names
+the same network in both packages; and the LM pool's input shapes
+(``SHAPES``) with their skip rule (``applicable_shapes``).
 """
 from __future__ import annotations
 
@@ -83,6 +83,8 @@ class ArchConfig:
     param_dtype: str = "float32"  # stored dtype
     remat: str = "full"  # none | full
     param_sharding: str = "fsdp"  # fsdp | tp | replicated
+    optimizer: str = "adamw"  # adamw | adafactor
+    opt_state_dtype: str = "float32"
     supports_500k: bool = False  # sub-quadratic decode path exists
     use_ilpm_conv: bool = False  # paper technique applies to this arch
 
@@ -130,3 +132,36 @@ def get(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def names() -> list[str]:
+    import repro_torch.configs  # noqa: F401  (registers the configs)
+
+    return sorted(_REGISTRY)
+
+
+# ----------------------------------------------------------------------
+# input shapes assigned to the LM pool
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig) -> list[ShapeSpec]:
+    """The shapes a config runs: ``long_500k`` only where a sub-quadratic
+    decode path exists (the SSM and hybrid configs)."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.supports_500k]

@@ -4,8 +4,8 @@ Attention, as in ``repro/configs/deepseek_v2_236b.py``.
 [arXiv:2405.04434; hf] 60L d_model=5120 128H, MLA kv_lora=512 (q_lora=1536,
 qk_nope=128, qk_rope=64, v=128), vocab=102400. MoE: 2 shared + 160 routed
 experts, top-6, expert d_ff=1536; first layer dense (d_ff=12288).
-ILP-M inapplicable (no conv). The reference's ``optimizer="adafactor"``
-belongs to training, which the port does not have yet.
+ILP-M inapplicable (no conv). Trained with Adafactor: the factored second
+moment keeps 236 B parameters' optimizer state small.
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -33,5 +33,6 @@ DEEPSEEK_V2_236B = register(ArchConfig(
     first_dense_layers=1,
     act="swiglu",
     param_sharding="fsdp",
+    optimizer="adafactor",
     param_dtype="bfloat16",  # halves the stored weights
 ))

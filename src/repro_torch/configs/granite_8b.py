@@ -19,5 +19,6 @@ GRANITE_8B = register(ArchConfig(
     vocab_size=49152,
     attn_impl="gqa",
     act="swiglu",
+    optimizer="adamw",
     param_sharding="fsdp",
 ))

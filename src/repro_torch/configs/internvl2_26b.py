@@ -22,5 +22,6 @@ INTERNVL2_26B = register(ArchConfig(
     act="swiglu",
     frontend="vit_stub",
     frontend_tokens=256,
+    optimizer="adafactor",
     param_sharding="fsdp",
 ))

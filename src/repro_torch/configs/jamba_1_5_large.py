@@ -39,5 +39,6 @@ JAMBA_1_5_LARGE = register(ArchConfig(
     supports_500k=True,
     use_ilpm_conv=True,
     param_sharding="fsdp",
+    optimizer="adafactor",  # 398 B parameters
     param_dtype="bfloat16",
 ))

@@ -20,10 +20,27 @@ bias and one cast, so the two agree bitwise.
 ``causal_conv1d`` runs the kernel for a CUDA tensor and the plain version
 (``ref.causal_conv1d``) for a CPU tensor; ``causal_conv1d.launches``
 counts the kernel's launches.
+
+The gradient. A launch on raw pointers records nothing for autograd, so
+where grad is enabled and ``x``, ``w`` or ``b`` requires it the wrapper
+runs ``CausalConv1d``, a ``torch.autograd.Function`` whose backward
+reuses the forward kernel: with ``y[t] = b + sum_j w[j] x[t - (K-1) + j]``,
+
+    dx = flip_L(causal_conv1d(flip_L(dy), w))
+
+(the same taps, no bias), one more launch; ``dw[j] = sum over (B, t) of
+dy[t] x[t - (K-1) + j]`` and ``db = sum dy`` are plain reductions in
+fp32, cast to the operands' dtypes, as the reference leaves its backward
+to XLA. The Function saves ``x`` as given, the strided view included.
+Under rematerialization the forward runs twice, so a Mamba layer's
+train step launches the kernel three times. On the CPU the plain version
+stands in for the kernel inside the Function; the wrapper itself runs
+the plain version there, which autograd differentiates.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
 
@@ -45,12 +62,53 @@ def _pairs_aligned(x, w, b, out) -> bool:
 
 def causal_conv1d(x, w, b=None):
     """x: (B, L, C) with unit channel stride (rows may be strided); w:
-    (K, C); b: (C,) or None -> (B, L, C) contiguous, in ``x.dtype``."""
+    (K, C); b: (C,) or None -> (B, L, C) contiguous, in ``x.dtype``;
+    differentiable (``CausalConv1d`` on the card)."""
     if x.device.type == "cpu":
         return plain(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"causal_conv1d: no kernel for {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)):
+        return CausalConv1d.apply(x, w, b)
+    return _launch(x, w, b)
+
+
+def _conv(x, w, b=None):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    return plain(x, w, b) if x.device.type == "cpu" else _launch(x, w, b)
+
+
+class CausalConv1d(torch.autograd.Function):
+    """``causal_conv1d`` with its gradient (see the module's docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = None if b is None else b.dtype
+        return _conv(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dx = dw = db = None
+        if need_x:
+            dx = torch.flip(_conv(torch.flip(dy, dims=(1,)).contiguous(), w),
+                            dims=(1,))
+        if need_w:
+            K, L = w.shape[0], x.shape[1]
+            dy32 = dy.float()
+            dw = torch.stack([
+                (dy32 * F.pad(x, (0, 0, K - 1 - j, 0))[:, :L].float())
+                .sum(dim=(0, 1)) for j in range(K)]).to(w.dtype)
+        if need_b and ctx.b_dtype is not None:
+            db = dy.float().sum(dim=(0, 1)).to(ctx.b_dtype)
+        return dx, dw, db
+
+
+def _launch(x, w, b):
     name = "causal_conv1d"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
     if x.dim() != 3 or w.dim() != 2:
         raise ValueError(f"{name}: x {tuple(x.shape)} must be (B, L, C) and "
                          f"w {tuple(w.shape)} (K, C)")

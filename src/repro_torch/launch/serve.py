@@ -123,7 +123,7 @@ def main(argv=None):
         cfg = tiny_variant(cfg)
     _tokens_only(cfg)
     device = resolve_device(args.device)
-    params = steps.init_state(cfg, 0, device)["params"]
+    params = steps.init_params(cfg, 0, device)
     prompts = torch.randint(0, cfg.vocab_size,
                             (args.batch, args.prompt_len),
                             generator=torch.Generator().manual_seed(1)).to(

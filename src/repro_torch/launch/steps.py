@@ -1,26 +1,31 @@
-"""Step functions of the serving paths (``repro/launch/steps.py``): the
-state a run starts from, one prefill and one decode step, and
-``StepGraphs``, the two steps captured as CUDA graphs (the port's
+"""Step functions (``repro/launch/steps.py``): the state a run starts
+from, the train step, one prefill and one decode step, and
+``StepGraphs``, the two serving steps captured as CUDA graphs (the port's
 ``jax.jit`` of them).
 
 The reference builds these as closures for ``jax.jit`` over a device
-mesh; here they are plain functions on one device, and on the card
-``StepGraphs`` captures each once per shape and replays it. A
-decoder-only LM (``lm``) may take patch embeddings before its tokens
-(``prefix_embeds``, the reference's ``patch_embeds``); an
-encoder-decoder (``encdec``) takes its frame embeddings (``frames``) at
-the prefill, which runs the encoder, and reads their cross-attention K
-and V from the cache at every decode step. The train step and its
-optimizer state come with a later slice.
+mesh; here they are plain functions on one device. ``make_train_step``
+differentiates the forward with ``torch.autograd.grad`` over the fp32
+master leaves, cast to the compute dtype once a step as the reference's
+loss does, and applies the config's optimizer (``optim``); on the card
+``StepGraphs`` captures each serving step once per shape and replays it.
+A decoder-only LM (``lm``) may take patch embeddings before its tokens
+(``prefix_embeds``, the reference's ``patch_embeds``); an encoder-decoder
+(``encdec``) takes its frame embeddings (``frames``) at the prefill and
+in training, and reads their cross-attention K and V from the cache at
+every decode step.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import optim
 from repro_torch.core.device import capture, resolve_device
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import encdec, lm, registry
-from repro_torch.models.spec import flatten, init_params, unflatten
+from repro_torch.models import spec as pspec
+from repro_torch.models.spec import flatten, unflatten
+from repro_torch.optim import schedule
 
 # the leaves a forward reads in fp32 whatever the compute dtype (norm
 # scales and shifts, the SSM's decay and time-step bias); every other
@@ -28,13 +33,55 @@ from repro_torch.models.spec import flatten, init_params, unflatten
 _STORED_LEAVES = frozenset({"w", "b", "A_log", "dt_bias"})
 
 
+# ----------------------------------------------------------------------
+# inputs and state
+
+
+def batch_struct(cfg, shape):
+    """{input name: (shape, dtype)} of every model input of a
+    ``configs.ShapeSpec`` cell; a train cell also has its labels."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, torch_dtype(cfg.dtype)
+    ft = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    if shape.kind == "decode":  # one new token against a cache of S
+        return {"tokens": ((B, 1), i32)}
+    if cfg.is_encoder_decoder:
+        out = {"tokens": ((B, S), i32),
+               "frames": ((B, cfg.encoder_seq, cfg.d_model), dt)}
+    elif cfg.frontend in ("vlm", "vit_stub"):
+        out = {"tokens": ((B, S - ft), i32),
+               "patch_embeds": ((B, ft, cfg.d_model), dt)}
+    else:
+        out = {"tokens": ((B, S), i32)}
+    if shape.kind == "train":
+        out["labels"] = ((B, S), i32)
+    return out
+
+
+def state_specs(cfg):
+    """{"params": the model's spec tree, "opt": its optimizer state's}."""
+    params = registry.model_specs(cfg)
+    opt = optim.get(cfg.optimizer).state_specs(params, cfg.opt_state_dtype)
+    return {"params": params, "opt": opt}
+
+
+def init_params(cfg, seed=0, device=None):
+    """The model's weights drawn from ``seed`` on ``device``: the card
+    unless the caller names another device; no card and no ``device``
+    raises. What serving draws: no optimizer state."""
+    return pspec.init_params(registry.model_specs(cfg), seed,
+                             cfg.param_dtype, device=resolve_device(device))
+
+
 def init_state(cfg, seed=0, device=None):
-    """{"params": the model's weights drawn from ``seed``} on ``device``:
-    the card unless the caller names another device; no card and no
-    ``device`` raises."""
+    """{"params": ``init_params``' weights, "opt": the optimizer's zero
+    state} on ``device`` (the card unless named). A leaf is seeded by its
+    path in its own tree, so the params are ``init_params``'."""
     device = resolve_device(device)
-    return {"params": init_params(registry.model_specs(cfg), seed,
-                                  cfg.param_dtype, device=device)}
+    specs = state_specs(cfg)
+    return {"params": init_params(cfg, seed, device),
+            "opt": pspec.init_params(specs["opt"], seed, cfg.param_dtype,
+                                     device=device)}
 
 
 def compute_params(params, cfg):
@@ -52,6 +99,113 @@ def compute_params(params, cfg):
         else:
             out[key] = v.to(dt)
     return out
+
+
+# ----------------------------------------------------------------------
+# the train step
+
+
+def _ce_loss(logits, labels):
+    """Mean cross entropy over the positions whose label is >= 0.
+
+    The max is subtracted (detached) in the logits' dtype before the fp32
+    cast, as the reference does; its gold logit is a one-hot contraction
+    with an fp32 result, which picks one logit exactly, so a gather gives
+    the same value and the same gradient."""
+    mask = (labels >= 0).float()
+    lab = labels.clamp_min(0).long()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = (logits - m).float()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0].float()
+    gold = logits.gather(-1, lab[..., None])[..., 0].float()
+    nll = lse - gold
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _forward_for(cfg):
+    """The train-mode forward of the config's family: (params, batch) ->
+    (logits, caches, aux)."""
+    if cfg.is_encoder_decoder:
+        def f(params, batch):
+            return encdec.forward(params, cfg, batch["tokens"],
+                                  batch.get("frames"), mode="train")
+        return f
+
+    def f(params, batch):
+        return lm.forward(params, cfg, batch["tokens"], mode="train",
+                          prefix_embeds=batch.get("patch_embeds"))
+    return f
+
+
+def loss_and_grads(cfg, params, batch):
+    """(gradients of the total loss as a tree shaped as ``params``,
+    {"loss", "aux"}) of one batch.
+
+    Each fp32 leaf is cast to the compute dtype before any use, norm
+    scales, ``A_log`` and ``dt_bias`` included, as the reference's loss
+    does (the serving ``compute_params`` keeps some leaves fp32); the
+    total is the cross entropy plus ``router_aux_weight`` times the MoE
+    aux loss. ``torch.autograd.grad`` runs over the leaves in their
+    sorted-path order; a leaf the loss does not reach gets zeros."""
+    dt = torch_dtype(cfg.dtype)
+    flat = flatten(params)
+    keys = sorted(flat)
+    leaves = [flat[k].detach().requires_grad_() for k in keys]
+    cast = unflatten({k: (v.to(dt) if v.dtype == torch.float32 else v)
+                      for k, v in zip(keys, leaves)})
+    logits, _, aux = _forward_for(cfg)(cast, batch)
+    loss = _ce_loss(logits, batch["labels"])
+    total = loss + cfg.router_aux_weight * aux
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for k, v, g in zip(keys, leaves, grads)}
+    return unflatten(grads), {"loss": loss.detach(), "aux": aux.detach()}
+
+
+def make_train_step(cfg, *, peak_lr=3e-4, warmup=100, total_steps=10_000,
+                    clip_norm=1.0, accum: int = 1):
+    """-> ``train_step(state, batch) -> (state, metrics)``: the gradients
+    of the batch (with ``accum`` > 1, of ``accum`` micro-batches summed
+    into fp32 zeros in order, then divided), clipped to ``clip_norm``, one
+    step of ``cfg.optimizer`` at ``warmup_cosine(step + 1)``, the step
+    being taken. ``metrics``: ``loss``, ``aux`` (averaged over the
+    micro-batches), ``grad_norm`` (before the clip) and ``lr``, 0-d fp32
+    tensors on the state's device."""
+    opt_mod = optim.get(cfg.optimizer)
+
+    def train_step(state, batch):
+        params, opt_state = state["params"], state["opt"]
+        if accum == 1:
+            grads, metrics = loss_and_grads(cfg, params, batch)
+        else:
+            grads = pspec.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            metrics = {k: torch.zeros((), dtype=torch.float32,
+                                      device=batch["tokens"].device)
+                       for k in ("loss", "aux")}
+            for i in range(accum):
+                mb = {k: v.reshape(accum, v.shape[0] // accum,
+                                   *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                g, m = loss_and_grads(cfg, params, mb)
+                grads = pspec.tree_map(torch.add, grads, g)
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+            grads = pspec.tree_map(lambda g: g / accum, grads)
+            metrics = {k: v / accum for k, v in metrics.items()}
+        grads, gnorm = schedule.clip_by_global_norm(grads, clip_norm)
+        lr = schedule.warmup_cosine(opt_state["step"] + 1, peak_lr=peak_lr,
+                                    warmup_steps=warmup,
+                                    total_steps=total_steps)
+        new_params, new_opt = opt_mod.update(grads, opt_state, params,
+                                             lr=lr)
+        return ({"params": new_params, "opt": new_opt},
+                dict(metrics, grad_norm=gnorm, lr=lr))
+
+    return train_step
+
+
+# ----------------------------------------------------------------------
+# the serving steps
 
 
 def prefill_step(params, cfg, tokens, *, cache_len=0, impl="auto",

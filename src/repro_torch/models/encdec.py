@@ -6,7 +6,8 @@ self-attention, cross-attention to the encoder's output and a GELU MLP,
 pre-LayerNorm, with learned positions and an unembedding tied to the
 token table. The reference scans the stacked encoder and decoder layers;
 here a Python loop runs them, and the per-layer caches are stacked back
-along the layer axis.
+along the layer axis. In training (``remat="full"``) each layer is
+rematerialized, as the reference checkpoints its scan bodies.
 
 A prefill runs the encoder once, projects every decoder layer's
 cross-attention K and V from its output (``cross_kv``: ``wk`` and ``wv``
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _index, _stack
+from repro_torch.models.lm import _index, _stack, remat
 from repro_torch.models.module import SpecNetwork
 from repro_torch.models.spec import ParamSpec, stack_tree
 
@@ -69,20 +70,25 @@ def _iota(B, S, device):
         B, S)
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, mode="prefill"):
     """frames: (B, T_enc, E) -> the encoder's output (B, T_enc, E) in the
-    compute dtype; T_enc is at most ``encoder_seq``."""
+    compute dtype; T_enc is at most ``encoder_seq``. In a train-mode
+    forward each layer is rematerialized (``lm.remat``)."""
     dt = torch_dtype(cfg.dtype)
     T = frames.shape[1]
     x = frames.to(dt) + params["enc_pos"][None, :T].to(dt)
     pos = _iota(x.shape[0], T, x.device)
-    for i in range(cfg.num_encoder_layers):
-        p = _index(params["enc"], i)
+
+    def layer(x, p):
         h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
         out, _ = L.gqa_attn(p["attn"], cfg, h, pos, causal=False)
         x = x + out
         h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + L.ffn(p["ffn"], cfg, h)
+        return x + L.ffn(p["ffn"], cfg, h)
+
+    layer = remat(layer, cfg, mode)
+    for i in range(cfg.num_encoder_layers):
+        x = layer(x, _index(params["enc"], i))
     return L.apply_norm(params["enc_ln"], x, cfg.norm_eps)
 
 
@@ -136,17 +142,22 @@ def forward(params, cfg, tokens, frames=None, *, mode="train", caches=None,
     if mode == "decode":
         enc_kv_all = caches["cross"]
     else:
-        enc_kv_all = cross_kv(params, cfg, encode(params, cfg, frames))
+        enc_kv_all = cross_kv(params, cfg, encode(params, cfg, frames,
+                                                  mode))
     enc_pos = _iota(B, enc_kv_all["xk"].shape[2], tokens.device)
     if mode == "prefill" and cache_len and cache_len < S:
         raise ValueError(f"cache_len {cache_len} < the prompt's {S}")
     self_caches = caches.get("self") if caches else None
     new_self = []
+
+    def block(x, p, enc_kv, cache):
+        return _dec_block(p, cfg, x, positions, enc_kv, enc_pos, mode=mode,
+                          cache=cache, pos=pos)
+
+    block = remat(block, cfg, mode)
     for i in range(cfg.num_layers):
-        x, c = _dec_block(_index(params["dec"], i), cfg, x, positions,
-                          _index(enc_kv_all, i), enc_pos, mode=mode,
-                          cache=_index(self_caches, i) if self_caches
-                          else None, pos=pos)
+        x, c = block(x, _index(params["dec"], i), _index(enc_kv_all, i),
+                     _index(self_caches, i) if self_caches else None)
         if mode == "prefill" and cache_len:
             c = {k: F.pad(a, (0, 0, 0, 0, 0, cache_len - a.shape[1]))
                  for k, a in c.items()}

@@ -5,7 +5,8 @@ A config's layers are planned as (mixer, ffn) pairs, then grouped into
 repeating segments whose parameters are stacked along a leading layer
 axis. The reference scans a segment with ``jax.lax.scan``; here a Python
 loop over the layer index runs it, and the per-layer caches are stacked
-back along the same axis. A layer's mixer is Mamba-2, GQA or MLA, its
+back along the same axis. In training (``remat="full"``) each period of a
+segment is rematerialized, as the reference checkpoints its scan body. A layer's mixer is Mamba-2, GQA or MLA, its
 ffn dense, MoE or none: the ssm family (mamba2-370m) runs Mamba with no
 ffn, the dense and moe families (qwen2-0.5b, granite-3-2b, granite-8b,
 minitron-8b, internvl2-26b's backbone; granite-moe-3b-a800m,
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import layers as L
@@ -238,11 +240,28 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def remat(fn, cfg, mode):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when a
+    train-mode forward records gradients and ``cfg.remat == "full"``: its
+    activations are recomputed in the backward, as the reference's
+    ``jax.checkpoint`` of a scanned layer; else ``fn``. No layer draws
+    random numbers, so the RNG state is not kept."""
+    if not (mode == "train" and cfg.remat == "full"
+            and torch.is_grad_enabled()):
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
+
+
 def _run_segment(p_seg, cfg, body, n, x, positions, *, mode, caches, pos,
                  impl, cache_len=0):
-    """Run one segment: a loop over its n layers when n > 1. ``caches``
-    holds the per-sub trees, stacked when n > 1; a prefill pads each
-    layer's attention cache to ``cache_len``."""
+    """Run one segment: a loop over its n layers when n > 1, each period
+    rematerialized in training (``remat``). ``caches`` holds the per-sub
+    trees, stacked when n > 1; a prefill pads each layer's attention
+    cache to ``cache_len``."""
     def one_period(x, p_period, cache_period):
         new_caches = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -260,10 +279,11 @@ def _run_segment(p_seg, cfg, body, n, x, positions, *, mode, caches, pos,
 
     if n == 1:
         return one_period(x, p_seg, caches)
+    period = remat(one_period, cfg, mode)
     per_layer, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
-        x, c_new, a = one_period(x, _index(p_seg, i),
-                                 _index(caches, i) if caches else None)
+        x, c_new, a = period(x, _index(p_seg, i),
+                             _index(caches, i) if caches else None)
         per_layer.append(c_new)
         aux = aux + a
     return x, (_stack(per_layer) if per_layer[0] else {}), aux

@@ -143,6 +143,15 @@ def init_params(spec_tree, seed: int, param_dtype: str,
     return out
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure; ``rest``
+    are trees of the same keys, their leaves passed beside ``tree``'s."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def flatten(tree) -> dict:
     """Nested dict -> {dotted path: leaf}, the ``state_dict`` layout."""
     return {".".join(path): leaf for path, leaf in walk(tree)}

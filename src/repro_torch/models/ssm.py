@@ -8,6 +8,10 @@ xBC slice of the in-projection as it lies (a view with strided rows);
 decode convolves its (B, k, C) window with an einsum, as the reference
 does. The cast points are the reference's: cumsums and exponents in
 fp32, the decay and score tensors and the states in the compute dtype.
+One departure, in training only: the SSD's decays above the diagonal
+are masked before their ``exp`` (``_below``), where the reference's
+overflow and give NaN gradients at the published chunk length; the
+forward's values are the same.
 """
 from __future__ import annotations
 
@@ -60,6 +64,21 @@ def _softplus(v):
     return torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
 
 
+def _below(expo, keep):
+    """``expo`` with -inf where ``keep`` is false when autograd records
+    it, else ``expo``; the caller zeroes the dropped entries of its
+    ``exp``. Above the diagonal the exponents are sums of positive
+    decays, which overflow fp32 once a sequence is long (at
+    mamba2-370m's 256-step chunk), and the backward of the zeroing
+    ``where`` multiplies a zero gradient by the infinite ``exp``: NaN, as
+    the reference's gradient is. Masked, the kept values are the same and
+    the gradient finite; a forward without autograd (serving) skips the
+    extra pass over the (Q, Q) decays."""
+    if not expo.requires_grad:
+        return expo
+    return expo.masked_fill(~keep, float("-inf"))
+
+
 def ssd_chunked(x, dt, A, Bm, C, chunk):
     """Chunked SSD scan.
 
@@ -87,8 +106,9 @@ def ssd_chunked(x, dt, A, Bm, C, chunk):
     # intra-chunk (quadratic, attention-like) form: cumsums and exponents
     # in fp32, the decay and score tensors in the compute dtype
     CB = torch.einsum("bcign,bcjgn->bcijg", Cc.float(), Bc.float()).to(xdt)
-    decay = torch.exp(cum[:, :, :, None] - cum[:, :, None]).to(xdt)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    decay = torch.exp(_below(cum[:, :, :, None] - cum[:, :, None],
+                             tri[None, None, :, :, None, None])).to(xdt)
     W = torch.where(tri[None, None, :, :, None, None],
                     CB[..., None] * decay * dtc[:, :, None].to(xdt),
                     torch.zeros((), dtype=xdt, device=x.device))
@@ -106,7 +126,8 @@ def ssd_chunked(x, dt, A, Bm, C, chunk):
     tri_c = torch.tril(torch.ones((nc, nc), dtype=torch.bool,
                                   device=x.device), diagonal=-1)
     expo = a[:, :, None] - ld[:, :, None] - a[:, None]       # (B,nc,nc,G,Hg)
-    T_s = torch.where(tri_c[None, :, :, None, None], torch.exp(expo),
+    keep = tri_c[None, :, :, None, None]
+    T_s = torch.where(keep, torch.exp(_below(expo, keep)),
                       torch.zeros((), device=x.device))
     s_start = torch.einsum("bcdgh,bdghpn->bcghpn", T_s.to(xdt), S)
     # final state: inclusive decay to the end of the last chunk

@@ -1,3 +1,7 @@
-"""Runtime fault tolerance (``repro/runtime``): the transient-error type
-for now; the restart loop comes with training."""
-from repro_torch.runtime.fault_tolerance import TransientFailure  # noqa: F401
+"""Runtime fault tolerance (``repro/runtime``): the restart loop, the
+straggler watch and the transient-error type."""
+from repro_torch.runtime.fault_tolerance import (  # noqa: F401
+    StragglerWatch,
+    TransientFailure,
+    resilient_train,
+)

@@ -1,9 +1,112 @@
-"""Fault tolerance (``repro/runtime/fault_tolerance.py``): the
-transient-error type. ``resilient_train``, the straggler watch and the
-checkpoint helpers come with training (ROADMAP queue 5)."""
+"""Fault tolerance (``repro/runtime/fault_tolerance.py``): the restart
+loop, the straggler watch and the transient-error type.
+
+``resilient_train`` runs the train step as a pure function of (state,
+step): an exception rolls the state back to the last committed checkpoint
+and replays from there, which is exact because the data pipeline is pure
+in (seed, step). ``StragglerWatch`` keeps a deadline of a multiple of the
+running median step time and raises after ``max_breaches`` breaches, so
+the restart path runs. The reference's ``elastic_remesh`` rebuilds a
+device mesh from the surviving devices; the port runs on one card and has
+no mesh, so it is not ported.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.models.spec import flatten, tree_map
+
+log = logging.getLogger("repro_torch.runtime")
+
+
+@dataclass
+class StragglerWatch:
+    factor: float = 3.0        # deadline = factor * running p50
+    max_breaches: int = 5
+    warmup: int = 3            # the first steps (builds, first calls)
+    times: list = field(default_factory=list)
+    breaches: int = 0
+
+    def observe(self, dt: float) -> None:
+        self.times.append(dt)
+        hist = self.times[self.warmup:]
+        if len(hist) < 5:
+            return
+        p50 = float(np.median(hist))
+        if dt > self.factor * p50:
+            self.breaches += 1
+            log.warning("straggler: step took %.3fs vs p50 %.3fs (%d/%d)",
+                        dt, p50, self.breaches, self.max_breaches)
+            if self.breaches >= self.max_breaches:
+                raise RuntimeError(
+                    "persistent straggler detected — requesting reschedule")
 
 
 class TransientFailure(Exception):
-    """The repo-wide transient-error type: the serving tier retries
-    exactly this class of dispatch and build fault (``serving.resilience``
+    """The repo-wide transient-error type: raised by the hardware or an
+    injector to exercise the restart path, and the class of dispatch and
+    build fault the serving tier retries (``serving.resilience``
     re-exports it); anything else is treated as persistent."""
+
+
+def _synchronize(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def resilient_train(*, state, train_step, pipeline, ckpt, total_steps,
+                    start_step=0, ckpt_every=50, max_failures=3,
+                    straggler: StragglerWatch | None = None,
+                    fail_injector=None, on_metrics=None):
+    """Run to ``total_steps`` surviving up to ``max_failures`` restarts.
+
+    Each step reads ``pipeline.batch(step, device=...)`` on the state's
+    device and ends in a synchronize of it; every ``ckpt_every`` steps and
+    at the end the state is saved. Returns (state, step, restarts).
+    ``fail_injector(step)`` may raise to simulate faults."""
+    step = start_step
+    failures = 0
+    device = next(iter(flatten(state).values())).device
+    while step < total_steps:
+        try:
+            while step < total_steps:
+                if fail_injector is not None:
+                    fail_injector(step)
+                t0 = time.perf_counter()
+                batch = pipeline.batch(step, device=device)
+                state, metrics = train_step(state, batch)
+                _synchronize(device)
+                dt = time.perf_counter() - t0
+                if straggler is not None:
+                    straggler.observe(dt)
+                if on_metrics is not None:
+                    on_metrics(step, metrics, dt)
+                step += 1
+                if step % ckpt_every == 0 or step == total_steps:
+                    ckpt.save(step, state)
+        except (TransientFailure, RuntimeError) as e:  # noqa: PERF203
+            failures += 1
+            log.warning("step %d failed (%s); restart %d/%d",
+                        step, e, failures, max_failures)
+            if failures > max_failures:
+                raise
+            ckpt.wait()
+            restored_step, host_state = ckpt.restore()
+            if host_state is None:
+                step = start_step  # no checkpoint yet: replay from the top
+                continue
+            state = _device_put_like(host_state, state)
+            step = restored_step
+    ckpt.wait()
+    return state, step, failures
+
+
+def _device_put_like(host_tree, like_tree):
+    """The restored host tree on each live leaf's device and dtype."""
+    return tree_map(lambda h, like: torch.as_tensor(h).to(
+        device=like.device, dtype=like.dtype), host_tree, like_tree)

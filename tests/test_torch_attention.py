@@ -487,7 +487,7 @@ def test_dense_family_no_longer_raises(name):
         == "dense"
     for plan in (("gqa", "none"), ("gqa", "dense")):
         assert "attn" in lm.block_specs(tcfg, plan)
-    params = steps.init_state(tcfg, 0, "cpu")["params"]
+    params = steps.init_params(tcfg, 0, "cpu")
     out = serve.generate(tcfg, params, torch.zeros((1, 3), dtype=torch.int64),
                          max_new=2, cache_len=5)
     assert out.shape == (1, 2)

@@ -706,7 +706,7 @@ def test_generate_takes_tokens_only():
     """The reference's ``generate`` cannot serve an encoder-decoder, and
     neither does the port's: it names the steps to use."""
     tcfg = ttiny(tget(WHISPER))
-    params = steps.init_state(tcfg, 0, "cpu")["params"]
+    params = steps.init_params(tcfg, 0, "cpu")
     with pytest.raises(ValueError, match="StepGraphs"):
         serve.generate(tcfg, params, torch.zeros((1, 3), dtype=torch.int64),
                        max_new=2, cache_len=5)

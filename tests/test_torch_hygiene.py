@@ -55,10 +55,15 @@ def test_port_sources_have_no_jax_or_repro_imports():
 
 
 def test_the_serving_modules_of_every_family_are_covered():
-    """The scans above reach the encoder-decoder, the frontends and the
-    new configs (no list to keep: every file under the port is walked)."""
+    """The scans above reach the encoder-decoder, the frontends, the
+    configs and the training modules (no list to keep: every file under
+    the port is walked)."""
     names = {str(p.relative_to(PORT)) for p in _port_files()
              if p.is_relative_to(PORT)}
     assert {"models/encdec.py", "models/frontends.py", "models/lm.py",
             "configs/jamba_1_5_large.py", "configs/whisper_base.py",
-            "configs/internvl2_26b.py", "launch/steps.py"} <= names
+            "configs/internvl2_26b.py", "launch/steps.py",
+            "launch/train.py", "optim/adamw.py", "optim/adafactor.py",
+            "optim/schedule.py", "optim/compression.py",
+            "data/pipeline.py", "checkpoint/ckpt.py",
+            "runtime/fault_tolerance.py"} <= names

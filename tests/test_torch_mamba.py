@@ -363,7 +363,7 @@ def test_entry_points_run_on_the_card_unless_told_otherwise(cfgs,
     out = serve.main(argv + ["--device", "cpu"])
     assert out.shape == (2, 3)
     assert "generated 6 tokens on cpu" in capsys.readouterr().out
-    params = steps.init_state(cfgs[1], 0, "cpu")["params"]
+    params = steps.init_params(cfgs[1], 0, "cpu")
     assert {k: v.device.type for k, v in flatten(params).items()} \
         == dict.fromkeys(flatten(lm.model_specs(cfgs[1])), "cpu")
 
