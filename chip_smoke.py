@@ -163,10 +163,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      elements apart, C = 2304, K = 4) of both Mamba-2 paths below, at
      Jamba's (rows 33920 apart, C = 17408) of both of its paths, and at
      the edge lengths L = 1, 2, 3, 513 at Mamba-2's width, in fp32 and
-     bf16, then in fp16 at each (no path runs it), against its plain
-     version
-     within ``tolerance(dtype)``, with the same times as the kernel phase
-     and ``F.conv1d(groups=C)`` as the library call;
+     bf16, then in fp16 at each (no path runs it), then at a ragged class
+     (``CONV1D_RAGGED``: L 333, K 3, a view at an odd channel offset, so
+     one channel a thread) in fp32 and bf16, bitwise its plain version,
+     with its plan (channels a thread, steps walked, threads, blocks,
+     halo share), the same times as the kernel phase and
+     ``F.conv1d(groups=C)`` as the library call; then its backward,
+     ``causal_conv1d_bwd``, at the train class (4, 1024, 2304) in fp32,
+     bf16 and fp16 and at the ragged class in fp32 and bf16, dx, dw and
+     db bitwise ``ref.causal_conv1d_bwd`` at the plan's tile, beside one
+     ``aten.convolution_backward(groups=C)`` call;
    - ``mamba2_370m`` and ``qwen2_0_5b``, serving at the published dtype
      (bf16 over fp32 master weights): batch 4, prompt 1024 (4 SSD
      chunks), 32 new tokens, replayed and eager; the launches per traced
@@ -239,11 +245,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    - training, after the serving lines: ``causal_conv1d_grad``, the
      kernel's gradient at the train class (4, 1024, 2304), K 4, x the
      xBC view, in fp32 and bf16: the wrapper under autograd (the
-     ``CausalConv1d`` Function: dx by the forward kernel on the reversed
-     sequence, dw and db plain reductions) against the plain version's
-     autograd, dx, dw and db within ``tolerance(dtype)``, forward plus
-     backward timed by graph replay beside the plain path,
-     ``F.conv1d(groups=C)`` with its autograd and the byte bound;
+     ``CausalConv1d`` Function: one forward and one ``causal_conv1d_bwd``
+     launch) against the plain version's autograd, dx, dw and db within
+     ``tolerance(dtype)``, dx bitwise the forward kernel on the reversed
+     dy, forward plus backward timed by graph replay beside the plain
+     path, ``F.conv1d(groups=C)`` with its autograd and the byte bound;
      ``optim``: ``adamw.update`` and ``adafactor.update`` on mamba2-370m's
      11 leaf shapes in fp32, three seeded steps, within 2e-5 of the CPU,
      one AdamW update of the whole tree timed against its byte bound
@@ -262,8 +268,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      remat="full") for 20 steps of 4 x 1024 tokens from a 16-token
      vocabulary, peak lr 1e-3, one checkpoint at step 20: every loss
      finite, the last 5 losses' mean at least 0.2 below the first 5's,
-     ``causal_conv1d`` exactly 144 launches a step (48 layers: the
-     forward, its rematerialized recompute and dx), the checkpoint
+     ``causal_conv1d`` exactly 96 launches a step (48 layers: the
+     forward and its rematerialized recompute) and ``causal_conv1d_bwd``
+     exactly 48 (dx, dw and db; the 2-layer and resume lines by the same
+     rule, ``train_launches``), the checkpoint
      restored with its digest checked bitwise the live state; the median
      step ms (steps 3-20), tokens/s, peak device memory, save and restore
      seconds, and the step's bound;
@@ -272,7 +280,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      ms, device operations, the kernels that take the most time), and one
      for the main train path: one step and its gradients alone (the
      optimizer's share), the top kernels, ``causal_conv1d``'s forward,
-     recompute and dx;
+     recompute and backward;
 8. the ``host_split`` line, after every timed line (a profiler session
    slows later graph replays): where one eager tuned ResNet-18 run's host
    time goes, by ``torch.profiler`` (host time inside aten ops against the
@@ -285,7 +293,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    plan splits the contraction; the launches are those of the engine
    phases' traced forwards and of the LM and training runs
    (``causal_conv1d``'s ``train``: its launches a train step and its
-   forward-plus-backward times);
+   forward-plus-backward times; ``causal_conv1d_bwd`` per train step, at
+   the train class in the main path's dtype times its 48 launches);
 10. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -344,7 +353,14 @@ KERNEL_INFO = {
         "src/repro/kernels/winograd_conv.py:97"),
     "causal_conv1d": ("src/repro_torch/csrc/causal_conv1d.cu",
                       "src/repro/kernels/causal_conv1d.py:34"),
+    "causal_conv1d_bwd": (
+        "src/repro_torch/csrc/causal_conv1d.cu",
+        "none: the reference defines no backward kernel (no custom_vjp in "
+        "src/repro); JAX's autodiff differentiates "
+        "src/repro/kernels/causal_conv1d.py:34"),
 }
+# the two kernels of causal_conv1d.cu, whose lines the LM section runs
+CONV1D_KERNELS = ("causal_conv1d", "causal_conv1d_bwd")
 # the plan algorithm each kernel serves
 KERNEL_OF = {"ilpm": "ilpm_conv", "pointwise": "pointwise_conv",
              "depthwise": "depthwise_conv",
@@ -397,7 +413,7 @@ RAGGED_CONV = (("pointwise_conv", ("ragged", 15, 17, 12, 20, 1, 2)),
 # bitwise; im2col's and the output transform's lines carry their launch
 # plans
 BITWISE_KERNELS = ("im2col_unroll", "winograd_input_transform",
-                   "winograd_output_transform")
+                   "winograd_output_transform", *CONV1D_KERNELS)
 RAGGED_BITWISE = (("im2col_unroll", ("ragged", 9, 11, 6, 20, 3, 1)),
                   ("winograd_input_transform", ("ragged", 10, 14, 12)),
                   ("winograd_output_transform", ("ragged", 10, 14, 10)))
@@ -460,6 +476,10 @@ LM_PATHS = {"mamba2_370m": "bfloat16", "mamba2_370m/fp32": "float32"}
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 PARITY_PROMPT, PARITY_STEPS = 300, 8
 EDGE_LENGTHS = (1, 2, 3, 513)
+# causal_conv1d's ragged class, forward and backward: L not a multiple of
+# any walk, K 3, C 1030 at channel offset 3 of rows 1037 apart, so every
+# dtype takes one channel a thread, (B, L, C, K, row stride, offset)
+CONV1D_RAGGED = (2, 333, 1030, 3, 1037, 3)
 # The GQA attention LM at published width: it launches none of the
 # port's kernels (the reference computes attention and the FFN in jnp),
 # so its lines require NO_LAUNCHES; one attention call at its head shape
@@ -501,14 +521,15 @@ MEL_FRAMES, MEL_BINS, IMAGE_SIDE, PATCH = 3000, 80, 448, 14
 # 512 (two SSD chunks); the crash-resume run of the reference's
 # test_crash_resume_bitwise on the same 2 layers; both optimizers alone on
 # mamba2-370m's 11 leaf shapes; causal_conv1d's gradient at the train
-# class. Each Mamba layer's train step launches causal_conv1d three times:
-# the forward, its rematerialized recompute and dx.
+# class. Each Mamba layer's train step launches causal_conv1d's forward
+# twice (the forward and its rematerialized recompute) and its backward
+# once (dx, dw and db).
 TRAIN_PATH, TRAIN_PARITY_PATH = "train/mamba2_370m", \
     "train/mamba2_370m_2l/fp32"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_VOCAB = \
     20, 4, 1024, 1e-3, 16
 TRAIN_DROP, TRAIN_TIMED_FROM = 0.2, 2  # step ms: steps 3-20
-CONV_PER_LAYER_STEP = 3
+CONV_FWD_PER_LAYER_STEP, CONV_BWD_PER_LAYER_STEP = 2, 1
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 512
 TRAIN_PARITY_STEPS, TRAIN_BOUND = 2, 1e-4
 # the parameters after a step are held where the CPU's new first moment
@@ -744,7 +765,7 @@ def kernel_setup(kernel, shape, dtype, gen):
         return (torch.randn(*dims, device=dev, generator=gen) * scale).to(
             dtype)
 
-    if kernel == "causal_conv1d":
+    if kernel in CONV1D_KERNELS:
         B, L, C, K, row, lo = shape
         # the xBC slice of a wider in-projection output, as the model
         # passes it: rows `row` elements apart
@@ -752,15 +773,37 @@ def kernel_setup(kernel, shape, dtype, gen):
         w = randn(K, C, scale=K ** -0.5)
         b = randn(C, scale=0.1)
         w_lib = w.t()[:, None]
+        line = {"B": B, "L": L, "C": C, "K": K, "row_stride": row,
+                "offset": lo}
+        if kernel == "causal_conv1d":
+            def library():
+                return F.conv1d(x.transpose(1, 2), w_lib, b, padding=K - 1,
+                                groups=C)[..., :L]
+            # K multiplies and K adds (the bias's included) per output
+            return dict(fn=causal_conv1d.causal_conv1d,
+                        plain=causal_conv1d.plain, args=(x, w, b), kw={},
+                        library=library, inputs=[x, w, b],
+                        flops=2 * K * B * L * C, shape=line)
+        dy = randn(B, L, C)
+        tile = causal_conv1d.plan(B, L, C, K, dtype, causal_conv1d.align_bytes(
+            dy, x, w), backward=True).steps
+        # one cuDNN call: dy padded to the conv's L + K - 1 outputs, x
+        # and the (C, 1, K) filter as F.conv1d takes them
+        gy = F.pad(dy.transpose(1, 2), (0, K - 1)).contiguous()
+        xt, wl = x.transpose(1, 2), w_lib.contiguous()
 
         def library():
-            return F.conv1d(x.transpose(1, 2), w_lib, b, padding=K - 1,
-                            groups=C)[..., :L]
-        # K multiplies and K adds (the bias's included) per output
-        return dict(fn=causal_conv1d.causal_conv1d, plain=causal_conv1d.plain,
-                    args=(x, w, b), kw={}, library=library,
-                    inputs=[x, w, b], flops=2 * K * B * L * C,
-                    shape={"B": B, "L": L, "C": C, "K": K, "row_stride": row})
+            return torch.ops.aten.convolution_backward(
+                gy, xt, wl, [C], [1], [K - 1], [1], False, [0], C,
+                [True, True, True])
+
+        def plain(dy, x, w, has_bias):
+            return causal_conv1d.plain_bwd(dy, x, w, has_bias, tile)
+        # dx: K multiplies and adds an element; dw: K; db: one add
+        return dict(fn=causal_conv1d.causal_conv1d_bwd, plain=plain,
+                    args=(dy, x, w, True), kw={}, library=library,
+                    inputs=[dy, x, w], flops=(4 * K + 1) * B * L * C,
+                    shape=line)
 
     def bn(n):  # folded BN: non-zero scale and bias
         return (torch.rand(n, device=dev, generator=gen) + 0.5,
@@ -1004,13 +1047,23 @@ def tile_plan(kernel, args, kw, y):
     output tile rows and columns, channels, threads and which kernel, the
     3x3 one or the generic), of the im2col unroll (pixels a CTA,
     channels, shared memory and CTAs) and of the Winograd output transform
-    (tiles a CTA, channels, unit bytes, threads and CTAs).
+    (tiles a CTA, channels, unit bytes, threads and CTAs) and of the causal
+    conv's forward and backward (channels a thread, steps a thread walks,
+    threads a block, blocks, and the share of loads that re-read a halo).
     ``y`` is the call's output: (batch, M, N) for gemm, (B, Ho, Wo, K) for
     a conv."""
-    from repro_torch.kernels import depthwise_conv, direct_conv, \
-        fused_block, gemm, ilpm_conv, im2col_conv, libdnn_conv, \
+    from repro_torch.kernels import causal_conv1d, depthwise_conv, \
+        direct_conv, fused_block, gemm, ilpm_conv, im2col_conv, libdnn_conv, \
         pointwise_conv, winograd_conv
 
+    if kernel in CONV1D_KERNELS:
+        x, w = args[:2] if kernel == "causal_conv1d" else args[1:3]
+        B, L, C = x.shape
+        p = causal_conv1d.plan(B, L, C, w.shape[0], x.dtype,
+                               causal_conv1d.align_bytes(*args[:3]),
+                               backward=kernel == "causal_conv1d_bwd")
+        return {**p._asdict(),
+                "halo_share": causal_conv1d.halo_share(p, L, w.shape[0])}
     if kernel == "winograd_output_transform":
         m, H, W = args
         p = winograd_conv.plan(m, H, W)
@@ -1109,17 +1162,22 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
     y = fn(*args, **kw)
     torch.cuda.synchronize()
     p = plain(*args, **kw)
-    err = (y.float() - p.float()).abs().max().item()
-    rel = err / p.float().abs().max().item()
-    nbytes = sum(t.numel() * t.element_size() for t in case["inputs"]) \
-        + y.numel() * y.element_size()
+    # a backward returns (dx, dw, db): each held against the plain one's
+    ys, ps = (y, p) if isinstance(y, tuple) else ((y,), (p,))
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(ys, ps))
+    rel = max((a.float() - r.float()).abs().max().item()
+              / r.float().abs().max().item() for a, r in zip(ys, ps))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*case["inputs"], *ys))
     name = canonical(dtype)
     t_ops = case["flops"] / peaks[name]
     t_bytes = nbytes / peaks["mem_bw"]
     kernel_ms = time_ms(lambda: fn(*args, **kw))
     line = {
         "phase": "kernel", "kernel": kernel, "dtype": name,
-        "shape": {**case["shape"], "out": list(y.shape)},
+        "shape": {**case["shape"], "out": [list(t.shape) for t in ys]
+                  if len(ys) > 1 else list(y.shape)},
         "max_rel_err": rel, "tol": tolerance(name), "max_abs_err": err,
         "kernel_ms": kernel_ms,
         "call_ms": call_ms(lambda: fn(*args, **kw)),
@@ -1130,7 +1188,7 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     line["frac_of_bound"] = line["bound_ms"] / kernel_ms
-    if kernel in (*PLANNED_KERNELS, "im2col_unroll",
+    if kernel in (*PLANNED_KERNELS, *CONV1D_KERNELS, "im2col_unroll",
                   "winograd_output_transform"):
         line["plan"] = tile_plan(kernel, args, kw, y)
     if kernel == "fused_inverted_residual" and dtype == torch.float32:
@@ -1142,7 +1200,7 @@ def kernel_case(kernel, shape, dtype, gen, peaks):
                 f"fused_inverted_residual {case['shape']}: not bitwise "
                 f"equal to the per-layer chain: {(y - chain).abs().max()}")
     if kernel in BITWISE_KERNELS:  # bitwise or wrong
-        line["bitwise_equal"] = torch.equal(y, p)
+        line["bitwise_equal"] = all(map(torch.equal, ys, ps))
         require(line["bitwise_equal"],
                 f"{kernel} {name} {case['shape']}: not bitwise equal to "
                 "its plain version")
@@ -2441,9 +2499,9 @@ def conv1d_summary(rows, launches, peaks, grad_lines, train_launches):
     path's dtype times its launches per prefill, summed over the paths
     and per path; ``launches`` maps each path to its main-path run's
     counts and the prefills they cover (the traced ones, and the parity
-    path's eager one). ``train`` adds the training paths: their launches
-    (``train_launches``, one run each) and a step's, and the forward
-    plus backward times of the gradient line (``grad_lines``) a
+    path's eager one). ``train`` adds the training paths: their forward
+    launches (``train_launches``, one run each) and a step's, and the
+    forward plus backward times of the gradient line (``grad_lines``) a
     dtype."""
     source, replaces = KERNEL_INFO["causal_conv1d"]
 
@@ -2459,7 +2517,7 @@ def conv1d_summary(rows, launches, peaks, grad_lines, train_launches):
         "name": "causal_conv1d", "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": sum(n["causal_conv1d"] for n, _ in launches.values())
-        + sum(train_launches.values()),
+        + sum(n["causal_conv1d"] for n in train_launches.values()),
         "launches_per_prefill": {
             path: n["causal_conv1d"] / k for path, (n, k) in launches.items()},
         "parity": "ok", "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2473,15 +2531,43 @@ def conv1d_summary(rows, launches, peaks, grad_lines, train_launches):
             for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms")}
             for path in launches},
         "train": {
-            "launches": train_launches,
-            "launches_per_step": {
-                TRAIN_PATH: train_launches[TRAIN_PATH] / TRAIN_STEPS},
+            "launches": {path: n["causal_conv1d"]
+                         for path, n in train_launches.items()},
+            "launches_per_step": {TRAIN_PATH: train_launches[TRAIN_PATH][
+                "causal_conv1d"] / TRAIN_STEPS},
             "fwd_bwd_at": [TRAIN_BATCH, TRAIN_SEQ],
             "fwd_bwd": {r["dtype"]: {
                 "ms": r["fwd_bwd_ms"], "plain_ms": r["plain_fwd_bwd_ms"],
                 "library_ms": r["library_fwd_bwd_ms"],
                 "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"]}
                 for r in grad_lines}}}
+
+
+def conv1d_bwd_summary(rows, train_launches, dtype):
+    """The ``kernels`` entry of causal_conv1d_bwd: its line at the train
+    class in the main train path's ``dtype`` times its launches a step
+    (one a Mamba layer), with one call's times in each dtype;
+    ``launches`` the training runs' counts (``train_launches``)."""
+    source, replaces = KERNEL_INFO["causal_conv1d_bwd"]
+    step = {r["dtype"]: r for r in rows if r["launches_per_step"]}
+    main = step[dtype]
+    n = main["launches_per_step"][TRAIN_PATH]
+    return {
+        "name": "causal_conv1d_bwd", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(t["causal_conv1d_bwd"]
+                        for t in train_launches.values()),
+        "launches_per_step": {TRAIN_PATH: train_launches[TRAIN_PATH][
+            "causal_conv1d_bwd"] / TRAIN_STEPS},
+        "train": {path: t["causal_conv1d_bwd"]
+                  for path, t in train_launches.items()},
+        "parity": "ok", "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["kernel_ms"] * n, "plain_ms": main["plain_ms"] * n,
+        "bound_ms": main["bound_ms"] * n, "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"] * n,
+        "per_call": {d: {key: r[key] for key in (
+            "kernel_ms", "bound_ms", "frac_of_bound", "plain_ms",
+            "library_ms")} for d, r in step.items()}}
 
 
 def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
@@ -2636,12 +2722,13 @@ def conv_grad_phase(cfg, peaks):
     """causal_conv1d's gradient at the train class of Mamba-2, (4, 1024,
     2304), K 4, x the xBC view of an in-projection-shaped buffer, in
     fp32 and bf16: the wrapper under autograd (the ``CausalConv1d``
-    Function: the kernel forward, dx by the kernel on the reversed
-    sequence, dw and db plain reductions) against the plain version's
-    autograd, dx, dw and db within ``tolerance(dtype)``; forward plus
-    backward timed by graph replay for the kernel path, the plain path
-    and ``F.conv1d(groups=C)`` with its autograd, beside the byte bound
-    (x, dy, y and dx moved once)."""
+    Function: one forward launch and one ``causal_conv1d_bwd`` call for
+    dx, dw and db) against the plain version's autograd, dx, dw and db
+    within ``tolerance(dtype)``, and dx bitwise the forward kernel run on
+    the reversed dy (how the backward computed dx before it had a kernel);
+    forward plus backward timed by graph replay for the kernel path, the
+    plain path and ``F.conv1d(groups=C)`` with its autograd, beside the
+    byte bound (x, dy, y and dx moved once)."""
     from repro_torch.core.dtypes import tolerance
     from repro_torch.kernels import causal_conv1d as cc
     from repro_torch.kernels import ref
@@ -2669,18 +2756,23 @@ def conv_grad_phase(cfg, peaks):
                 return torch.autograd.grad(f(x, w, b), (x, w, b), dy)
             return run
 
-        cc.causal_conv1d.launches = 0
+        cc.causal_conv1d.launches = cc.causal_conv1d_bwd.launches = 0
         got = fwd_bwd(cc.causal_conv1d)()
-        launches = cc.causal_conv1d.launches
+        launches = {k: getattr(cc, k).launches for k in CONV1D_KERNELS}
         want = fwd_bwd(ref.causal_conv1d)()
+        flip = torch.flip(cc.causal_conv1d(
+            torch.flip(dy, (1,)).contiguous(), w.detach()), (1,))
         errs = {name: rel_err(a.float(), r.float())
                 for name, a, r in zip(("dx", "dw", "db"), got, want)}
         tol = tolerance(dtype)
         name = str(dtype).replace("torch.", "")
-        require(launches == 2, f"causal_conv1d_grad {name}: {launches} "
-                "launches for a forward and a backward, want 2")
+        require(launches == dict.fromkeys(CONV1D_KERNELS, 1),
+                f"causal_conv1d_grad {name}: launches {launches} for a "
+                "forward and a backward, want one of each")
         require(all(e <= tol for e in errs.values()),
                 f"causal_conv1d_grad {name}: {errs} > {tol}")
+        require(torch.equal(got[0], flip), f"causal_conv1d_grad {name}: dx "
+                "not bitwise the forward kernel on the reversed dy")
         nbytes = 4 * B * L * C * buf.element_size() \
             + 2 * (K + 1) * C * w.element_size()
         flops = 2 * K * B * L * C * 3 + B * L * C
@@ -2692,6 +2784,7 @@ def conv_grad_phase(cfg, peaks):
             "entry": "repro_torch.kernels.causal_conv1d.causal_conv1d "
                      "under autograd (CausalConv1d)",
             "launches_fwd_bwd": launches, "tol": tol,
+            "dx_bitwise_equal_flip_path": True,
             **{f"{k}_max_rel_err": v for k, v in errs.items()},
             "max_abs_err": max((a.float() - r.float()).abs().max().item()
                                for a, r in zip(got, want)),
@@ -2700,7 +2793,7 @@ def conv_grad_phase(cfg, peaks):
             "library_fwd_bwd_ms": time_ms(fwd_bwd(library)),
             "library": "F.conv1d(groups=C, padding=K-1)[..., :L] with "
                        "its autograd", **bound})
-        del buf, w, b, dy, got, want
+        del buf, w, b, dy, got, want, flip
     return lines
 
 
@@ -2770,6 +2863,15 @@ def _to(tree, device):
     return tree_map(lambda v: v.to(device), tree)
 
 
+def train_launches(cfg, steps) -> dict:
+    """causal_conv1d's forward and backward launches in ``steps`` train
+    steps of ``cfg``: per Mamba layer a step, the forward and its
+    rematerialized recompute, and one backward."""
+    layers = mamba_layers(cfg) * steps
+    return {"causal_conv1d": CONV_FWD_PER_LAYER_STEP * layers,
+            "causal_conv1d_bwd": CONV_BWD_PER_LAYER_STEP * layers}
+
+
 def train_parity_phase(cfg, counters):
     """The first ``TRAIN_PARITY_LAYERS`` layers of the full-width model
     (a leaf is seeded by its path, so these are the full draw's first
@@ -2828,8 +2930,7 @@ def train_parity_phase(cfg, counters):
         host = new_host
         state = _to(new_host, "cuda")
     launches = read_counts(counters)
-    want = {**NO_LAUNCHES, "causal_conv1d": 2 * TRAIN_PARITY_STEPS
-            * CONV_PER_LAYER_STEP * mamba_layers(cfg2)}
+    want = {**NO_LAUNCHES, **train_launches(cfg2, 2 * TRAIN_PARITY_STEPS)}
     require(launches == want, f"{TRAIN_PARITY_PATH}: launches {launches}, "
             f"want {want} (loss_and_grads and the step, each step)")
     return {"phase": "train", "path": TRAIN_PARITY_PATH, "config": cfg.name,
@@ -2854,7 +2955,8 @@ def resume_phase(cfg, counters):
     deterministic: the two states bitwise equal) and once with a
     ``TransientFailure`` injected at step 9 (one restart, from step 8's
     checkpoint): every leaf of the state bitwise the uninterrupted
-    run's."""
+    run's; causal_conv1d's launches by ``train_launches`` over the 37
+    steps the three runs take."""
     import tempfile
 
     from repro_torch.data import TokenPipeline
@@ -2885,6 +2987,14 @@ def resume_phase(cfg, counters):
         ref_b = run(f"{tmp}/b")
         ft = run(f"{tmp}/ft", injector, max_failures=2)
     wall_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    # the two uninterrupted runs, then the resumed one: its steps up to the
+    # failure, then again from the last checkpoint before it
+    ran = 2 * RESUME_STEPS + RESUME_FAIL_AT + RESUME_STEPS \
+        - RESUME_FAIL_AT // RESUME_EVERY * RESUME_EVERY
+    want = {**NO_LAUNCHES, **train_launches(cfg2, ran)}
+    require(launches == want, f"train/resume: launches {launches} over "
+            f"{ran} steps, want {want}")
     a, b, f = (flatten(r.state) for r in (ref_a, ref_b, ft))
     differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
     require(not differ, f"train/resume: two uninterrupted runs differ at "
@@ -2900,7 +3010,8 @@ def resume_phase(cfg, counters):
             "ckpt_every": RESUME_EVERY, "failure_at": RESUME_FAIL_AT,
             "restarts": ft.restarts, "uninterrupted_runs_bitwise_equal": True,
             "resumed_bitwise_equal": True, "leaves": len(a),
-            "launches": read_counts(counters)["causal_conv1d"],
+            "steps_run": ran,
+            "launches": {k: launches[k] for k in CONV1D_KERNELS},
             "wall_s": wall_s,
             "reduced": {"num_layers": f"{cfg.num_layers} -> "
                                       f"{TRAIN_PARITY_LAYERS}",
@@ -2913,8 +3024,9 @@ def train_phase(cfg, counters, peaks):
     ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens from
     ``TokenPipeline(TRAIN_VOCAB, ...)``, peak lr ``TRAIN_LR``, one
     checkpoint at the last step into a temporary directory; the counters
-    set to 0 before and read after: causal_conv1d exactly
-    ``CONV_PER_LAYER_STEP`` a Mamba layer a step, nothing else. Every
+    set to 0 before and read after: causal_conv1d's forward exactly
+    ``CONV_FWD_PER_LAYER_STEP`` and its backward exactly
+    ``CONV_BWD_PER_LAYER_STEP`` a Mamba layer a step, nothing else. Every
     loss finite, the last 5 losses' mean below the first 5's by
     ``TRAIN_DROP``; the checkpoint restored with its digest checked,
     bitwise the live state. Returns (line, the profile thunks: one step
@@ -2949,8 +3061,7 @@ def train_phase(cfg, counters, peaks):
         CheckpointManager(Path(tmp) / "again", async_save=False).save(
             TRAIN_STEPS, run.state)
         save_s = time.perf_counter() - t0
-    want = {**NO_LAUNCHES, "causal_conv1d": TRAIN_STEPS
-            * CONV_PER_LAYER_STEP * mamba_layers(cfg)}
+    want = {**NO_LAUNCHES, **train_launches(cfg, TRAIN_STEPS)}
     require(launches == want, f"{TRAIN_PATH}: launches {launches}, want "
             f"{want}")
     losses = [run.metrics[i]["loss"] for i in range(TRAIN_STEPS)]
@@ -2978,7 +3089,8 @@ def train_phase(cfg, counters, peaks):
             "steps": TRAIN_STEPS, "peak_lr": TRAIN_LR,
             "warmup": train.warmup_steps(TRAIN_STEPS),
             "launches": launches,
-            "launches_per_step": launches["causal_conv1d"] / TRAIN_STEPS,
+            "launches_per_step": {k: launches[k] / TRAIN_STEPS
+                                  for k in CONV1D_KERNELS},
             "losses": losses, "loss_drop": drop,
             "grad_norms": [run.metrics[i]["grad_norm"]
                            for i in range(TRAIN_STEPS)],
@@ -3007,9 +3119,10 @@ def train_profile(step, grads, layers, top=10):
     """One train step under torch.profiler, then its ``loss_and_grads``
     alone: the device busy ms of each, the optimizer's and the clip's
     share (1 - the gradients' busy ms over the step's), the top kernels
-    of the step, and causal_conv1d's kernels split by their order (a
-    step's first ``layers`` are the forward; in the backward each layer's
-    recompute comes before its dx)."""
+    of the step, and causal_conv1d's device kernels: the forward's split
+    by their order (a step's first ``layers`` are the forward, the rest
+    the backward's recomputes), and the backward's (the pass and the
+    ordered sum of its partials, two a layer)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3029,17 +3142,20 @@ def train_profile(step, grads, layers, top=10):
     for _, name, t in ev:
         ms[name] += t
         calls[name] += 1
-    conv = [t for _, name, t in ev if "causal_conv1d" in name]
-    fwd, back = conv[:layers], conv[layers:]
+    fwd = [t for _, name, t in ev if "causal_conv1d_fwd" in name]
+    bwd = [t for _, name, t in ev if "causal_conv1d_bwd" in name]
     return {"wall_ms_profiled": wall, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall,
             "device_launches": len(ev),
             "loss_and_grads_busy_ms": gbusy,
             "optimizer_and_clip_share": 1 - gbusy / busy,
             "causal_conv1d": {
-                "launches": len(conv), "ms": sum(conv),
-                "share": sum(conv) / busy, "forward_ms": sum(fwd),
-                "recompute_ms": sum(back[0::2]), "dx_ms": sum(back[1::2])},
+                "device_kernels": len(fwd) + len(bwd),
+                "ms": sum(fwd) + sum(bwd),
+                "share": (sum(fwd) + sum(bwd)) / busy,
+                "forward_ms": sum(fwd[:layers]),
+                "recompute_ms": sum(fwd[layers:]),
+                "backward_ms": sum(bwd), "backward_kernels": len(bwd)},
             "top": [{"name": name[:100], "ms": t, "launches": calls[name]}
                     for name, t in ms.most_common(top)]}
 
@@ -3195,7 +3311,8 @@ def main() -> None:
                     winograd_conv.winograd_input_transform,
                 "winograd_output_transform":
                     winograd_conv.winograd_output_transform,
-                "causal_conv1d": causal_conv1d.causal_conv1d}
+                "causal_conv1d": causal_conv1d.causal_conv1d,
+                "causal_conv1d_bwd": causal_conv1d.causal_conv1d_bwd}
     require(set(counters) == set(KERNEL_INFO), "a kernel has no counter")
     images = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (ENGINE_IMAGES, 224, 224, 3)).astype(np.float32), device="cuda")
@@ -3363,8 +3480,27 @@ def main() -> None:
                 line["launches_per_prefill"] = dict(paths)
                 emit(line)
                 conv_results.append(line)
-    bad = [(r["dtype"], r["shape"]) for r in conv_results
-           if not r["max_rel_err"] <= r["tol"]]
+    # then the forward's ragged class, and the backward at the train class
+    # in fp32, bf16 and fp16 and at the ragged class
+    train_class = conv1d_class(lcfg, TRAIN_BATCH, TRAIN_SEQ)
+    extra = [("causal_conv1d", CONV1D_RAGGED, dtype)
+             for dtype in (torch.float32, torch.bfloat16)]
+    extra += [("causal_conv1d_bwd", train_class, dtype)
+              for dtype in (torch.float32, torch.bfloat16, torch.float16)]
+    extra += [("causal_conv1d_bwd", CONV1D_RAGGED, dtype)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for kernel, shape, dtype in extra:
+        line = kernel_case(kernel, shape, dtype, conv_gen, peaks)
+        if kernel == "causal_conv1d":
+            line["launches_per_prefill"] = {}
+        else:
+            line["launches_per_step"] = {TRAIN_PATH: CONV_BWD_PER_LAYER_STEP
+                                         * mamba_layers(lcfg)} \
+                if shape == train_class else {}
+        emit(line)
+        conv_results.append(line)
+    bad = [(r["kernel"], r["dtype"], r["shape"]) for r in conv_results
+           if not (r["max_rel_err"] <= r["tol"] and r["bitwise_equal"])]
     require(not bad, f"causal_conv1d disagrees with its plain version: {bad}")
     lm_launches, profiles = {}, []
 
@@ -3423,11 +3559,13 @@ def main() -> None:
         emit(line)
     emit(optim_phase(lcfg, peaks))
     line = train_parity_phase(lcfg, counters)
-    train_launches = {TRAIN_PARITY_PATH: line["launches"]["causal_conv1d"]}
+    train_launches = {TRAIN_PARITY_PATH: {k: line["launches"][k]
+                                          for k in CONV1D_KERNELS}}
     emit(line)
     emit(resume_phase(lcfg, counters))
     line, thunks = train_phase(lcfg, counters, peaks)
-    train_launches[TRAIN_PATH] = line["launches"]["causal_conv1d"]
+    train_launches[TRAIN_PATH] = {k: line["launches"][k]
+                                  for k in CONV1D_KERNELS}
     profiles.append((line["path"], thunks))
     emit(line)
     # after every timed LM line: one replayed and one eager decode step
@@ -3447,9 +3585,13 @@ def main() -> None:
     # causal_conv1d over one prefill of each LM path in its dtype ---------
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        if name == "causal_conv1d":
-            kernels.append(conv1d_summary(conv_results, lm_launches, peaks,
-                                          grad_lines, train_launches))
+        if name in CONV1D_KERNELS:
+            rows = [r for r in conv_results if r["kernel"] == name]
+            kernels.append(
+                conv1d_summary(rows, lm_launches, peaks, grad_lines,
+                               train_launches)
+                if name == "causal_conv1d" else
+                conv1d_bwd_summary(rows, train_launches, lcfg.dtype))
             continue
         rows = [r for r in results if r["kernel"] == name]
 

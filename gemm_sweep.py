@@ -72,9 +72,30 @@ plain version exactly, with each option's CTAs, threads and profiler
 device time, the library call's, and with ``--parent`` the earlier tree's
 kernel's (it must equal the plain version bitwise too: it rounds the
 epilogue once).
+
+    python3 gemm_sweep.py conv1d [--parent DIR]
+
+times ``causal_conv1d`` at its classes (S and T: Mamba-2's 4 x 1024 x 2304
+prefill and train class, bf16, and T in fp32; F: its 1 x 300 fp32 prefill;
+J and J2: Jamba's 4 x 1024 x 17408 bf16 and 1 x 300 fp32; all on the xBC
+view of the in-projection, K 4; and a ragged class whose view forces a
+narrow vector) at every walk and block size, at the pick's vector and at
+half of it, beside the pick, each option equal to the plain version, with
+the ``F.conv1d(groups=C)`` call and a copy of the view (the same bytes);
+then ``causal_conv1d_bwd`` at T (fp32, bf16) and the ragged class the same
+way (the pick bitwise the plain version at its tile, the other options
+within ``tolerance``) beside one ``aten.convolution_backward`` call, and
+the forward plus backward beside ``F.conv1d`` with its autograd, then
+(last: a profiler session slows later graph replays) the profiler's device
+time of the backward's two kernels; with ``--parent DIR`` (a checkout of
+an earlier tree) also that tree's forward kernel on the same inputs and
+its forward plus backward as its ``CausalConv1d`` computed it (dx by the
+forward kernel on the reversed dy, dw and db by eager reductions). The
+parent's kernel takes the entry point of ``_PARENT_ARGS``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import sys
 from pathlib import Path
@@ -174,7 +195,8 @@ def sweep(call, kc, kind, planned_split, tol):
             "fastest_split": min(ms, key=ms.get)}
 
 
-PARTS = ("gemm", "conv", "tile", "direct", "ir", "dw", "unroll", "wout")
+PARTS = ("gemm", "conv", "tile", "direct", "ir", "dw", "unroll", "wout",
+         "conv1d")
 
 
 def main() -> None:
@@ -212,6 +234,8 @@ def main() -> None:
         sweep_unroll(gen, parent)
     if "wout" in parts:
         sweep_output_transform(gen, parent)
+    if "conv1d" in parts:
+        sweep_conv1d(gen, parent)
 
 
 def sweep_gemm(gen):
@@ -539,17 +563,22 @@ OUTPUT_CLASSES = [(56, 56, 64), (28, 28, 128), (14, 14, 256), (10, 14, 10)]
 
 # The entry points of the kernels ``--parent`` builds, as the trees before
 # their redesigns declared them: the two gathers before their plans
-# (ef7b161), the output transform before its plan (4bd70e4).
-_PARENT_ARGS = {"im2col_unroll": (2, 8), "winograd_input_transform": (2, 4),
-                "winograd_output_transform": (4, 5)}
+# (ef7b161), the output transform before its plan (4bd70e4), the causal
+# conv before its plan (6349c9a): a dtype code, then the pointers, ints,
+# long longs and ints of each group, then a stream.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PARENT_ARGS = {
+    "im2col_unroll": [_I] + [_P] * 2 + [_I] * 8 + [_P],
+    "winograd_input_transform": [_I] + [_P] * 2 + [_I] * 4 + [_P],
+    "winograd_output_transform": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "causal_conv1d": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I] + [_P]}
 
 
 def parent_library(parent, kernels):
     """ctypes handle of ``kernels`` of the tree at ``parent`` (their
-    ``csrc/<kernel>.cu``, whose entry points take a dtype code, the
-    pointers and the ints of ``_PARENT_ARGS`` and a stream), built with the
-    port's nvcc flags into ``_build/parent-<hash>/``."""
-    import ctypes
+    ``csrc/<kernel>.cu``, whose entry points take the arguments of
+    ``_PARENT_ARGS``), built with the port's nvcc flags into
+    ``_build/parent-<hash>/``."""
     import hashlib
     import subprocess
 
@@ -567,11 +596,8 @@ def parent_library(parent, kernels):
                         str(lib), *map(str, srcs)], check=True,
                        capture_output=True)
     handle = ctypes.CDLL(str(lib))
-    P, I = ctypes.c_void_p, ctypes.c_int
     for k in kernels:
-        ptrs, ints = _PARENT_ARGS[k]
-        getattr(handle, f"{k}_launch").argtypes = [I] + [P] * ptrs \
-            + [I] * ints + [P]
+        getattr(handle, f"{k}_launch").argtypes = _PARENT_ARGS[k]
     return handle
 
 
@@ -758,6 +784,197 @@ def sweep_output_transform(gen, parent):
                 line["device_us"]["parent"] = chip_smoke.device_us(
                     parent_call)
             print(json.dumps(line), flush=True)
+
+
+
+# causal_conv1d's classes: (B, L, C, K, row stride, channel offset) of the
+# xBC view and the dtype, by the names PERF.md's row 12 gives them
+CONV1D_CLASSES = {
+    "S": ((4, 1024, 2304, 4, 4384, 2048), torch.bfloat16),
+    "T/fp32": ((4, 1024, 2304, 4, 4384, 2048), torch.float32),
+    "F": ((1, 300, 2304, 4, 4384, 2048), torch.float32),
+    "J": ((4, 1024, 17408, 4, 33920, 16384), torch.bfloat16),
+    "J2": ((1, 300, 17408, 4, 33920, 16384), torch.float32),
+    "ragged/fp32": ((2, 333, 1030, 3, 1037, 3), torch.float32),
+    "ragged/bf16": ((2, 333, 1030, 3, 1037, 3), torch.bfloat16),
+}
+# the backward's: Mamba-2's train class (T; its bf16 is S's shape) and the
+# ragged class
+CONV1D_BWD_CLASSES = ("T/fp32", "S", "ragged/fp32", "ragged/bf16")
+
+
+def conv1d_inputs(shape, dt, gen):
+    """x (the xBC view of a wider buffer), w, b and dy of one class."""
+    B, L, C, K, row, lo = shape
+    x = torch.randn(B, L, row, device="cuda", generator=gen).to(dt)[
+        ..., lo:lo + C]
+    w = (torch.randn(K, C, device="cuda", generator=gen) * K ** -0.5).to(dt)
+    b = (torch.randn(C, device="cuda", generator=gen) * 0.1).to(dt)
+    dy = torch.randn(B, L, C, device="cuda", generator=gen).to(dt)
+    return x, w, b, dy
+
+
+def conv1d_label(vec, steps, threads):
+    return f"v{vec}:{steps}x{threads}"
+
+
+def conv1d_options(shape, dt, p):
+    """label -> plan fields: every walk and block size at the pick's
+    vector and at half of it."""
+    from repro_torch.kernels import causal_conv1d as cc
+
+    B, L, C = shape[:3]
+    return {conv1d_label(v, s, t): {
+                "vec": v, "steps": s, "threads": t,
+                "blocks": -(-(C // v * -(-L // s) * B) // t)}
+            for v in sorted({p.vec, max(p.vec // 2, 1)})
+            for s in cc.BWD_STEPS for t in cc.THREADS}
+
+
+def sweep_conv1d(gen, parent):
+    """``causal_conv1d``'s forward at ``CONV1D_CLASSES`` and its backward
+    at ``CONV1D_BWD_CLASSES`` (see the module's docstring), inputs from
+    ``gen``."""
+    import chip_smoke
+    import torch.nn.functional as F
+
+    from repro_torch.core.dtypes import tolerance
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import causal_conv1d as cc
+
+    peaks = chip_smoke.CARD_PEAKS["H100 80GB HBM3"]
+    print(json.dumps(chip_smoke.launch_floor()), flush=True)
+    old = parent_library(parent, ("causal_conv1d",)) if parent else None
+
+    def parent_conv(x, w, b):
+        """The parent tree's kernel: two channels a thread where aligned."""
+        B, L, C = x.shape
+        out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
+        pair = cc.align_bytes(x, w, b, out) >= 2 * x.element_size()
+        _build.check(old.causal_conv1d_launch(
+            _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr(), B, L, C,
+            w.shape[0], x.stride(0), x.stride(1),
+            2 if pair and C % 2 == 0 else 1, _build.stream(x.device)),
+            "parent causal_conv1d")
+        return out
+
+    def label(p):
+        return conv1d_label(p.vec, p.steps, p.threads)
+
+    plan_fn, profiled = cc.plan, {}
+    for name, (shape, dt) in CONV1D_CLASSES.items():
+        B, L, C, K, row, lo = shape
+        x, w, b, dy = conv1d_inputs(shape, dt, gen)
+        p = cc.plan(B, L, C, K, dt, cc.align_bytes(x, w, b))
+
+        def call(plain=False, x=x, w=w, b=b):
+            return (cc.plain if plain else cc.causal_conv1d)(x, w, b)
+        chip_smoke.require(torch.equal(call(), call(True)),
+                           f"causal_conv1d {name}: not the plain version")
+        w_lib = w.t()[:, None].contiguous()
+        nbytes = 2 * x.numel() * x.element_size() \
+            + (K + 1) * C * x.element_size()
+        size = str(dt).removeprefix("torch.")
+        line = {"kernel": "causal_conv1d", "class": name, "shape": shape,
+                "dtype": size, "plan": {**p._asdict(), "halo_share":
+                                        cc.halo_share(p, L, K)},
+                "pick": label(p),
+                **forced_sweep(call, cc, p, conv1d_options(shape, dt, p),
+                               0.0),
+                "library_ms": chip_smoke.time_ms(
+                    lambda x=x, w_lib=w_lib, b=b: F.conv1d(
+                        x.transpose(1, 2), w_lib, b, padding=K - 1,
+                        groups=C)[..., :L]),
+                "bound_ms": max(2 * K * B * L * C / peaks[size],
+                                nbytes / peaks["mem_bw"]) * 1e3,
+                # the same bytes moved by PyTorch's copy of the view
+                "copy_ms": chip_smoke.time_ms(
+                    lambda x=x, out=torch.empty_like(x, memory_format=
+                                                     torch.contiguous_format):
+                    out.copy_(x))}
+        if old is not None:
+            chip_smoke.require(torch.equal(parent_conv(x, w, b), call()),
+                               f"parent causal_conv1d {name}: differs")
+            line["parent_ms"] = chip_smoke.time_ms(
+                lambda x=x, w=w, b=b: parent_conv(x, w, b))
+        print(json.dumps(line), flush=True)
+        if name not in CONV1D_BWD_CLASSES:
+            continue
+        p = cc.plan(B, L, C, K, dt, cc.align_bytes(dy, x, w), backward=True)
+
+        def bwd(x=x, w=w, dy=dy):
+            return cc.causal_conv1d_bwd(dy, x, w, True)
+        want = cc.plain_bwd(dy, x, w, True, p.steps)
+        chip_smoke.require(all(map(torch.equal, bwd(), want)),
+                           f"causal_conv1d_bwd {name}: not the plain version")
+        flip = torch.flip(cc.causal_conv1d(torch.flip(dy, (1,)).contiguous(),
+                                           w), (1,))
+        chip_smoke.require(torch.equal(cc.causal_conv1d_bwd(dy, x, w, True)[0],
+                                       flip),
+                           f"causal_conv1d_bwd {name}: dx off the flip path")
+        gy = F.pad(dy.transpose(1, 2), (0, K - 1)).contiguous()
+        xt = x.transpose(1, 2)
+
+        def library(gy=gy, xt=xt, w_lib=w_lib, C=C, K=K):
+            return torch.ops.aten.convolution_backward(
+                gy, xt, w_lib, [C], [1], [K - 1], [1], False, [0], C,
+                [True, True, True])
+
+        def fwd_bwd(x=x, w=w, b=b, dy=dy):
+            cc.causal_conv1d(x, w, b)
+            return cc.causal_conv1d_bwd(dy, x, w, True)
+        xg = x.detach().requires_grad_()
+        wg, bg = w.detach().requires_grad_(), b.detach().requires_grad_()
+
+        def library_fwd_bwd(xg=xg, wg=wg, bg=bg, dy=dy, C=C, K=K, L=L):
+            y = F.conv1d(xg.transpose(1, 2), wg.t()[:, None, :], bg,
+                         padding=K - 1, groups=C)[..., :L].transpose(1, 2)
+            return torch.autograd.grad(y, (xg, wg, bg), dy)
+        nbytes = 3 * x.numel() * x.element_size() \
+            + 2 * (K + 1) * C * x.element_size()
+        ms = {}
+        try:  # each option within tolerance of the plain version at the
+            # pick's tile (another tile sums dw and db in another order)
+            for key, fields in conv1d_options(shape, dt, p).items():
+                cc.plan = lambda *_, f=fields, **__: p._replace(**f)
+                errs = [chip_smoke.rel_err(g.float(), r.float())
+                        for g, r in zip(bwd(), want)]
+                chip_smoke.require(max(errs) <= tolerance(dt),
+                                   f"causal_conv1d_bwd {name} {key}: {errs}")
+                ms[key] = chip_smoke.time_ms(bwd)
+        finally:
+            cc.plan = plan_fn
+        line = {"kernel": "causal_conv1d_bwd", "class": name, "shape": shape,
+                "dtype": size, "pick": label(p), "ms": ms,
+                "fastest": min(ms, key=ms.get),
+                "library_ms": chip_smoke.time_ms(library),
+                "bound_ms": max((4 * K + 1) * B * L * C / peaks[size],
+                                nbytes / peaks["mem_bw"]) * 1e3,
+                "fwd_bwd_ms": chip_smoke.time_ms(fwd_bwd),
+                "library_fwd_bwd_ms": chip_smoke.time_ms(library_fwd_bwd)}
+        if old is not None:
+            def parent_fwd_bwd(x=x, w=w, b=b, dy=dy, K=K, L=L):
+                """The parent tree's CausalConv1d: its forward kernel on
+                the reversed dy for dx, eager reductions for dw and db."""
+                parent_conv(x, w, b)
+                dx = torch.flip(parent_conv(torch.flip(dy, (1,))
+                                            .contiguous(), w, None), (1,))
+                dy32 = dy.float()
+                dw = torch.stack([
+                    (dy32 * F.pad(x, (0, 0, K - 1 - j, 0))[:, :L].float())
+                    .sum(dim=(0, 1)) for j in range(K)]).to(w.dtype)
+                return dx, dw, dy32.sum(dim=(0, 1)).to(b.dtype)
+            line["parent_fwd_bwd_ms"] = chip_smoke.time_ms(parent_fwd_bwd)
+        print(json.dumps(line), flush=True)
+        profiled[name] = bwd
+    # last (a profiler session slows later graph replays): the device µs
+    # of the backward's pass and of its ordered sum
+    for name, bwd in profiled.items():
+        print(json.dumps({
+            "kernel": "causal_conv1d_bwd", "class": name, "device_us": {
+                k: chip_smoke.device_us(bwd, f"causal_conv1d_{k}")
+                for k in ("bwd_kernel", "bwd_reduce")}}), flush=True)
 
 
 if __name__ == "__main__":

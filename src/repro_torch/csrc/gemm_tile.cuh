@@ -142,6 +142,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(pred ? 4 : 0));
 }
 
+// 8 bytes global -> shared (four 16-bit channels of the causal conv); a
+// false `pred` writes 8 zero bytes.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -149,6 +158,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most one committed group is still in flight.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The contraction range [k0, k1) of split s: chunks [s * chunks / split,

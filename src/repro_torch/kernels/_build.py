@@ -48,8 +48,10 @@ SIGNATURES = {
     "gemm_launch": [_I] * 2 + [_P] * 3 + [_I] * 7 + [_P] * 2,
     "winograd_input_transform_launch": [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "winograd_output_transform_launch": [_I] + [_P] * 4 + [_I] * 8 + [_P],
-    "causal_conv1d_launch": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I]
-    + [_P],
+    "causal_conv1d_launch": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 2
+    + [_I] * 3 + [_P],
+    "causal_conv1d_bwd_launch": [_I] + [_P] * 7 + [_I] * 4 + [_L] * 4
+    + [_I] * 3 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

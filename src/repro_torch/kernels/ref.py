@@ -367,6 +367,45 @@ def causal_conv1d(x, w, b=None):
     return acc.to(x.dtype)
 
 
+def causal_conv1d_bwd(dy, x, w, has_bias, tile):
+    """The gradient of ``causal_conv1d`` in the backward kernel's order:
+    dy (B, L, C), x (B, L, C) (rows may be strided), w (K, C) -> (dx (B,
+    L, C) in ``x.dtype``, dw (K, C) and db (C,) or None in ``w.dtype``).
+
+    ``dx[t] = sum_j w[j] dy[t + K - 1 - j]`` as fp32 multiplies and adds in
+    tap order from 0, zeros past L, then one cast: the forward's chain on
+    the reversed ``dy``. ``dw[j] = sum dy[t] x[t - K + 1 + j]`` and ``db =
+    sum dy`` as one fp32 chain a (batch, ``tile``-step tile) in time order
+    (past L, dy is zero), then the (B, tiles) partials added in index order
+    from zero, then one cast."""
+    k, (B, L, C) = w.shape[0], x.shape
+    tiles = -(-L // tile)
+    span = tiles * tile
+    g = torch.zeros((B, span + k - 1, C), dtype=torch.float32,
+                    device=x.device)
+    g[:, :L] = dy.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(k):
+        acc = acc + g[:, k - 1 - j:k - 1 - j + L] * w[j].float()
+    dx = acc.to(x.dtype)
+    # xs[:, k - 1 + t] = x[t]: zeros before 0 and past L
+    xs = torch.zeros((B, span + k - 1, C), dtype=torch.float32,
+                     device=x.device)
+    xs[:, k - 1:k - 1 + L] = x.float()
+    part = torch.zeros((B, tiles, k + 1, C), dtype=torch.float32,
+                       device=x.device)
+    for u in range(tile):  # step u of every tile at once
+        d = g[:, u:span:tile]
+        for j in range(k):
+            part[:, :, j] = part[:, :, j] + d * xs[:, u + j:u + j + span:tile]
+        part[:, :, k] = part[:, :, k] + d
+    total = torch.zeros((k + 1, C), dtype=torch.float32, device=x.device)
+    for p in part.reshape(B * tiles, k + 1, C):
+        total = total + p
+    dw = total[:k].to(w.dtype)
+    return dx, dw, total[k].to(w.dtype) if has_bias else None
+
+
 def conv1d_dense(x, w, b=None, *, stride=1):
     """Dense 1-D conv with SAME padding: x (B, L, Cin), w (K, Cin, Cout),
     b (Cout,) or None -> (B, ceil(L / stride), Cout), the bias added

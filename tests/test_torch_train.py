@@ -318,10 +318,10 @@ def test_remat_stays_off_the_serving_paths():
 @pytest.mark.parametrize("L", [2, 37])
 @pytest.mark.parametrize("bias", [True, False])
 def test_conv_function_backward_matches_autograd_and_reference(L, bias):
-    """The Function's backward (dx by the forward on the reversed
-    sequence, dw and db as reductions; the plain version stands in for
-    the kernel on the CPU) on the strided xBC view of a wider buffer,
-    at L = 2 < K - 1 too, against autograd of the plain version and
+    """The Function's backward (one ``causal_conv1d_bwd`` call: dx, dw
+    and db in one pass; ``ref.causal_conv1d_bwd`` stands in for the
+    kernel on the CPU) on the strided xBC view of a wider buffer, at L =
+    2 < K - 1 too, against autograd of the plain version and
     ``jax.grad`` of the reference's ``ref.causal_conv1d``."""
     rng = np.random.default_rng(L + bias)
     K, C, W, off = 4, 12, 20, 5
@@ -353,13 +353,15 @@ def test_conv_function_backward_matches_autograd_and_reference(L, bias):
 
 def test_conv_function_off_when_nothing_needs_grad():
     """The wrapper on a CPU tensor is the plain version, which autograd
-    differentiates; the launch counter does not move on the CPU."""
-    before = cc.causal_conv1d.launches
+    differentiates; neither launch counter moves on the CPU."""
+    before = (cc.causal_conv1d.launches, cc.causal_conv1d_bwd.launches)
     x = torch.randn(1, 5, 4, requires_grad=True)
     y = cc.causal_conv1d(x, torch.randn(3, 4))
     assert y.grad_fn is not None and not isinstance(
         y.grad_fn, cc.CausalConv1d._backward_cls)
-    assert cc.causal_conv1d.launches == before
+    y.sum().backward()
+    assert (cc.causal_conv1d.launches,
+            cc.causal_conv1d_bwd.launches) == before
 
 
 # ----------------------------------------------------------------------
