@@ -275,6 +275,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      restored with its digest checked bitwise the live state; the median
      step ms (steps 3-20), tokens/s, peak device memory, save and restore
      seconds, and the step's bound;
+   - the ``mesh`` lines, after the training lines: an NCCL group of one
+     rank (no fallback to gloo) and the (1, 1) ("data", "model") mesh of
+     ``launch.mesh.make_local_mesh``, the state, the batch, the
+     gradients and the optimizer DTensors placed by ``rules_for``.
+     ``mesh/mamba2_370m_2l/fp32``: one sharded and one unsharded step of
+     the first 2 layers in fp32 from one state and batch, the loss, the
+     grad norm and every gradient within 2e-5 of each one's largest
+     (and whether they are bitwise equal); ``mesh/mamba2_370m``: two
+     sharded steps of mamba2-370m at full size (bf16 over fp32, AdamW,
+     4 x 1024 tokens), each launching ``causal_conv1d`` 96 times and
+     ``causal_conv1d_bwd`` 48 times (inside ``local_map`` on the rank's
+     channel shard), finite losses, each step's ms beside an unsharded
+     step's and the card's ``nvidia-smi`` name and power limit;
    - a ``profile`` line a serving path: one replayed and one eager decode
      step and one replayed prefill under ``torch.profiler`` (device busy
      ms, device operations, the kernels that take the most time), and one
@@ -538,6 +551,17 @@ TRAIN_PARITY_STEPS, TRAIN_BOUND = 2, 1e-4
 # entry's sign, and near zero it magnifies the gradients' rounding
 # (tests/test_torch_train.py)
 TRAIN_LIVE = 1e-3
+# The mesh lines (after the training lines): the train step sharded by
+# the rules over a (1, 1) ("data", "model") DeviceMesh on an NCCL group of
+# one rank (no fallback to gloo). Its first 2 layers at full width in
+# fp32: one sharded and one unsharded step from one state and batch, the
+# loss, the grad norm and every gradient within MESH_BOUND of each one's
+# largest; then mamba2-370m at full size (bf16 over fp32, AdamW), two
+# sharded steps of 4 x 1024 tokens beside two unsharded ones, each
+# sharded step launching causal_conv1d and causal_conv1d_bwd as the
+# unsharded step does (inside local_map, on each rank's channel shard).
+MESH_PATH, MESH_PARITY_PATH = "mesh/mamba2_370m", "mesh/mamba2_370m_2l/fp32"
+MESH_STEPS, MESH_BOUND = 2, 2e-5
 RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 12, 4, 9
 RESUME_BATCH, RESUME_SEQ = 2, 256
 OPTIM_STEPS, OPTIM_BOUND = 3, 2e-5
@@ -2533,8 +2557,10 @@ def conv1d_summary(rows, launches, peaks, grad_lines, train_launches):
         "train": {
             "launches": {path: n["causal_conv1d"]
                          for path, n in train_launches.items()},
-            "launches_per_step": {TRAIN_PATH: train_launches[TRAIN_PATH][
-                "causal_conv1d"] / TRAIN_STEPS},
+            "launches_per_step": {
+                path: train_launches[path]["causal_conv1d"] / n
+                for path, n in ((TRAIN_PATH, TRAIN_STEPS),
+                                (MESH_PATH, MESH_STEPS))},
             "fwd_bwd_at": [TRAIN_BATCH, TRAIN_SEQ],
             "fwd_bwd": {r["dtype"]: {
                 "ms": r["fwd_bwd_ms"], "plain_ms": r["plain_fwd_bwd_ms"],
@@ -2557,8 +2583,10 @@ def conv1d_bwd_summary(rows, train_launches, dtype):
         "replaces": replaces,
         "launches": sum(t["causal_conv1d_bwd"]
                         for t in train_launches.values()),
-        "launches_per_step": {TRAIN_PATH: train_launches[TRAIN_PATH][
-            "causal_conv1d_bwd"] / TRAIN_STEPS},
+        "launches_per_step": {
+            path: train_launches[path]["causal_conv1d_bwd"] / n
+            for path, n in ((TRAIN_PATH, TRAIN_STEPS),
+                            (MESH_PATH, MESH_STEPS))},
         "train": {path: t["causal_conv1d_bwd"]
                   for path, t in train_launches.items()},
         "parity": "ok", "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3115,6 +3143,135 @@ def train_phase(cfg, counters, peaks):
     return line, thunks
 
 
+def mesh_phase(cfg, counters, smi):
+    """The train step across a mesh on the card (``MESH_PATH``): an NCCL
+    group of one rank from a ``HashStore``, the (1, 1) mesh of
+    ``launch.mesh.make_local_mesh``, the rules of ``rules_for``. Returns
+    (the 2-layer fp32 parity line, the full-size line); the group is
+    destroyed before it returns."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.spec import flatten
+    from repro_torch.sharding.rules import rules_for
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        require(dist.get_backend() == "nccl",
+                f"mesh: the group's backend is {dist.get_backend()}")
+        mesh = make_local_mesh("cuda")
+        require(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+                f"mesh: {mesh}")
+
+        # the first 2 layers in fp32: sharded against unsharded
+        cfg2 = cfg.replace(num_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+        rules = rules_for(cfg2, mesh)
+        pipe = TokenPipeline(cfg2.vocab_size, TRAIN_PARITY_SEQ,
+                             TRAIN_PARITY_BATCH, seed=1)
+        kw = dict(peak_lr=TRAIN_LR, warmup=1, total_steps=TRAIN_STEPS)
+        sstate = steps.init_state(cfg2, 0, mesh=mesh, rules=rules)
+        state = steps.init_state(cfg2, 0, "cuda")
+        sbatch = pipe.batch(0, mesh=mesh, rules=rules)
+        batch = pipe.batch(0, "cuda")
+        sg, sm = steps.loss_and_grads(cfg2, sstate["params"], sbatch, mesh,
+                                      rules)
+        g, m = steps.loss_and_grads(cfg2, state["params"], batch)
+        _, sstep = steps.make_train_step(cfg2, mesh, rules, **kw)(sstate,
+                                                                   sbatch)
+        _, step = steps.make_train_step(cfg2, **kw)(state, batch)
+        sg, g = flatten(sg), flatten(g)
+        pairs = {"loss": (whole(sm["loss"]), m["loss"]),
+                 "grad_norm": (whole(sstep["grad_norm"]), step["grad_norm"]),
+                 **{f"grad:{k}": (whole(v), g[k]) for k, v in sg.items()}}
+        errs = {k: rel_err(a.float(), b.float()) for k, (a, b)
+                in pairs.items()}
+        bitwise = {k: torch.equal(a, b) for k, (a, b) in pairs.items()}
+        worst = max(errs, key=errs.get)
+        require(errs[worst] <= MESH_BOUND,
+                f"{MESH_PARITY_PATH}: {worst} {errs[worst]} > {MESH_BOUND}")
+        parity = {
+            "phase": "mesh", "path": MESH_PARITY_PATH, "config": cfg.name,
+            "entry": "repro_torch.launch.steps.make_train_step(cfg, mesh, "
+                     "rules) and loss_and_grads, sharded against unsharded",
+            "mesh": {"shape": list(mesh.shape),
+                     "names": list(mesh.mesh_dim_names),
+                     "backend": dist.get_backend()},
+            "dtype": "float32", "layers": cfg2.num_layers,
+            "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+            "bound": MESH_BOUND,
+            "loss_max_rel_err": errs["loss"],
+            "grad_norm_max_rel_err": errs["grad_norm"],
+            "grads_max_rel_err": max(v for k, v in errs.items()
+                                     if k.startswith("grad:")),
+            "worst": worst, "bitwise_equal": all(bitwise.values()),
+            "not_bitwise": sorted(k for k, v in bitwise.items() if not v),
+            "reduced": {"num_layers": f"{cfg.num_layers} -> "
+                                      f"{TRAIN_PARITY_LAYERS}",
+                        "dtype": "bfloat16 -> float32"}}
+        del sstate, state, sg, g, sbatch, batch
+
+        # mamba2-370m at full size: sharded steps beside unsharded ones
+        rules = rules_for(cfg, mesh)
+        pipe = TokenPipeline(TRAIN_VOCAB, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        kw = dict(peak_lr=TRAIN_LR, warmup=2, total_steps=TRAIN_STEPS)
+        state = steps.init_state(cfg, 0, "cuda")
+        step_fn = steps.make_train_step(cfg, **kw)
+        plain_ms = []
+        for i in range(MESH_STEPS):
+            t, (state, _) = host_ms(lambda: step_fn(state, pipe.batch(
+                i, "cuda")))
+            plain_ms.append(t)
+        del state
+        sstate = steps.init_state(cfg, 0, mesh=mesh, rules=rules)
+        sstep_fn = steps.make_train_step(cfg, mesh, rules, **kw)
+        sharded_ms, losses, per_step = [], [], []
+        for i in range(MESH_STEPS):
+            zero_counts(counters)
+            t, (sstate, sm) = host_ms(lambda: sstep_fn(sstate, pipe.batch(
+                i, mesh=mesh, rules=rules)))
+            per_step.append(read_counts(counters))
+            sharded_ms.append(t)
+            losses.append(float(whole(sm["loss"])))
+        want = {**NO_LAUNCHES, **train_launches(cfg, 1)}
+        require(all(n == want for n in per_step),
+                f"{MESH_PATH}: launches a step {per_step}, want {want}")
+        require(all(map(math.isfinite, losses)),
+                f"{MESH_PATH}: losses {losses}")
+        placements = {str(tuple(v.placements)) for v in
+                      flatten(sstate).values()}
+        line = {
+            "phase": "mesh", "path": MESH_PATH, "config": cfg.name,
+            "entry": "repro_torch.launch.steps.make_train_step(cfg, mesh, "
+                     "rules) on launch.mesh.make_local_mesh",
+            "card": smi,
+            "mesh": {"shape": list(mesh.shape),
+                     "names": list(mesh.mesh_dim_names),
+                     "backend": dist.get_backend()},
+            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+            "optimizer": cfg.optimizer, "remat": cfg.remat,
+            "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "vocab_fed": TRAIN_VOCAB,
+            "steps": MESH_STEPS, "losses": losses,
+            "launches": {k: sum(n[k] for n in per_step) for k in want},
+            "launches_per_step": per_step,
+            "sharded_step_ms": sharded_ms, "unsharded_step_ms": plain_ms,
+            "sharded_over_unsharded": [a / b for a, b in
+                                       zip(sharded_ms, plain_ms)],
+            "state_placements": sorted(placements)}
+        del sstate
+    finally:
+        dist.destroy_process_group()
+    return parity, line
+
+
 def train_profile(step, grads, layers, top=10):
     """One train step under torch.profiler, then its ``loss_and_grads``
     alone: the device busy ms of each, the optimizer's and the clip's
@@ -3567,6 +3724,12 @@ def main() -> None:
     train_launches[TRAIN_PATH] = {k: line["launches"][k]
                                   for k in CONV1D_KERNELS}
     profiles.append((line["path"], thunks))
+    emit(line)
+    # ---- the train step across a mesh (NCCL, one rank) -----------------
+    parity, line = mesh_phase(lcfg, counters, smi)
+    emit(parity)
+    train_launches[MESH_PATH] = {k: line["launches"][k]
+                                 for k in CONV1D_KERNELS}
     emit(line)
     # after every timed LM line: one replayed and one eager decode step
     # of each serving path under the profiler, and one train step

@@ -10,7 +10,8 @@ A step is written into ``.tmp_step_<N>`` and renamed when whole. numpy
 holds no bf16 without ``ml_dtypes``, so a bf16 leaf is stored as its
 uint16 bits with ``"bfloat16"`` in ``META.json``'s dtypes and restored
 bit for bit; an fp32 or int32 checkpoint is the reference's own format,
-and either package restores the other's. One process writes one shard.
+and either package restores the other's. One process writes one shard: a
+sharded state is gathered and saved whole, so it restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 SHARD = "shard_0.npz"
 
@@ -46,7 +48,10 @@ def _unflatten(pairs):
 
 
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A tensor -> (a host copy as the numpy array to store, dtype name)."""
+    """A tensor -> (a host copy as the numpy array to store, dtype name);
+    a DTensor's whole value (a collective over its mesh)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -58,6 +63,16 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     if dtype == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _writes(leaves) -> bool:
+    """Whether this process writes: always, unless the tree holds DTensors
+    and this rank is not the first of their mesh."""
+    for _, leaf in leaves:
+        if isinstance(leaf, DTensor):
+            coord = leaf.device_mesh.get_coordinate()
+            return coord is not None and not any(coord)
+    return True
 
 
 class CheckpointManager:
@@ -73,7 +88,13 @@ class CheckpointManager:
         self._pending: threading.Thread | None = None
 
     def save(self, step: int, tree) -> None:
-        host = {path: _to_host(leaf) for path, leaf in _flatten(tree)}
+        """Save ``tree`` at ``step``. A tree of DTensors is saved whole, as
+        full host arrays: every rank of its mesh calls ``save`` (each leaf
+        is gathered) and the mesh's first rank writes."""
+        leaves = list(_flatten(tree))
+        host = {path: _to_host(leaf) for path, leaf in leaves}
+        if not _writes(leaves):
+            return
         if self.async_save:
             self.wait()
             self._pending = threading.Thread(

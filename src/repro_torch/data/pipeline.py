@@ -4,8 +4,8 @@ restart-safe.
 ``batch(step)`` is a pure function of (seed, step): a run restored from
 the checkpoint of step N regenerates batches N, N+1, ... with no loader
 state to save. The host batch is numpy's ``default_rng((seed, step))``,
-as the reference draws it, so both packages feed the same tokens; the
-reference places it on its mesh, the port on one device.
+as the reference draws it, so both packages feed the same tokens, and
+either places it on a device or on its mesh.
 """
 from __future__ import annotations
 
@@ -15,8 +15,11 @@ import threading
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.mesh import mesh_device
+from repro_torch.sharding.rules import logical_sharding
 
 
 @dataclasses.dataclass
@@ -43,14 +46,23 @@ class TokenPipeline:
                                 dtype=np.int32)[lo:hi]
         return rows.astype(np.int32)
 
-    def batch(self, step: int, device=None) -> dict:
+    def batch(self, step: int, device=None, mesh=None, rules=None) -> dict:
         """-> {"tokens": (B, S) int32, "labels": (B, S) int32, the tokens
         shifted by one} on ``device``: the card unless the caller names
-        another."""
-        device = resolve_device(device)
+        another. With a ``mesh`` (and its ``rules``) both are DTensors on
+        the mesh's device, placed by ("batch", "seq"): each rank draws the
+        global batch and keeps its own block."""
+        device = resolve_device(device) if mesh is None \
+            else mesh_device(mesh)
         rows = torch.from_numpy(self._host_batch(step, 0, self.global_batch))
-        return {"tokens": rows[:, :-1].contiguous().to(device),
-                "labels": rows[:, 1:].contiguous().to(device)}
+        out = {"tokens": rows[:, :-1].contiguous().to(device),
+               "labels": rows[:, 1:].contiguous().to(device)}
+        if mesh is None:
+            return out
+        pl = logical_sharding(("batch", "seq"), out["tokens"].shape, rules,
+                              mesh)
+        return {k: distribute_tensor(v, mesh, pl, src_data_rank=None)
+                for k, v in out.items()}
 
 
 def prefetch(iterator, depth: int = 2):

@@ -17,15 +17,21 @@ every decode step.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch import optim
 from repro_torch.core.device import capture, resolve_device
 from repro_torch.core.dtypes import torch_dtype
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models import encdec, lm, registry
 from repro_torch.models import spec as pspec
 from repro_torch.models.spec import flatten, unflatten
 from repro_torch.optim import schedule
+from repro_torch.sharding.rules import (as_dtensor, logical_sharding,
+                                        rules_for, sharded_region)
 
 # the leaves a forward reads in fp32 whatever the compute dtype (norm
 # scales and shifts, the SSM's decay and time-step bias); every other
@@ -58,6 +64,51 @@ def batch_struct(cfg, shape):
     return out
 
 
+def batch_axes(cfg, shape) -> dict:
+    """{input name: logical axes} of ``batch_struct``'s inputs."""
+    if shape.kind == "decode":
+        return {"tokens": ("batch", None)}
+    return {k: (("batch", "seq") if k in ("tokens", "labels")
+                else ("batch", None, None))
+            for k in batch_struct(cfg, shape)}
+
+
+class Struct(NamedTuple):
+    """An input or a state leaf that is not made: its global shape and
+    dtype, and its DTensor placements on a mesh (None without one)."""
+    shape: tuple
+    dtype: torch.dtype
+    placements: tuple | None
+
+
+def _to_structs(tree, mesh, rules):
+    """{name: (shape, dtype, axes)} leaves (nested) -> ``Struct`` leaves
+    placed by the rules on ``mesh``."""
+    def leaf(v):
+        shp, dt, ax = v
+        return Struct(tuple(shp), dt, None if mesh is None
+                      else logical_sharding(ax, shp, rules, mesh))
+    return {k: _to_structs(v, mesh, rules) if isinstance(v, dict)
+            else leaf(v) for k, v in tree.items()}
+
+
+def input_specs(cfg, shape, mesh=None, rules=None):
+    """Every input of a ``configs.ShapeSpec`` cell as a ``Struct``, placed
+    for ``mesh`` (the config's ``rules_for`` unless ``rules`` is given); a
+    decode cell also has its caches and its position."""
+    if mesh is not None and rules is None:
+        rules = rules_for(cfg, mesh)
+    axes = batch_axes(cfg, shape)
+    specs = _to_structs({k: (s, d, axes[k]) for k, (s, d)
+                         in batch_struct(cfg, shape).items()}, mesh, rules)
+    if shape.kind == "decode":
+        specs["caches"] = _to_structs(registry.cache_struct(
+            cfg, shape.global_batch, shape.seq_len), mesh, rules)
+        specs["pos"] = Struct((), torch.int32, None if mesh is None
+                              else logical_sharding((), (), rules, mesh))
+    return specs
+
+
 def state_specs(cfg):
     """{"params": the model's spec tree, "opt": its optimizer state's}."""
     params = registry.model_specs(cfg)
@@ -73,15 +124,42 @@ def init_params(cfg, seed=0, device=None):
                              cfg.param_dtype, device=resolve_device(device))
 
 
-def init_state(cfg, seed=0, device=None):
+def init_state(cfg, seed=0, device=None, mesh=None, rules=None):
     """{"params": ``init_params``' weights, "opt": the optimizer's zero
     state} on ``device`` (the card unless named). A leaf is seeded by its
-    path in its own tree, so the params are ``init_params``'."""
-    device = resolve_device(device)
+    path in its own tree, so the params are ``init_params``'.
+
+    With a ``mesh`` (on the mesh's device type; ``rules`` default to the
+    config's ``rules_for``) every leaf is drawn whole as without one and
+    distributed by its placements, one leaf at a time: the state is the
+    unsharded one, and no rank holds all of it."""
     specs = state_specs(cfg)
-    return {"params": init_params(cfg, seed, device),
-            "opt": pspec.init_params(specs["opt"], seed, cfg.param_dtype,
-                                     device=device)}
+    if mesh is None:
+        device = resolve_device(device)
+        return {"params": init_params(cfg, seed, device),
+                "opt": pspec.init_params(specs["opt"], seed,
+                                         cfg.param_dtype, device=device)}
+    rules = rules if rules is not None else rules_for(cfg, mesh)
+    shardings = pspec.param_shardings(specs, mesh, rules)
+    return {k: pspec.init_params(specs[k], seed, cfg.param_dtype,
+                                 device=mesh_device(mesh), mesh=mesh,
+                                 shardings=shardings[k])
+            for k in ("params", "opt")}
+
+
+def abstract_state(cfg, mesh, rules):
+    """(the state as DTensors whose local blocks are ``torch.empty``,
+    their placements) on ``mesh``. Inside a ``FakeTensorMode`` nothing is
+    allocated and no rank communicates: the dry run's state."""
+    specs = state_specs(cfg)
+    shardings = pspec.param_shardings(specs, mesh, rules)
+
+    def leaf(s, pl):
+        full = torch.empty(s.shape, dtype=torch_dtype(s.dtype
+                                                      or cfg.param_dtype),
+                           device=mesh_device(mesh))
+        return distribute_tensor(full, mesh, pl, src_data_rank=None)
+    return pspec.tree_map(leaf, specs, shardings), shardings
 
 
 def compute_params(params, cfg):
@@ -111,13 +189,20 @@ def _ce_loss(logits, labels):
     The max is subtracted (detached) in the logits' dtype before the fp32
     cast, as the reference does; its gold logit is a one-hot contraction
     with an fp32 result, which picks one logit exactly, so a gather gives
-    the same value and the same gradient."""
+    the same value and the same gradient. Logits that are a DTensor (under
+    a mesh, the vocab may be split) take the contraction itself: a masked
+    sum over the vocab, local on each rank and then one reduction."""
     mask = (labels >= 0).float()
     lab = labels.clamp_min(0).long()
     m = logits.detach().amax(dim=-1, keepdim=True)
     shifted = (logits - m).float()
     lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0].float()
-    gold = logits.gather(-1, lab[..., None])[..., 0].float()
+    if isinstance(logits, DTensor):
+        hit = lab[..., None] == torch.arange(logits.shape[-1],
+                                             device=logits.device)
+        gold = torch.where(hit, logits.float(), 0.0).sum(dim=-1)
+    else:
+        gold = logits.gather(-1, lab[..., None])[..., 0].float()
     nll = lse - gold
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
@@ -137,7 +222,7 @@ def _forward_for(cfg):
     return f
 
 
-def loss_and_grads(cfg, params, batch):
+def loss_and_grads(cfg, params, batch, mesh=None, rules=None):
     """(gradients of the total loss as a tree shaped as ``params``,
     {"loss", "aux"}) of one batch.
 
@@ -146,60 +231,108 @@ def loss_and_grads(cfg, params, batch):
     does (the serving ``compute_params`` keeps some leaves fp32); the
     total is the cross entropy plus ``router_aux_weight`` times the MoE
     aux loss. ``torch.autograd.grad`` runs over the leaves in their
-    sorted-path order; a leaf the loss does not reach gets zeros."""
+    sorted-path order; a leaf the loss does not reach gets zeros.
+
+    With a ``mesh`` the leaves and the batch are DTensors: the forward
+    and the backward run in ``sharding.sharded_region(rules, mesh)``,
+    each gradient comes back on its leaf's placements (a partial sum
+    reduced once over the mesh dims it spans) and the metrics replicated."""
+    if mesh is not None and rules is None:
+        rules = rules_for(cfg, mesh)
     dt = torch_dtype(cfg.dtype)
     flat = flatten(params)
     keys = sorted(flat)
     leaves = [flat[k].detach().requires_grad_() for k in keys]
     cast = unflatten({k: (v.to(dt) if v.dtype == torch.float32 else v)
                       for k, v in zip(keys, leaves)})
-    logits, _, aux = _forward_for(cfg)(cast, batch)
-    loss = _ce_loss(logits, batch["labels"])
-    total = loss + cfg.router_aux_weight * aux
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = {k: torch.zeros_like(v) if g is None else g
-             for k, v, g in zip(keys, leaves, grads)}
-    return unflatten(grads), {"loss": loss.detach(), "aux": aux.detach()}
+    with sharded_region(rules, mesh):
+        logits, _, aux = _forward_for(cfg)(cast, batch)
+        loss = _ce_loss(logits, batch["labels"])
+        total = loss + cfg.router_aux_weight * aux
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for k, v, g in zip(keys, leaves, grads)}
+        metrics = {"loss": loss.detach(), "aux": aux.detach()}
+        if mesh is not None:
+            grads = {k: _like(g, flat[k]) for k, g in grads.items()}
+            metrics = {k: replicated(v, mesh) for k, v in metrics.items()}
+    return unflatten(grads), metrics
 
 
-def make_train_step(cfg, *, peak_lr=3e-4, warmup=100, total_steps=10_000,
-                    clip_norm=1.0, accum: int = 1):
+def _like(t, like):
+    """``t`` on ``like``'s placements (a no-op for plain tensors)."""
+    if not isinstance(like, DTensor):
+        return t
+    t = as_dtensor(t, like.device_mesh)
+    if tuple(t.placements) == tuple(like.placements):
+        return t
+    return t.redistribute(like.device_mesh, like.placements)
+
+
+def replicated(t, mesh):
+    """``t`` as a DTensor replicated over ``mesh`` (a partial sum reduced,
+    a shard gathered)."""
+    t = as_dtensor(t, mesh)
+    target = (Replicate(),) * mesh.ndim
+    return t if tuple(t.placements) == target else t.redistribute(
+        mesh, target)
+
+
+def make_train_step(cfg, mesh=None, rules=None, *, peak_lr=3e-4,
+                    warmup=100, total_steps=10_000, clip_norm=1.0,
+                    accum: int = 1):
     """-> ``train_step(state, batch) -> (state, metrics)``: the gradients
     of the batch (with ``accum`` > 1, of ``accum`` micro-batches summed
     into fp32 zeros in order, then divided), clipped to ``clip_norm``, one
     step of ``cfg.optimizer`` at ``warmup_cosine(step + 1)``, the step
     being taken. ``metrics``: ``loss``, ``aux`` (averaged over the
     micro-batches), ``grad_norm`` (before the clip) and ``lr``, 0-d fp32
-    tensors on the state's device."""
+    tensors on the state's device.
+
+    With a ``mesh`` (``rules`` default to the config's ``rules_for``) the
+    state and the batch are DTensors placed by the rules (``init_state``,
+    ``pipeline.batch``): the gradients, the clip and the optimizer run on
+    the sharded leaves, the new state keeps the state's placements, and
+    the metrics come out replicated."""
     opt_mod = optim.get(cfg.optimizer)
+    if mesh is not None and rules is None:
+        rules = rules_for(cfg, mesh)
 
     def train_step(state, batch):
         params, opt_state = state["params"], state["opt"]
-        if accum == 1:
-            grads, metrics = loss_and_grads(cfg, params, batch)
-        else:
-            grads = pspec.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            metrics = {k: torch.zeros((), dtype=torch.float32,
-                                      device=batch["tokens"].device)
-                       for k in ("loss", "aux")}
-            for i in range(accum):
-                mb = {k: v.reshape(accum, v.shape[0] // accum,
-                                   *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                g, m = loss_and_grads(cfg, params, mb)
-                grads = pspec.tree_map(torch.add, grads, g)
-                metrics = {k: metrics[k] + m[k] for k in metrics}
-            grads = pspec.tree_map(lambda g: g / accum, grads)
-            metrics = {k: v / accum for k, v in metrics.items()}
-        grads, gnorm = schedule.clip_by_global_norm(grads, clip_norm)
-        lr = schedule.warmup_cosine(opt_state["step"] + 1, peak_lr=peak_lr,
-                                    warmup_steps=warmup,
-                                    total_steps=total_steps)
-        new_params, new_opt = opt_mod.update(grads, opt_state, params,
-                                             lr=lr)
-        return ({"params": new_params, "opt": new_opt},
-                dict(metrics, grad_norm=gnorm, lr=lr))
+        with sharded_region(rules, mesh):
+            if accum == 1:
+                grads, metrics = loss_and_grads(cfg, params, batch, mesh,
+                                                rules)
+            else:
+                grads = pspec.tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32), params)
+                metrics = {k: torch.zeros((), dtype=torch.float32,
+                                          device=batch["tokens"].device)
+                           for k in ("loss", "aux")}
+                for i in range(accum):
+                    mb = {k: v.reshape(accum, v.shape[0] // accum,
+                                       *v.shape[1:])[i]
+                          for k, v in batch.items()}
+                    g, m = loss_and_grads(cfg, params, mb, mesh, rules)
+                    grads = pspec.tree_map(torch.add, grads, g)
+                    metrics = {k: metrics[k] + m[k] for k in metrics}
+                grads = pspec.tree_map(lambda g: g / accum, grads)
+                metrics = {k: v / accum for k, v in metrics.items()}
+            grads, gnorm = schedule.clip_by_global_norm(grads, clip_norm)
+            lr = schedule.warmup_cosine(opt_state["step"] + 1,
+                                        peak_lr=peak_lr,
+                                        warmup_steps=warmup,
+                                        total_steps=total_steps)
+            new_params, new_opt = opt_mod.update(grads, opt_state, params,
+                                                 lr=lr)
+            new = {"params": new_params, "opt": new_opt}
+            metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+            if mesh is not None:
+                new = pspec.tree_map(_like, new, state)
+                metrics = {k: replicated(v, mesh)
+                           for k, v in metrics.items()}
+        return new, metrics
 
     return train_step
 

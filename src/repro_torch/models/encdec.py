@@ -29,6 +29,12 @@ from repro_torch.models import layers as L
 from repro_torch.models.lm import _index, _stack, remat
 from repro_torch.models.module import SpecNetwork
 from repro_torch.models.spec import ParamSpec, stack_tree
+from repro_torch.sharding.rules import constrain
+
+# the residual stream's logical axes, and an activation's whole along the
+# sequence (sequence parallelism's gather before a layer's products)
+_RESIDUAL = ("batch", "seq", "embed")
+_WHOLE_SEQ = ("batch", None, "embed")
 
 
 def _enc_block_specs(cfg):
@@ -76,20 +82,23 @@ def encode(params, cfg, frames, mode="prefill"):
     forward each layer is rematerialized (``lm.remat``)."""
     dt = torch_dtype(cfg.dtype)
     T = frames.shape[1]
-    x = frames.to(dt) + params["enc_pos"][None, :T].to(dt)
+    x = constrain(frames.to(dt) + params["enc_pos"][None, :T].to(dt),
+                  _RESIDUAL)
     pos = _iota(x.shape[0], T, x.device)
 
     def layer(x, p):
-        h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
+        h = constrain(L.apply_norm(p["ln1"], x, cfg.norm_eps), _WHOLE_SEQ)
         out, _ = L.gqa_attn(p["attn"], cfg, h, pos, causal=False)
-        x = x + out
-        h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
-        return x + L.ffn(p["ffn"], cfg, h)
+        x = x + constrain(out, _WHOLE_SEQ)
+        h = constrain(L.apply_norm(p["ln2"], x, cfg.norm_eps), _WHOLE_SEQ)
+        return constrain(x + constrain(L.ffn(p["ffn"], cfg, h), _WHOLE_SEQ),
+                         _RESIDUAL)
 
     layer = remat(layer, cfg, mode)
     for i in range(cfg.num_encoder_layers):
         x = layer(x, _index(params["enc"], i))
-    return L.apply_norm(params["enc_ln"], x, cfg.norm_eps)
+    return constrain(L.apply_norm(params["enc_ln"], x, cfg.norm_eps),
+                     _WHOLE_SEQ)
 
 
 def cross_kv(params, cfg, enc_out):
@@ -99,26 +108,27 @@ def cross_kv(params, cfg, enc_out):
     xk, xv = [], []
     for i in range(cfg.num_layers):
         p = _index(params["dec"], i)["xattn"]
-        xk.append(torch.einsum("bse,ehd->bshd", enc_out, p["wk"].to(dt)))
-        xv.append(torch.einsum("bse,ehd->bshd", enc_out, p["wv"].to(dt)))
+        xk.append(L.to_heads(enc_out, p["wk"].to(dt)))
+        xv.append(L.to_heads(enc_out, p["wv"].to(dt)))
     return {"xk": torch.stack(xk), "xv": torch.stack(xv)}
 
 
 def _dec_block(p, cfg, x, positions, enc_kv, enc_pos, *, mode, cache, pos):
     """One decoder layer -> (x, its self-attention cache {"k", "v"})."""
-    h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
+    h = constrain(L.apply_norm(p["ln1"], x, cfg.norm_eps), _WHOLE_SEQ)
     if mode == "decode":
         out, new_cache = L.gqa_decode(p["attn"], cfg, h, cache, pos)
     else:
         out, (k, v) = L.gqa_attn(p["attn"], cfg, h, positions)
         new_cache = {"k": k, "v": v}
-    x = x + out
-    h = L.apply_norm(p["lnx"], x, cfg.norm_eps)
+    x = x + constrain(out, _WHOLE_SEQ)
+    h = constrain(L.apply_norm(p["lnx"], x, cfg.norm_eps), _WHOLE_SEQ)
     out, _ = L.gqa_attn(p["xattn"], cfg, h, positions, causal=False,
                         kv=(enc_kv["xk"], enc_kv["xv"]), kv_pos=enc_pos)
-    x = x + out
-    h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
-    return x + L.ffn(p["ffn"], cfg, h), new_cache
+    x = x + constrain(out, _WHOLE_SEQ)
+    h = constrain(L.apply_norm(p["ln2"], x, cfg.norm_eps), _WHOLE_SEQ)
+    return constrain(x + constrain(L.ffn(p["ffn"], cfg, h), _WHOLE_SEQ),
+                     _RESIDUAL), new_cache
 
 
 def forward(params, cfg, tokens, frames=None, *, mode="train", caches=None,
@@ -137,8 +147,9 @@ def forward(params, cfg, tokens, frames=None, *, mode="train", caches=None,
     dt = torch_dtype(cfg.dtype)
     B, S = tokens.shape
     positions = pos + _iota(B, S, tokens.device)
-    x = params["embed"]["table"][tokens.long()].to(dt)
-    x = x + params["embed"]["pos"][positions].to(dt)
+    x = L.lookup(params["embed"]["table"], tokens).to(dt)
+    x = constrain(x + L.lookup(params["embed"]["pos"], positions).to(dt),
+                  _RESIDUAL)
     if mode == "decode":
         enc_kv_all = caches["cross"]
     else:
@@ -162,13 +173,15 @@ def forward(params, cfg, tokens, frames=None, *, mode="train", caches=None,
             c = {k: F.pad(a, (0, 0, 0, 0, 0, cache_len - a.shape[1]))
                  for k, a in c.items()}
         new_self.append(c)
-    x = L.apply_norm(params["dec_ln"], x, cfg.norm_eps)
+    x = constrain(L.apply_norm(params["dec_ln"], x, cfg.norm_eps),
+                  _WHOLE_SEQ)
     if mode == "prefill":
         x = x[:, -1:]
     logits = torch.einsum("bse,ve->bsv", x, params["embed"]["table"].to(dt))
     mask = torch.arange(logits.shape[-1], device=logits.device) \
         < cfg.vocab_size
     logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    logits = constrain(logits, ("batch", "seq", "vocab_act"))
     new_caches = None
     if mode != "train":
         new_caches = {"self": _stack(new_self), "cross": enc_kv_all}

@@ -21,9 +21,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models.spec import ParamSpec
+from repro_torch.sharding.rules import (as_dtensor, axis_size, constrain,
+                                        current, current_mesh, run_local)
 
 # full-score attention only up to this Sq*Sk (else online-softmax chunks)
 _FULL_THRESH = 2048 * 2048
@@ -78,12 +81,25 @@ def embed_specs(cfg):
     return sp
 
 
+def lookup(table, idx):
+    """``table[idx]``: the rows of an embedding table at (B, S) indices.
+    Under a mesh each rank looks its own block of the indices up in the
+    whole table (``run_local``; the table gathered, its gradient a
+    partial sum), not through DTensor's indexing strategies."""
+    if current() is None:
+        return table[idx.long()]
+    B, S = idx.shape
+    return run_local(lambda t, i: t[i.long()], (table, idx),
+                     ((None, None), ("batch", "seq")),
+                     [(("batch", "seq", None), (B, S, table.shape[1]))])
+
+
 def embed(p, cfg, tokens, positions=None):
     """tokens (B, S) -> (B, S, d_model) in the compute dtype."""
     dt = torch_dtype(cfg.dtype)
-    x = p["table"][tokens.long()].to(dt)
+    x = lookup(p["table"], tokens).to(dt)
     if cfg.pos_emb == "learned" and positions is not None:
-        x = x + p["pos"][positions].to(dt)
+        x = x + lookup(p["pos"], positions).to(dt)
     return x
 
 
@@ -177,7 +193,45 @@ def _attend_chunked(q, k, v, *, causal, q_pos, kv_pos, scale, chunk):
 
 def attention(q, k, v, *, causal, q_pos, kv_pos, chunk=2048, scale=None):
     """Attention core. q: (B,Sq,Hq,D); k/v: (B,Sk,Hkv,D) with Hkv | Hq;
-    q_pos (B,Sq), kv_pos (B,Sk)."""
+    q_pos (B,Sq), kv_pos (B,Sk).
+
+    Under a mesh (``sharding.axis_rules``) each rank attends with its own
+    block of the batch and of the heads (``heads_act``), K and V
+    replicated over the heads' mesh axis where their fewer heads do not
+    divide it; every (row, head) is the unsharded one's."""
+    if current() is not None:
+        return _attention_sharded(q, k, v, causal=causal, q_pos=q_pos,
+                                  kv_pos=kv_pos, chunk=chunk, scale=scale)
+    return _attention(q, k, v, causal=causal, q_pos=q_pos, kv_pos=kv_pos,
+                      chunk=chunk, scale=scale)
+
+
+def _attention_sharded(q, k, v, *, causal, q_pos, kv_pos, chunk, scale):
+    """``attention`` through ``run_local``: q, K and V by (batch, heads),
+    the positions by batch. Where q's heads are split and K and V are
+    whole, a rank expands them to the full head count and keeps its
+    own."""
+    _, mesh = current()
+    Hq, Hkv = q.shape[2], k.shape[2]
+    ax = ("batch", None, "heads_act", None)
+    model = (mesh.get_local_rank(mesh.mesh_dim_names.index("model"))
+             if "model" in mesh.mesh_dim_names else 0)
+
+    def core(q, k, v, q_pos, kv_pos):
+        hq, hkv = q.shape[2], k.shape[2]
+        if hkv == Hkv and hq != Hq:  # q split, K and V whole
+            k = torch.repeat_interleave(k, Hq // Hkv, dim=2)
+            v = torch.repeat_interleave(v, Hq // Hkv, dim=2)
+            k, v = (t[:, :, model * hq:(model + 1) * hq] for t in (k, v))
+        return _attention(q, k, v, causal=causal, q_pos=q_pos,
+                          kv_pos=kv_pos, chunk=chunk, scale=scale)
+
+    return run_local(core, (q, k, v, q_pos, kv_pos),
+                     (ax, ax, ax, ("batch", None), ("batch", None)),
+                     [(ax, (*q.shape[:3], v.shape[3]))])
+
+
+def _attention(q, k, v, *, causal, q_pos, kv_pos, chunk=2048, scale=None):
     D = q.shape[-1]
     Hq, Hkv = q.shape[2], k.shape[2]
     if Hkv != Hq:  # GQA: expand KV to the full head count
@@ -191,6 +245,69 @@ def attention(q, k, v, *, causal, q_pos, kv_pos, chunk=2048, scale=None):
                             kv_pos=kv_pos, scale=scale)
     return _attend_chunked(q, k, v, causal=causal, q_pos=q_pos,
                            kv_pos=kv_pos, scale=scale, chunk=chunk)
+
+
+# ----------------------------------------------------------------------
+# products into and out of the heads
+
+
+def merged(t, d):
+    """``t`` with dims d and d + 1 merged. Under a mesh a split of dim d
+    stays on the merged dim (dim d + 1 is gathered first), and the
+    gradient is held to the same placements before it takes the reverse
+    view: DTensor's views reject a split they cannot carry across."""
+    shape = (*t.shape[:d], t.shape[d] * t.shape[d + 1], *t.shape[d + 2:])
+    if not isinstance(t, DTensor):
+        return t.reshape(shape)
+    whole = [Replicate() if p == Shard(d + 1) else p for p in t.placements]
+    kept = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > d + 1
+            else p for p in whole]
+    mesh = t.device_mesh
+    return t.redistribute(mesh, whole).reshape(shape).redistribute(mesh,
+                                                                   kept)
+
+
+# a (batch, seq, heads, dim) activation, and one with (heads, dim)
+# flattened, each placed by its heads
+_HEADS = ("batch", None, "heads_act", None)
+_HEADS_FLAT = ("batch", None, "heads_act")
+
+
+def column(eq, x, w, axes, shape):
+    """``torch.einsum(eq, x, w)`` of an activation x (B, S, E) and a
+    weight w (E, ...) -> an output whose dims ``axes`` place, of global
+    ``shape``. Under a mesh it is a column-parallel product in
+    ``run_local``: x whole along E and along the sequence, w gathered
+    along E and split as the output's trailing dims, each rank
+    multiplying its rows by its columns. No partial sums, and nothing for
+    DTensor to plan: its own plan of such a product could split the
+    flattened (batch, seq) rows over a mesh axis, a strided shard."""
+    if current() is None:
+        return torch.einsum(eq, x, w)
+    return run_local(lambda a, b: torch.einsum(eq, a, b), (x, w),
+                     (("batch", None, None), (None, *axes[2:])),
+                     [(axes, shape)])
+
+
+def to_heads(x, w):
+    """x (B, S, E) against w (E, H, D) -> (B, S, H, D): the reference's
+    einsum("bse,ehd->bshd"), column-parallel over the heads under a mesh
+    (``column``)."""
+    E, H, D = w.shape
+    return column("bse,ehd->bshd", x, w, _HEADS, (*x.shape[:2], H, D))
+
+
+def from_heads(x, w):
+    """x (B, S, H, D) against w (H, D, E) -> (B, S, E): the reference's
+    einsum("bshd,hde->bse"), one head-major product under a mesh (see
+    ``to_heads``)."""
+    if current() is None:
+        return torch.einsum("bshd,hde->bse", x, w)
+    H, D, E = w.shape
+    B, S = x.shape[:2]
+    x = constrain(constrain(x, _HEADS).reshape(B, S, H * D), _HEADS_FLAT,
+                  (B, S, H))
+    return x @ merged(w, 0)
 
 
 # ----------------------------------------------------------------------
@@ -214,7 +331,7 @@ def gqa_specs(cfg):
 
 def _gqa_proj(p, cfg, x, positions, w, b, rotate):
     dt = torch_dtype(cfg.dtype)
-    y = torch.einsum("bse,ehd->bshd", x, p[w].to(dt))
+    y = to_heads(x, p[w].to(dt))
     if cfg.qkv_bias:
         y = y + p[b].to(dt)
     if rotate and cfg.pos_emb == "rope":
@@ -241,8 +358,7 @@ def gqa_attn(p, cfg, x, positions, *, causal=True, kv=None, kv_pos=None):
     kvp = kv_pos if kv_pos is not None else positions
     out = attention(q, k, v, causal=causal, q_pos=positions, kv_pos=kvp,
                     chunk=cfg.attn_chunk)
-    out = torch.einsum("bshd,hde->bse", out, p["wo"].to(torch_dtype(
-        cfg.dtype)))
+    out = from_heads(out, p["wo"].to(torch_dtype(cfg.dtype)))
     return out, (k, v)
 
 
@@ -299,11 +415,18 @@ def mla_specs(cfg):
     }
 
 
+def _down(x, w):
+    """x (B, S, E) against an MLA down-projection w (E, R), whose R no
+    rule splits: einsum("bse,er->bsr"), replicated over the model axis
+    under a mesh (``column``)."""
+    return column("bse,er->bsr", x, w, ("batch", None, None),
+                  (*x.shape[:2], w.shape[1]))
+
+
 def _mla_q(p, cfg, x, positions):
     dt = torch_dtype(cfg.dtype)
-    cq = rms_norm(torch.einsum("bse,eq->bsq", x, p["w_dq"].to(dt)),
-                  p["q_norm"]["w"], cfg.norm_eps)
-    q = torch.einsum("bsq,qhd->bshd", cq, p["w_uq"].to(dt))
+    cq = rms_norm(_down(x, p["w_dq"].to(dt)), p["q_norm"]["w"], cfg.norm_eps)
+    q = to_heads(cq, p["w_uq"].to(dt))
     q_nope = q[..., :cfg.qk_nope_head_dim]
     q_rope = rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -311,9 +434,9 @@ def _mla_q(p, cfg, x, positions):
 
 def _mla_latent(p, cfg, x, positions):
     dt = torch_dtype(cfg.dtype)
-    c_kv = rms_norm(torch.einsum("bse,el->bsl", x, p["w_dkv"].to(dt)),
-                    p["kv_norm"]["w"], cfg.norm_eps)
-    k_r = torch.einsum("bse,ed->bsd", x, p["w_kr"].to(dt))
+    c_kv = rms_norm(_down(x, p["w_dkv"].to(dt)), p["kv_norm"]["w"],
+                    cfg.norm_eps)
+    k_r = _down(x, p["w_kr"].to(dt))
     k_r = rope(k_r[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return c_kv, k_r
 
@@ -329,15 +452,15 @@ def mla_attn(p, cfg, x, positions):
     H = cfg.num_heads
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_r = _mla_latent(p, cfg, x, positions)
-    k_nope = torch.einsum("bsl,lhd->bshd", c_kv, p["w_uk"].to(dt))
-    v = torch.einsum("bsl,lhd->bshd", c_kv, p["w_uv"].to(dt))
+    k_nope = to_heads(c_kv, p["w_uk"].to(dt))
+    v = to_heads(c_kv, p["w_uv"].to(dt))
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_r[:, :, None].expand(
         B, S, H, cfg.qk_rope_head_dim)], dim=-1)
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     out = attention(q_cat, k_cat, v, causal=True, q_pos=positions,
                     kv_pos=positions, chunk=cfg.attn_chunk, scale=scale)
-    out = torch.einsum("bshd,hde->bse", out, p["wo"].to(dt))
+    out = from_heads(out, p["wo"].to(dt))
     return out, (c_kv, k_r)
 
 
@@ -486,6 +609,46 @@ def dispatch_mask(idxf, pos, inside, N, cap, dtype):
     return disp.reshape(T, N, cap)
 
 
+# expert buffers (experts, capacity, d_model), placed by their experts
+_EXPERTS = ("experts_act", None, None)
+
+
+def _dispatch_product(disp, xf):
+    """einsum("tnc,te->nce"); under a mesh one product over the (N, cap)
+    slots flattened expert-major (see ``to_heads``)."""
+    if current() is None:
+        return torch.einsum("tnc,te->nce", disp, xf)
+    T, N, cap = disp.shape
+    E = xf.shape[1]
+    buf = disp.reshape(T, N * cap).transpose(0, 1) @ xf
+    buf = constrain(buf, ("experts_act", None), (N, E))
+    return constrain(buf.reshape(N, cap, E), _EXPERTS)
+
+
+def _combine_product(w, out_buf):
+    """einsum("tnc,nce->te"); under a mesh one product over the (N, cap)
+    slots flattened expert-major."""
+    if current() is None:
+        return torch.einsum("tnc,nce->te", w, out_buf)
+    T, N, cap = w.shape
+    E = out_buf.shape[2]
+    flat = constrain(constrain(out_buf, _EXPERTS).reshape(N * cap, E),
+                     ("experts_act", None), (N, E))
+    return w.reshape(T, N * cap) @ flat
+
+
+def _dense_dispatch(idxf, N, cap, dtype):
+    """``dispatch_mask`` of the slots ``dense_slots`` counts. Under a mesh
+    the count runs over every token of the batch, so each rank counts
+    them all from the gathered (T, k) indices, and the dispatch tensor is
+    replicated."""
+    ctx = current()
+    full = idxf.full_tensor() if ctx is not None else idxf
+    pos, inside = dense_slots(full, N, cap)
+    disp = dispatch_mask(full, pos, inside, N, cap, dtype)
+    return disp if ctx is None else as_dtensor(disp, ctx[1])
+
+
 def _expert_ffn(p, cfg, buf):
     """buf: (experts, cap, E) -> (experts, cap, E), SwiGLU per expert."""
     dt = torch_dtype(cfg.dtype)
@@ -515,71 +678,156 @@ def moe(p, cfg, x):
     aux = N * torch.sum(me * ce)
 
     if cfg.moe_dispatch == "dense" or T * N <= _DENSE_MAX:
-        xf = x.reshape(T, E)
-        idxf, gatef = idx.reshape(T, k), gate.reshape(T, k)
+        # the tokens split as the batch is, on both sides of the views
+        xf = constrain(x.reshape(T, E), ("batch", None), (B, E))
+        idxf, gatef = idx.reshape(T, k), constrain(gate.reshape(T, k),
+                                                   ("batch", None), (B, k))
         cap = capacity(cfg, T)
-        pos, inside = dense_slots(idxf, N, cap)
-        disp = dispatch_mask(idxf, pos, inside, N, cap, dt)
-        buf = torch.einsum("tnc,te->nce", disp, xf.to(dt))
+        disp = _dense_dispatch(idxf, N, cap, dt)
+        buf = _dispatch_product(disp, xf.to(dt))
         out_buf = _expert_ffn(p, cfg, buf)
         gates_tn = ((idxf[..., None] == torch.arange(N, device=x.device))
                     .float() * gatef[..., None]).sum(1)
         # the reference's einsum("tnc,nce,tn->te"), in a fixed order: the
         # gates onto the 0/1 dispatch tensor (exact), then one contraction
-        yf = torch.einsum("tnc,nce->te", disp * gates_tn.to(dt)[..., None],
-                          out_buf)
-        y = yf.reshape(B, S, E)
+        yf = _combine_product(disp * gates_tn.to(dt)[..., None], out_buf)
+        y = constrain(constrain(yf, ("batch", None), (B, E)).reshape(B, S, E),
+                      ("batch", None, None))
     else:
-        y = _moe_scatter_dispatch(p, cfg, x, idx, gate)
+        y = _moe_scatter_dispatch(p, cfg, x, idx, gate,
+                                  current_mesh())
 
     if cfg.num_shared_experts:
-        y = y + ffn(p["shared"], cfg, x)
+        # added whole along the sequence, as the routed experts' output
+        y = y + constrain(ffn(p["shared"], cfg, x), ("batch", None, None))
     return y, aux
 
 
-def _moe_scatter_dispatch(p, cfg, x, idx, gate):
-    """Sort-based (MegaBlocks-style) capacity dispatch, gathers only, in
-    one group (the reference's G = 1 with no mesh): capacity is counted
-    per batch row. The entries sorted by expert (stable), each expert's
-    ``cap`` buffer slots gather their tokens, the experts run, and each
-    (token, j) entry reads its slot back, weighted by its gate, 0 where
-    dropped."""
-    dt = torch_dtype(cfg.dtype)
-    B, S, E = x.shape
-    k, N = cfg.top_k, cfg.num_experts
-    Lk = S * k
-    cap = capacity(cfg, S)
+def _sorted_slots(e_flat, N):
+    """Each row's entries sorted by expert (stable): (order, counts (R,N),
+    exclusive starts (R,N)). e_flat: (R, L) experts of (token, j)."""
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    counts = (e_flat[..., None] == torch.arange(N, device=e_flat.device)
+              ).to(torch.int64).sum(1)
+    return order, counts, torch.cumsum(counts, dim=-1) - counts
+
+
+def _group_dispatch(x, e_flat, k, N, cap):
+    """Each row's expert buffers: x (R, S, E), e_flat (R, S * k) -> (R, N,
+    cap, E), slot (n, c) holding the c-th entry routed to expert n (0
+    past the count)."""
+    R, _, E = x.shape
+    L = e_flat.shape[1]
     dev = x.device
-
-    e_flat = idx.reshape(B, Lk)                         # expert of (tok, j)
-    g_flat = gate.reshape(B, Lk)
-    order = torch.argsort(e_flat, dim=-1, stable=True)  # sorted by expert
-    counts = (e_flat[..., None] == torch.arange(N, device=dev)).to(
-        torch.int64).sum(1)                             # (B,N)
-    starts = torch.cumsum(counts, dim=-1) - counts      # exclusive
-
-    # dispatch: for each buffer slot (n, c), which sorted entry?
+    order, counts, starts = _sorted_slots(e_flat, N)
+    # for each buffer slot (n, c), which sorted entry?
     slot_n = torch.arange(N * cap, device=dev) // cap
     slot_c = torch.arange(N * cap, device=dev) % cap
-    src = starts[:, slot_n] + slot_c                    # (B,N*cap)
+    src = starts[:, slot_n] + slot_c                    # (R,N*cap)
     valid = slot_c[None] < counts[:, slot_n]
-    entry = torch.gather(order, 1, torch.clamp(src, max=Lk - 1))
+    entry = torch.gather(order, 1, torch.clamp(src, max=L - 1))
     tok = entry // k
-    xbuf = torch.gather(x, 1, tok[..., None].expand(B, N * cap, E)) \
-        * valid[..., None].to(dt)
-    buf = xbuf.reshape(B, N, cap, E)
+    xbuf = torch.gather(x, 1, tok[..., None].expand(R, N * cap, E)) \
+        * valid[..., None].to(x.dtype)
+    return xbuf.reshape(R, N, cap, E)
 
-    h = F.silu(torch.einsum("bxcd,xdf->bxcf", buf, p["w1"].to(dt))) \
-        * torch.einsum("bxcd,xdf->bxcf", buf, p["w3"].to(dt))
-    out_flat = torch.einsum("bxcf,xfd->bxcd", h, p["w2"].to(dt)).reshape(
-        B, N * cap, E)
 
-    # combine: each (tok, j) entry reads its slot back
+def _group_combine(out_flat, e_flat, g_flat, k, N, cap):
+    """Each (token, j) entry reads its slot back, weighted by its gate, 0
+    where dropped: out_flat (R, N * cap, E) -> (R, S, E)."""
+    R, _, E = out_flat.shape
+    L = e_flat.shape[1]
+    order, _, starts = _sorted_slots(e_flat, N)
     inv = torch.argsort(order, dim=-1)                  # entry -> sorted pos
     rank = inv - torch.gather(starts, 1, e_flat)
     inside = rank < cap
     slot = torch.clamp(e_flat * cap + rank, max=N * cap - 1)
-    y_ent = torch.gather(out_flat, 1, slot[..., None].expand(B, Lk, E))
-    y_ent = y_ent * (g_flat * inside.float())[..., None].to(dt)
-    y = y_ent.reshape(B, S, k, E).sum(2)
-    return y.to(dt)
+    y_ent = torch.gather(out_flat, 1, slot[..., None].expand(R, L, E))
+    y_ent = y_ent * (g_flat * inside.float())[..., None].to(out_flat.dtype)
+    return y_ent.reshape(R, L // k, k, E).sum(2)
+
+
+def _group_experts(p, dt, buf):
+    """Each expert's SwiGLU over its slots of every (row, group): buf
+    (B, G, N, cap, E) -> the same shape. Under a mesh, three batched
+    products over the experts, their (row, group, slot) dims flattened
+    batch-major and held so on both sides of the views (see ``merged``):
+    an einsum's own flattening leaves a rank's block of them
+    non-contiguous, which DTensor's views reject."""
+    w1, w3, w2 = (p[k].to(dt) for k in ("w1", "w3", "w2"))
+    if current() is None:
+        h = F.silu(torch.einsum("bgxcd,xdf->bgxcf", buf, w1)) \
+            * torch.einsum("bgxcd,xdf->bgxcf", buf, w3)
+        return torch.einsum("bgxcf,xfd->bgxcd", h, w2)
+    B, G, N, cap, E = buf.shape
+    flat = ("experts_act", "batch", None)
+    xb = constrain(constrain(buf.permute(2, 0, 1, 3, 4), _SLOTS).reshape(
+        N, B * G * cap, E), flat, (N, B, E))
+    h = F.silu(torch.bmm(xb, w1)) * torch.bmm(xb, w3)
+    out = constrain(torch.bmm(h, w2), flat, (N, B, E))
+    return constrain(out.reshape(N, B, G, cap, E), _SLOTS).permute(
+        1, 2, 0, 3, 4)
+
+
+# expert-major slot buffers (experts, batch, groups, capacity, d_model)
+_SLOTS = ("experts_act", "batch", None, None, None)
+
+
+def _moe_scatter_dispatch(p, cfg, x, idx, gate, mesh=None):
+    """Sort-based (MegaBlocks-style) capacity dispatch, gathers only.
+
+    Each batch row's sequence splits into G groups, G the size of the
+    mesh's ``model`` axis (1 without a mesh, or where it does not divide
+    S), and capacity is counted per (row, group) of S / G tokens. In each
+    group the entries are sorted by expert (stable), each expert's
+    ``cap`` buffer slots gather their tokens, the experts run, and each
+    (token, j) entry reads its slot back, weighted by its gate, 0 where
+    dropped. Under ``axis_rules`` a rank sorts and gathers its own (row,
+    group) blocks (``run_local``), and the buffers move between group and
+    expert sharding by ``constrain``: the expert-parallel all-to-all."""
+    dt = torch_dtype(cfg.dtype)
+    B, S, E = x.shape
+    k, N = cfg.top_k, cfg.num_experts
+    G = axis_size(mesh, "model")
+    if S % G:
+        G = 1
+    S_loc = S // G
+    L = S_loc * k
+    cap = capacity(cfg, S_loc)
+    grp = ("batch", "seq_group", None)
+
+    xg = constrain(x.reshape(B, G, S_loc, E), ("batch", "seq_group", None,
+                                                None))
+    e_flat = idx.reshape(B, G, L)                       # expert of (tok, j)
+    g_flat = gate.reshape(B, G, L)
+
+    def dispatch(xg, e):
+        b, g = e.shape[:2]
+        buf = _group_dispatch(xg.reshape(b * g, S_loc, E),
+                              e.reshape(b * g, L), k, N, cap)
+        return buf.reshape(b, g, N, cap, E)
+
+    buf = run_local(dispatch, (xg, e_flat), (grp + (None,), grp),
+                    [(grp + (None, None), (B, G, N, cap, E))])
+    # the all-to-all: group sharding -> expert sharding
+    buf = constrain(buf, ("batch", None, "experts_act", None, None))
+    out_buf = _group_experts(p, dt, buf)
+    # expert sharding kept on the product's output, so its weight
+    # gradient sees both operands expert-sharded
+    out_buf = constrain(out_buf, ("batch", None, "experts_act", None, None))
+    out_flat = out_buf.reshape(B, G, N * cap, E)
+    # the reverse all-to-all, back to group sharding for the combine
+    out_flat = constrain(out_flat, grp + (None,))
+
+    def combine(out, e, g):
+        b, gg = e.shape[:2]
+        y = _group_combine(out.reshape(b * gg, N * cap, E),
+                           e.reshape(b * gg, L), g.reshape(b * gg, L),
+                           k, N, cap)
+        return y.reshape(b, gg, S_loc, E)
+
+    y = run_local(combine, (out_flat, e_flat, g_flat),
+                  (grp + (None,), grp, grp),
+                  [(grp + (None,), (B, G, S_loc, E))])
+    y = constrain(y, grp + (None,))
+    return y.reshape(B, S, E).to(dt)

@@ -27,6 +27,8 @@ across unchanged.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -36,8 +38,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.module import SpecNetwork
 from repro_torch.models.spec import stack_tree
+from repro_torch.sharding.rules import constrain, current, sharded_region
 
 Plan = tuple  # (mixer, ffn)
+# the logical axes of an activation whole along the sequence
+_WHOLE_SEQ = ("batch", None, "embed")
 
 # ----------------------------------------------------------------------
 # layer planning
@@ -144,7 +149,9 @@ def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
     _check_plan(plan)
     mixer, ffn_kind = plan
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
+    # under a mesh a layer's input is whole along the sequence (the
+    # residual stream is split along it): sequence parallelism's gather
+    h = constrain(L.apply_norm(p["ln1"], x, cfg.norm_eps), _WHOLE_SEQ)
     new_cache = None
     if mixer == "gqa":
         if mode == "decode":
@@ -166,14 +173,17 @@ def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
         out, new_cache = S.mamba_forward(p["mamba"], cfg, h,
                                          want_cache=(mode == "prefill"),
                                          impl=impl)
-    x = x + out
+    # the layer's output is added whole along the sequence, so its
+    # gradient comes back whole as well
+    x = x + constrain(out, _WHOLE_SEQ)
     if ffn_kind != "none":
-        h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
+        h = constrain(L.apply_norm(p["ln2"], x, cfg.norm_eps), _WHOLE_SEQ)
         if ffn_kind == "moe":
             out, aux = L.moe(p["ffn"], cfg, h)
         else:
             out = L.ffn(p["ffn"], cfg, h)
-        x = x + out
+        x = x + constrain(out, _WHOLE_SEQ)
+    x = constrain(x, ("batch", "seq", "embed"))
     return x, new_cache, aux
 
 
@@ -249,11 +259,21 @@ def remat(fn, cfg, mode):
     if not (mode == "train" and cfg.remat == "full"
             and torch.is_grad_enabled()):
         return fn
+    ctx = current()
+    if ctx is None:
+        def run(*args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return run
 
-    def run(*args):
+    def sharded(*args):
+        # the recompute may run on autograd's device thread: it re-enters
+        # the forward's sharded region there
         return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    return run
+                          preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              sharded_region(*ctx)))
+    return sharded
 
 
 def _run_segment(p_seg, cfg, body, n, x, positions, *, mode, caches, pos,
@@ -308,6 +328,7 @@ def forward(params, cfg, tokens, *, mode="train", prefix_embeds=None, pos=0,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = _positions(x, pos)
+    x = constrain(x, ("batch", "seq", "embed"))
 
     new_caches = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -320,10 +341,11 @@ def forward(params, cfg, tokens, *, mode="train", prefix_embeds=None, pos=0,
             new_caches[f"seg{si}"] = c_new
         aux = aux + a
 
-    x = L.apply_norm(params["ln_f"], x, cfg.norm_eps)
+    x = constrain(L.apply_norm(params["ln_f"], x, cfg.norm_eps), _WHOLE_SEQ)
     if mode == "prefill":
         x = x[:, -1:]
     logits = L.unembed(params["embed"], cfg, x)
+    logits = constrain(logits, ("batch", "seq", "vocab_act"))
     return logits, (new_caches or None), aux
 
 

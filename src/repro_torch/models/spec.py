@@ -15,8 +15,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.core.dtypes import torch_dtype
+from repro_torch.sharding.rules import logical_sharding
 
 
 @dataclass(frozen=True)
@@ -113,13 +115,24 @@ def walk(tree, path=()):
         yield path, tree
 
 
+def param_shardings(spec_tree, mesh, rules):
+    """The DTensor placements of every leaf of a spec tree on ``mesh``
+    under ``rules`` (``sharding.logical_sharding`` of its axes)."""
+    return tree_map(lambda s: logical_sharding(s.axes, s.shape, rules, mesh),
+                    spec_tree)
+
+
 def init_params(spec_tree, seed: int, param_dtype: str,
-                device="cpu") -> dict:
+                device="cpu", mesh=None, shardings=None) -> dict:
     """Materialise a spec tree as a nested dict of tensors on ``device``.
 
     Leaves are drawn on the CPU, so a seed gives the same weights on every
     device; ``_DRAW_THREADS`` leaves are drawn at once (each from its own
-    generator, so the order does not change a value)."""
+    generator, so the order does not change a value). With a ``mesh``,
+    each leaf is drawn whole and then distributed by its placements in
+    ``shardings`` (a tree shaped as ``spec_tree``), each rank keeping its
+    own block: every rank holds the unsharded values, and no rank the
+    whole tree at once."""
     leaves = list(walk(spec_tree))
     for path, spec in leaves:
         if not isinstance(spec, ParamSpec):
@@ -130,7 +143,13 @@ def init_params(spec_tree, seed: int, param_dtype: str,
         gen = torch.Generator().manual_seed(
             (seed * 0x9E3779B1 + zlib.crc32(".".join(path).encode()))
             % 2 ** 63)
-        return init_leaf(spec, gen, param_dtype, device)
+        leaf = init_leaf(spec, gen, param_dtype, device)
+        if mesh is None:
+            return leaf
+        node = shardings
+        for p in path:
+            node = node[p]
+        return distribute_tensor(leaf, mesh, node, src_data_rank=None)
 
     with ThreadPoolExecutor(_DRAW_THREADS) as pool:
         drawn = list(pool.map(draw, leaves))

@@ -22,6 +22,8 @@ from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models.layers import norm_spec, rms_norm
 from repro_torch.models.spec import ParamSpec
+from repro_torch.sharding.rules import (axis_size, constrain, current_mesh,
+                                        run_local)
 
 
 def _dims(cfg):
@@ -140,25 +142,57 @@ def ssd_chunked(x, dt, A, Bm, C, chunk):
     return y[:, :L], s_final
 
 
+def _ssd_heads(cfg, x, dt, A_log, dt_bias, D, Bm, C):
+    """The SSD of heads x (B,L,H,P) with their time steps dt (B,L,H)
+    before the softplus, A_log, dt_bias and D (H,), over groups Bm, C
+    (B,L,G,N) of H / G heads each -> (y (B,L,H,P) with the D skip,
+    final state (B,G,H/G,P,N))."""
+    B_, L, H, P = x.shape
+    G = Bm.shape[2]
+    Hg = H // G
+    x = x.reshape(B_, L, G, Hg, P)
+    dt = _softplus(dt.float() + dt_bias.float()).reshape(B_, L, G, Hg)
+    A = -torch.exp(A_log.float()).reshape(G, Hg)
+    y, s_final = ssd_chunked(x, dt, A, Bm, C, cfg.ssd_chunk)
+    y = y + D.to(x.dtype).reshape(G, Hg)[..., None] * x
+    return y.reshape(B_, L, H, P), s_final
+
+
 def mamba_forward(p, cfg, xres, *, want_cache=False, impl="auto"):
     """Full-sequence Mamba-2 mixer. xres: (B,L,E), already normed.
     ``impl`` is the causal conv's (``ops.causal_conv1d``)."""
     dt_ = torch_dtype(cfg.dtype)
     d_inner, G, N, P, H, Hg, conv_ch = _dims(cfg)
     B_, L, E = xres.shape
-    zxbcdt = xres @ p["in_proj"].to(dt_)
+    # under a mesh the projection's channels are gathered once: z, xBC
+    # and dt do not fall on its shard boundaries
+    zxbcdt = constrain(xres @ p["in_proj"].to(dt_), ("batch", None, None))
     z, xBC, dt = _split_proj(cfg, zxbcdt)
-    xBC = ops.causal_conv1d(xBC, p["conv_w"].to(dt_), p["conv_b"].to(dt_),
-                            impl=impl)
-    xBC = F.silu(xBC)
-    x = xBC[..., :d_inner].reshape(B_, L, G, Hg, P)
+    ch = ("batch", None, "ssm_inner")
+    xBC = run_local(lambda x, w, b: ops.causal_conv1d(x, w, b, impl=impl),
+                    (xBC, p["conv_w"].to(dt_), p["conv_b"].to(dt_)),
+                    (ch, ("conv_k", "ssm_inner"), ("ssm_inner",)),
+                    [(ch, tuple(xBC.shape))])
+    xBC = constrain(F.silu(xBC), ("batch", None, None))
+    x = xBC[..., :d_inner].reshape(B_, L, H, P)
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(B_, L, G, N)
     C = xBC[..., d_inner + G * N:].reshape(B_, L, G, N)
-    dt = _softplus(dt.float() + p["dt_bias"].float()).reshape(B_, L, G, Hg)
-    A = -torch.exp(p["A_log"].float()).reshape(G, Hg)
-    y, s_final = ssd_chunked(x, dt, A, Bm, C, cfg.ssd_chunk)
-    y = y + p["D"].to(dt_).reshape(G, Hg)[..., None] * x
-    y = y.reshape(B_, L, d_inner)
+    # a rank's heads are whole groups, or a slice of the one group;
+    # otherwise every rank runs them all
+    hd = "ssm_heads" if G == 1 or G % axis_size(current_mesh(), "model") == 0 \
+        else None
+    hx, grp = ("batch", None, hd, None), ("batch", None, hd if G > 1
+                                          else None, None)
+    state = ("batch", hd, None, None, None) if G > 1 \
+        else ("batch", None, hd, None, None)
+    y, s_final = run_local(
+        lambda *a: _ssd_heads(cfg, *a),
+        (x, dt, p["A_log"], p["dt_bias"], p["D"], Bm, C),
+        (hx, ("batch", None, hd), (hd,), (hd,), (hd,), grp, grp),
+        [(hx, (B_, L, H, P)), (state, (B_, G, Hg, P, N))])
+    # the heads' split held on both sides of the view (see layers.merged)
+    y = constrain(y.reshape(B_, L, d_inner), ("batch", None, hd),
+                  (B_, L, H))
     y = rms_norm(y * F.silu(z), p["norm"]["w"], cfg.norm_eps)
     out = y @ p["out_proj"].to(dt_)
     if want_cache:
