@@ -562,6 +562,19 @@ TRAIN_LIVE = 1e-3
 # unsharded step does (inside local_map, on each rank's channel shard).
 MESH_PATH, MESH_PARITY_PATH = "mesh/mamba2_370m", "mesh/mamba2_370m_2l/fp32"
 MESH_STEPS, MESH_BOUND = 2, 2e-5
+# Serving under the same mesh (inside the same NCCL group): the first 2
+# layers in fp32 at batch 1 and PARITY_PROMPT, MESH_SERVE_STEPS decode
+# steps, the sharded steps replayed through a sharded StepGraphs bitwise
+# equal to the sharded eager steps and to the unsharded ones; then
+# mamba2-370m at full size as the lm lines serve it (bf16, SERVE_BATCH x
+# SERVE_PROMPT + SERVE_NEW greedy tokens), causal_conv1d launching once a
+# Mamba layer per traced sharded prefill (inside local_map, on each
+# rank's channel shard) and never on a replay.
+MESH_SERVE_PATH = "mesh_serve/mamba2_370m"
+MESH_SERVE_PARITY_PATH = "mesh_serve/mamba2_370m_2l/fp32"
+MESH_SERVE_LAYERS, MESH_SERVE_STEPS = 2, 4
+LM_PATHS.update({MESH_SERVE_PATH: "bfloat16",
+                 MESH_SERVE_PARITY_PATH: "float32"})
 RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 12, 4, 9
 RESUME_BATCH, RESUME_SEQ = 2, 256
 OPTIM_STEPS, OPTIM_BOUND = 3, 2e-5
@@ -1845,9 +1858,11 @@ def conv1d_classes(cfg, hybrid, hybrid_parity):
     the hybrid, and the edge lengths at Mamba-2's width, which no path
     launches."""
     classes = {conv1d_class(cfg, SERVE_BATCH, SERVE_PROMPT):
-               {"mamba2_370m": mamba_layers(cfg)},
+               {"mamba2_370m": mamba_layers(cfg),
+                MESH_SERVE_PATH: mamba_layers(cfg)},
                conv1d_class(cfg, 1, PARITY_PROMPT):
-               {"mamba2_370m/fp32": mamba_layers(cfg)}}
+               {"mamba2_370m/fp32": mamba_layers(cfg),
+                MESH_SERVE_PARITY_PATH: MESH_SERVE_LAYERS}}
     for L in EDGE_LENGTHS:
         classes.setdefault(conv1d_class(cfg, 1, L), {})
     # after Mamba-2's, so those draw the inputs they drew before
@@ -3143,12 +3158,14 @@ def train_phase(cfg, counters, peaks):
     return line, thunks
 
 
-def mesh_phase(cfg, counters, smi):
+def mesh_phase(cfg, params, counters, smi):
     """The train step across a mesh on the card (``MESH_PATH``): an NCCL
     group of one rank from a ``HashStore``, the (1, 1) mesh of
-    ``launch.mesh.make_local_mesh``, the rules of ``rules_for``. Returns
-    (the 2-layer fp32 parity line, the full-size line); the group is
-    destroyed before it returns."""
+    ``launch.mesh.make_local_mesh``, the rules of ``rules_for``; then
+    serving on the same mesh (``mesh_serve_phase``; ``params`` are the
+    unsharded full-size weights it is held against). Returns (the 2-layer
+    fp32 parity line, the full-size line, the two serving lines); the
+    group is destroyed before it returns."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -3267,9 +3284,183 @@ def mesh_phase(cfg, counters, smi):
                                        zip(sharded_ms, plain_ms)],
             "state_placements": sorted(placements)}
         del sstate
+        serve_lines = mesh_serve_phase(cfg, params, counters, mesh, smi)
     finally:
         dist.destroy_process_group()
-    return parity, line
+    return parity, line, serve_lines
+
+
+def mesh_serve_phase(cfg, params, counters, mesh, smi):
+    """Serving on ``mesh`` (``MESH_SERVE_PARITY_PATH``, then
+    ``MESH_SERVE_PATH``): the sharded prefill and decode steps of
+    ``steps`` replayed through a sharded ``StepGraphs`` beside the same
+    steps eager, sharded and unsharded. Returns the two lines."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.sharding.rules import rules_for
+
+    def local(t):  # a (1, 1) mesh: every block is the whole tensor
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def run(cfg, graphs, cparams, prompts, cache_len, tokens, mesh=None):
+        """Prefill then one decode step a column of ``tokens`` (B, n):
+        ``graphs`` replayed, or the eager steps of ``cfg`` on ``cparams``
+        -> (each step's logits, host ms of each step)."""
+        out, ms = [], []
+        with torch.no_grad():
+            if graphs is not None:
+                t, (logits, caches) = host_ms(lambda: graphs.prefill(
+                    prompts, cache_len))
+            else:
+                t, (logits, caches) = host_ms(lambda: steps.prefill_step(
+                    cparams, cfg, prompts, cache_len=cache_len, mesh=mesh))
+            out.append(local(logits).clone())
+            ms.append(t)
+            for i in range(tokens.shape[1]):
+                tok, pos = tokens[:, i:i + 1], prompts.shape[1] + i
+                if graphs is not None:
+                    t, logits = host_ms(lambda: graphs.decode(tok, caches,
+                                                              pos))
+                else:
+                    t, (logits, caches) = host_ms(lambda: steps.decode_step(
+                        cparams, cfg, tok, caches, pos, mesh=mesh))
+                out.append(local(logits).clone())
+                ms.append(t)
+        return out, ms
+
+    lines = []
+    # ---- the first 2 layers in fp32: replay = sharded eager = unsharded
+    cfg2 = cfg.replace(num_layers=MESH_SERVE_LAYERS, dtype="float32")
+    rules = rules_for(cfg2, mesh)
+    sparams = steps.init_params(cfg2, 0, mesh=mesh, rules=rules)
+    uparams = steps.init_params(cfg2, 0, "cuda")
+    prompts = lm_prompts(cfg2, 1, PARITY_PROMPT, seed=2)
+    cache_len = PARITY_PROMPT + MESH_SERVE_STEPS
+    graphs = steps.StepGraphs(cfg2, sparams, mesh, rules)
+    zero_counts(counters)
+    with torch.no_grad():
+        logits, _ = graphs.prefill(prompts, cache_len)
+    torch.cuda.synchronize()
+    traced = read_counts(counters)
+    tokens = vocab_logits(local(logits)[:, -1], cfg2).argmax(-1)[:, None]
+    tokens = tokens.expand(1, MESH_SERVE_STEPS).contiguous()
+    replay, _ = run(cfg2, graphs, None, prompts, cache_len, tokens)
+    eager, _ = run(cfg2, None, graphs.params, prompts, cache_len, tokens,
+                   mesh)
+    plain, _ = run(cfg2, None, steps.compute_params(uparams, cfg2), prompts,
+                   cache_len, tokens)
+    vs_eager = [torch.equal(a, b) for a, b in zip(replay, eager)]
+    vs_plain = [torch.equal(a, b) for a, b in zip(replay, plain)]
+    want = {**NO_LAUNCHES, "causal_conv1d": MESH_SERVE_LAYERS}
+    require(traced == {k: v * graphs.prefills for k, v in want.items()},
+            f"{MESH_SERVE_PARITY_PATH}: launches {traced} over "
+            f"{graphs.prefills} traced prefills, want {want} each")
+    require(all(vs_eager), f"{MESH_SERVE_PARITY_PATH}: replay not bitwise "
+            f"sharded eager at steps {vs_eager}")
+    require(all(vs_plain), f"{MESH_SERVE_PARITY_PATH}: sharded not bitwise "
+            f"unsharded at steps {vs_plain}")
+    lines.append({
+        "phase": "mesh", "path": MESH_SERVE_PARITY_PATH, "config": cfg.name,
+        "entry": "repro_torch.launch.steps.StepGraphs(cfg, params, mesh, "
+                 "rules) beside prefill_step / decode_step(..., mesh=), "
+                 "sharded and unsharded",
+        "mesh": {"shape": list(mesh.shape),
+                 "names": list(mesh.mesh_dim_names)},
+        "dtype": "float32", "layers": MESH_SERVE_LAYERS, "batch": 1,
+        "prompt": PARITY_PROMPT, "decode_steps": MESH_SERVE_STEPS,
+        "launches_at_capture": traced, "prefills_traced": graphs.prefills,
+        "replay_bitwise_equal_sharded_eager": all(vs_eager),
+        "sharded_bitwise_equal_unsharded": all(vs_plain),
+        "max_rel_err_vs_unsharded": max(
+            rel_err(a.float(), b.float()) for a, b in zip(replay, plain)),
+        "reduced": {"num_layers": f"{cfg.num_layers} -> "
+                                  f"{MESH_SERVE_LAYERS}",
+                    "dtype": "bfloat16 -> float32"}})
+    del graphs, sparams, uparams, replay, eager, plain
+
+    # ---- full size, bf16: generate through the sharded graphs --------
+    rules = rules_for(cfg, mesh)
+    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    cache_len = S + new
+    prompts = lm_prompts(cfg, B, S, seed=1)
+    sparams = steps.init_params(cfg, 0, mesh=mesh, rules=rules)
+    graphs = steps.StepGraphs(cfg, sparams, mesh, rules)
+    kw = dict(max_new=new, cache_len=cache_len, mesh=mesh)
+    zero_counts(counters)
+    tokens = serve.generate(cfg, sparams, prompts, graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    traced = read_counts(counters)
+    zero_counts(counters)
+    again = serve.generate(cfg, sparams, prompts, graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    on_replay = read_counts(counters)
+    eager_tokens = serve.generate(cfg, sparams, prompts, replay=False, **kw)
+    plain_tokens = serve.generate(cfg, params, prompts, max_new=new,
+                                  cache_len=cache_len)
+    per_prefill = {**NO_LAUNCHES, "causal_conv1d": mamba_layers(cfg)}
+    require(traced == {k: v * graphs.prefills
+                       for k, v in per_prefill.items()},
+            f"{MESH_SERVE_PATH}: launches at capture {traced} over "
+            f"{graphs.prefills} traced prefills, want {per_prefill} each")
+    require(on_replay == NO_LAUNCHES,
+            f"{MESH_SERVE_PATH}: launches on replay {on_replay}")
+    require(torch.equal(again, tokens) and torch.equal(eager_tokens, tokens),
+            f"{MESH_SERVE_PATH}: replayed, replayed again and eager sharded "
+            "tokens differ")
+    require(tuple(tokens.shape) == (B, new) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size,
+            f"{MESH_SERVE_PATH}: bad tokens {tuple(tokens.shape)}")
+    # teacher-forced on the sharded tokens: prefill ms and decode ms a
+    # token, sharded replayed and eager beside unsharded replayed and eager
+    ugraphs = steps.StepGraphs(cfg, params)
+    cases = {"sharded_replay": (graphs, None, mesh),
+             "sharded_eager": (None, graphs.params, mesh),
+             "unsharded_replay": (ugraphs, None, None),
+             "unsharded_eager": (None, ugraphs.params, None)}
+    forced = tokens[:, :new - 1]
+    prefill_ms, decode_ms, logits = {}, {}, {}
+    for name, (g, cp, m) in cases.items():
+        prefill_ms[name], decode_ms[name] = [], []
+        for _ in range(3):
+            out, ms = run(cfg, g, cp, prompts, cache_len, forced, m)
+            prefill_ms[name].append(ms[0])
+            decode_ms[name].extend(ms[1:])
+        logits[name] = out
+    bitwise = {name: all(torch.equal(a, b) for a, b in
+                         zip(logits["sharded_replay"], out))
+               for name, out in logits.items()}
+    require(bitwise["sharded_eager"], f"{MESH_SERVE_PATH}: replayed logits "
+            "not bitwise the sharded eager ones")
+    require(torch.equal(plain_tokens, tokens) and bitwise["unsharded_replay"]
+            and bitwise["unsharded_eager"],
+            f"{MESH_SERVE_PATH}: sharded tokens or replayed logits not "
+            f"bitwise the unsharded ones ({bitwise})")
+    line = {
+        "phase": "mesh", "path": MESH_SERVE_PATH, "config": cfg.name,
+        "entry": "repro_torch.launch.serve.generate(cfg, params, prompts, "
+                 "mesh=, graphs=steps.StepGraphs(cfg, params, mesh, rules))",
+        "card": smi,
+        "mesh": {"shape": list(mesh.shape),
+                 "names": list(mesh.mesh_dim_names)},
+        "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "layers": cfg.num_layers, "batch": B, "prompt": S,
+        "new_tokens": new, "cache_len": cache_len,
+        "graphs": graphs.graphs, "prefills_traced": graphs.prefills,
+        "launches_at_capture": traced,
+        "launches_per_traced_prefill": {
+            k: v / graphs.prefills for k, v in traced.items()},
+        "launches_on_replay": on_replay,
+        "tokens_replay_equal_eager": True,
+        "tokens_equal_unsharded": True,
+        "logits_bitwise_equal_sharded_replay": bitwise,
+        "sample_tokens": tokens[0, :8].tolist()}
+    for name in cases:
+        line[f"prefill_ms_{name}"] = statistics.median(prefill_ms[name])
+        line[f"decode_ms_per_token_{name}"] = statistics.median(
+            decode_ms[name])
+    line.update(prefill_ms=prefill_ms, decode_ms=decode_ms)
+    lines.append(line)
+    del graphs, ugraphs, sparams, logits
+    return lines
 
 
 def train_profile(step, grads, layers, top=10):
@@ -3726,11 +3917,15 @@ def main() -> None:
     profiles.append((line["path"], thunks))
     emit(line)
     # ---- the train step across a mesh (NCCL, one rank) -----------------
-    parity, line = mesh_phase(lcfg, counters, smi)
+    parity, line, serve_lines = mesh_phase(lcfg, lparams, counters, smi)
     emit(parity)
     train_launches[MESH_PATH] = {k: line["launches"][k]
                                  for k in CONV1D_KERNELS}
     emit(line)
+    for line in serve_lines:
+        lm_launches[line["path"]] = (line["launches_at_capture"],
+                                     line["prefills_traced"])
+        emit(line)
     # after every timed LM line: one replayed and one eager decode step
     # of each serving path under the profiler, and one train step
     for path, thunks in profiles:

@@ -1,7 +1,9 @@
-"""The dry run (``repro/launch/dryrun.py``) of the train cells: the
-sharded train step of an (architecture, ``train_4k``) cell run over 256 or
-512 placeholder ranks, allocating nothing, to read what each rank holds,
-computes and sends.
+"""The dry run (``repro/launch/dryrun.py``): one step of an
+(architecture, shape) cell, the sharded train step of a ``train_4k``
+cell or the sharded prefill or decode step of a ``prefill_32k``,
+``decode_32k`` or ``long_500k`` cell, run over 256 or 512 placeholder
+ranks, allocating nothing, to read what each rank holds, computes and
+sends.
 
 The reference lowers and compiles each cell for 512 placeholder TPU
 devices and reads XLA's memory and cost analyses. Here a ``fake`` process
@@ -10,18 +12,23 @@ and the step runs once as rank 0 under ``FakeTensorMode``: every tensor
 is a shape without storage, every collective returns at once. From that
 run, per rank:
 
-- the exact bytes of its parameters, optimizer state and batch, from the
-  local shard shapes;
+- the exact bytes of its parameters, optimizer state (train), caches
+  (serving: a prefill's output, a decode step's input) and batch, from
+  the local shard shapes;
 - FLOPs, from ``torch.utils.flop_counter.FlopCounterMode``'s formulas,
   applied to the local operations each DTensor operation becomes;
 - collective bytes by kind (all-gather, all-reduce, reduce-scatter,
-  all-to-all), the output bytes of each collective DTensor issues;
+  all-to-all), the output bytes of each collective DTensor issues (an
+  all-to-all by the block it returns, as a CUDA group moves it);
 - roofline terms against one H100 SXM's data-sheet peaks.
 
-Every layer runs (no scan, so no unrolled cost probe is needed). Prefill
-and decode cells are not dry-run yet.
+Every layer runs (no scan, so no unrolled cost probe is needed). A
+serving step runs without autograd, on the parameters of
+``steps.abstract_state`` and the tokens, caches and position of
+``steps.input_specs``, as the reference's ``_lower_one`` lowers it.
 
     python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k
+    python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
     python -m repro_torch.launch.dryrun --all --both-meshes --out dry.json
 
 It needs no card: the fake ranks are CPU ranks. The group is made in
@@ -39,12 +46,14 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import (DTensor, distribute_tensor,
+                                      placement_types)
 from torch.distributed.tensor._sharding_prop import ShardingPropagator
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import ASSIGNED, SHAPES, get, tiny_variant
+from repro_torch.configs import (ASSIGNED, SHAPES, applicable_shapes,
+                                 get, tiny_variant)
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.spec import flatten
@@ -69,7 +78,10 @@ class RankCounter(TorchDispatchMode):
     DTensor also runs each new operation once on global-shaped fake
     tensors to learn its output's shape, under its ``ShardingPropagator``'s
     ``_fake_mode_lock``; ``counting`` wraps that lock so that those calls
-    are not counted."""
+    are not counted. A move between two split dims is counted as the
+    all-to-all a CUDA group runs, by the block it returns, where a CPU
+    group runs an all-gather of the whole tensor and a chunk
+    (``_count_alltoall``)."""
 
     def __init__(self):
         super().__init__()
@@ -82,11 +94,27 @@ class RankCounter(TorchDispatchMode):
     def __enter__(self):
         self._lock = ShardingPropagator._fake_mode_lock
         ShardingPropagator._fake_mode_lock = _ShapeProbe(self, self._lock)
+        self._alltoall = placement_types.shard_dim_alltoall
+        placement_types.shard_dim_alltoall = self._count_alltoall
         return super().__enter__()
 
     def __exit__(self, *exc):
         ShardingPropagator._fake_mode_lock = self._lock
+        placement_types.shard_dim_alltoall = self._alltoall
         return super().__exit__(*exc)
+
+    def _count_alltoall(self, *args, **kwargs):
+        """DTensor's all-to-all between two split dims, its collectives
+        not counted inside, counted by the block it returns."""
+        self._probing += 1
+        try:
+            out = self._alltoall(*args, **kwargs)
+        finally:
+            self._probing -= 1
+        if not self._probing:
+            self.collectives["all-to-all"] = self.collectives.get(
+                "all-to-all", 0) + out.numel() * out.element_size()
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -130,9 +158,15 @@ def local_bytes(tree) -> int:
 
 
 def model_flops(cfg, shape) -> float:
-    """6 N D (dense) or 6 N_active D (MoE), D the tokens of the step."""
+    """6 N D for a train step, 2 N D for a serving one (N the parameters,
+    the active ones of an MoE), D the tokens of the step: a decode step's
+    one a row."""
     n = cfg.active_params() if cfg.num_experts else cfg.num_params()
-    return float(6 * n * shape.global_batch * shape.seq_len)
+    if shape.kind == "train":
+        return float(6 * n * shape.global_batch * shape.seq_len)
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    return float(2 * n * tokens)
 
 
 @contextlib.contextmanager
@@ -149,46 +183,81 @@ def fake_group(world_size: int, rank: int = 0):
         dist.destroy_process_group()
 
 
+def _placed(tree, mesh):
+    """``input_specs``' ``Struct`` leaves (nested) as DTensors of empty
+    blocks on their placements."""
+    return {k: _placed(v, mesh) if isinstance(v, dict) else
+            distribute_tensor(torch.empty(v.shape, dtype=v.dtype), mesh,
+                              v.placements, src_data_rank=None)
+            for k, v in tree.items()}
+
+
+def _serve(cfg, shape, params, inputs, mesh, rules):
+    """One serving step of the cell -> the caches it writes (a prefill)
+    or reads (a decode)."""
+    with torch.no_grad():
+        if shape.kind == "prefill":
+            _, caches = steps.prefill_step(
+                params, cfg, inputs["tokens"], cache_len=shape.seq_len,
+                frames=inputs.get("frames"),
+                prefix_embeds=inputs.get("patch_embeds"), mesh=mesh,
+                rules=rules)
+            return caches
+        steps.decode_step(params, cfg, inputs["tokens"], inputs["caches"],
+                          inputs["pos"], mesh=mesh, rules=rules)
+        return inputs["caches"]
+
+
 def lower_cell(arch: str, shape_name: str = "train_4k", *,
                multi_pod: bool = False, tiny: bool = False) -> dict:
-    """Run one train cell's step on the production mesh over the current
-    fake group (256 or 512 ranks) -> the report of rank 0."""
+    """Run one cell's step on the production mesh over the current fake
+    group (256 or 512 ranks) -> the report of rank 0."""
     cfg = get(arch)
     if tiny:
         cfg = tiny_variant(cfg)
     shape = SHAPES[shape_name]
-    if shape.kind != "train":
-        raise ValueError(f"{shape_name}: only train cells are dry-run")
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
     rules = rules_for(cfg, mesh)
+    train = shape.kind == "train"
     t0 = time.time()
     with FakeTensorMode():
         state, _ = steps.abstract_state(cfg, mesh, rules)
-        batch = {k: distribute_tensor(
-            torch.empty(s.shape, dtype=s.dtype), mesh, s.placements,
-            src_data_rank=None)
-            for k, s in steps.input_specs(cfg, shape, mesh, rules).items()}
-        step = steps.make_train_step(cfg, mesh, rules)
+        inputs = _placed(steps.input_specs(cfg, shape, mesh, rules), mesh)
+        caches = inputs.pop("caches", None)
+        pos = inputs.pop("pos", None)
         with RankCounter() as counter:
-            step(state, batch)
+            if train:
+                steps.make_train_step(cfg, mesh, rules)(state, inputs)
+            else:
+                caches = _serve(cfg, shape, state["params"],
+                                {**inputs, "caches": caches, "pos": pos},
+                                mesh, rules)
     seconds = time.time() - t0
     param_b = local_bytes(state["params"])
-    opt_b = local_bytes(state["opt"])
-    batch_b = local_bytes(batch)
+    opt_b = local_bytes(state["opt"]) if train else 0
+    batch_b = local_bytes({**inputs, **({} if pos is None
+                                        else {"pos": pos})})
+    cache_b = 0 if train else local_bytes(caches)
     coll = sum(counter.collectives.values())
     peaks = H100_SXM_PEAKS
+    # a train step reads and writes each state byte once and reads the
+    # batch; a serving step reads the weights once and writes its caches
+    # (a decode step reads them too)
+    moved = (2 * (param_b + opt_b) + batch_b if train else
+             param_b + batch_b + cache_b * (2 if shape.kind == "decode"
+                                            else 1))
     terms = {"compute": counter.flops / peaks[cfg.dtype],
-             # each state byte read and written once, the batch read once
-             "memory": (2 * (param_b + opt_b) + batch_b) / peaks["mem_bw"],
+             "memory": moved / peaks["mem_bw"],
              "collective": coll / peaks["link_bw"]}
     mf = model_flops(cfg, shape)
     ranks = mesh.size()
     return {
-        "arch": cfg.name, "shape": shape_name,
+        "arch": cfg.name, "shape": shape_name, "kind": shape.kind,
         "mesh": "2x16x16" if multi_pod else "16x16", "ranks": ranks,
         "seconds": round(seconds, 1),
         "per_rank": {"param_bytes": param_b, "opt_bytes": opt_b,
-                     "batch_bytes": batch_b, "flops": counter.flops,
+                     "batch_bytes": batch_b, "cache_bytes": cache_b,
+                     "flops": counter.flops,
                      "collective_bytes": coll,
                      "collectives": dict(counter.collectives)},
         "roofline_s": terms,
@@ -226,7 +295,8 @@ def run_cells(cells, *, out_path=None, tiny=False):
                 r, t = rep["per_rank"], rep["roofline_s"]
                 print(f"PASS {tag}: {rep['seconds']}s "
                       f"state={(r['param_bytes'] + r['opt_bytes']) / 2**30:.2f}"
-                      f"GiB flops={r['flops']:.3e} "
+                      f"GiB cache={r['cache_bytes'] / 2**30:.3f}GiB "
+                      f"flops={r['flops']:.3e} "
                       f"coll={r['collective_bytes'] / 2**30:.2f}GiB "
                       f"bottleneck={rep['bottleneck']} "
                       f"t=(c {t['compute']:.2e} | m {t['memory']:.2e} | "
@@ -240,9 +310,12 @@ def run_cells(cells, *, out_path=None, tiny=False):
 
 
 def all_cells(multi_pod: bool | None = None):
-    """(arch, "train_4k", multi_pod) for every assigned architecture."""
+    """(arch, shape, multi_pod) for every assigned architecture and each
+    of its ``applicable_shapes``: train, prefill and decode, and
+    ``long_500k`` where the config has a sub-quadratic decode."""
     meshes = [False, True] if multi_pod is None else [multi_pod]
-    return [(arch, "train_4k", mp) for arch in ASSIGNED for mp in meshes]
+    return [(arch, shape.name, mp) for arch in ASSIGNED
+            for shape in applicable_shapes(get(arch)) for mp in meshes]
 
 
 def main(argv=None):

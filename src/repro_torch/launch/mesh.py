@@ -11,6 +11,7 @@ differ from rank to rank.
 from __future__ import annotations
 
 import itertools
+import os
 
 import torch
 import torch.distributed as dist
@@ -59,3 +60,28 @@ def mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+def mesh_from_env(kind: str, device=None):
+    """The process group from ``torchrun``'s environment and the ``kind``
+    mesh over it: ``local`` (1, world size), ``pod`` 16x16 or
+    ``multipod`` 2x16x16. On the card NCCL, one rank a device (the rank's
+    ``LOCAL_RANK``); gloo only where ``device`` names the CPU. Nothing
+    falls back: a group NCCL cannot make raises."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl", device_id=torch.device(
+            "cuda", torch.cuda.current_device()))
+    else:
+        dist.init_process_group("gloo")
+    if kind == "local":
+        return make_local_mesh(device)
+    return make_production_mesh(multi_pod=(kind == "multipod"),
+                                device=device)
+
+
+def first_rank(mesh) -> bool:
+    """Whether this rank is the mesh's first (or there is no mesh): the
+    one that prints."""
+    return mesh is None or not any(mesh.get_coordinate())

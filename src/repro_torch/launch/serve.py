@@ -18,22 +18,35 @@ its frame embeddings, and is served through ``steps`` (``StepGraphs``'s
 and ``steps.decode_step``), as is a prompt with patch embeddings
 (``prefix_embeds=``). Weights come from seed 0 and the prompts from a
 ``torch.Generator`` seeded 1.
+
+With ``--mesh`` it serves sharded under ``torchrun``, one rank a device
+(NCCL on the cards, gloo with ``--device cpu``), on a (1, world size)
+mesh (``local``) or a production one (``pod`` 16x16, ``multipod``
+2x16x16), the weights and the caches placed by the config's
+``rules_for``; the first rank prints:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch qwen2-0.5b --tiny --mesh local --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get, tiny_variant
 from repro_torch.core.device import resolve_device
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import first_rank, mesh_device, mesh_from_env
 
 
 def generate(cfg, params, prompts, *, max_new: int, cache_len: int,
              temperature: float = 0.0, generator=None, replay=None,
-             graphs=None):
+             graphs=None, mesh=None, rules=None):
     """prompts: (B, S) integer tokens -> (B, max_new) int32 samples:
     greedy at ``temperature`` 0, else drawn from the tempered softmax with
     ``generator`` (a ``torch.Generator`` on the logits' device).
@@ -47,7 +60,15 @@ def generate(cfg, params, prompts, *, max_new: int, cache_len: int,
     dispatches every op eagerly, the only kind on the CPU; asking for
     replay there raises. Either way the weights are cast to the compute
     dtype once, not at every step, and sampling runs outside the graphs.
-    """
+
+    With a ``mesh`` every rank of it calls ``generate`` alike, with
+    ``params`` placed by ``rules`` (the config's ``rules_for`` unless
+    given; ``steps.init_params(cfg, mesh=mesh)``) and the same prompts:
+    the steps run sharded (``StepGraphs(cfg, params, mesh, rules)`` on
+    the card) and every rank samples from the whole logits, so each draws
+    the same tokens (at a temperature, from a generator seeded alike on
+    every rank). DTensor's views fail in inference mode, so a mesh runs
+    under ``no_grad``."""
     _tokens_only(cfg)
     B, S = prompts.shape
     on_card = prompts.device.type == "cuda"
@@ -56,13 +77,14 @@ def generate(cfg, params, prompts, *, max_new: int, cache_len: int,
     if replay and not on_card:
         raise ValueError(f"CUDA graphs run on the card, not on "
                          f"{prompts.device}: pass replay=False")
-    with torch.inference_mode():
+    with torch.inference_mode() if mesh is None else torch.no_grad():
         if replay:
             if graphs is None:
-                graphs = steps.StepGraphs(cfg, params)
-            elif graphs.source is not params or graphs.cfg != cfg:
-                raise ValueError("graphs were built for other params or "
-                                 "another config")
+                graphs = steps.StepGraphs(cfg, params, mesh, rules)
+            elif graphs.source is not params or graphs.cfg != cfg \
+                    or graphs.mesh is not mesh:
+                raise ValueError("graphs were built for other params, "
+                                 "another config or another mesh")
             logits, caches = graphs.prefill(prompts, cache_len)
 
             def step(tok, pos):
@@ -70,20 +92,27 @@ def generate(cfg, params, prompts, *, max_new: int, cache_len: int,
         else:
             cparams = steps.compute_params(params, cfg)
             logits, caches = steps.prefill_step(cparams, cfg, prompts,
-                                                cache_len=cache_len)
+                                                cache_len=cache_len,
+                                                mesh=mesh, rules=rules)
 
             def step(tok, pos):
                 nonlocal caches
                 logits, caches = steps.decode_step(cparams, cfg, tok,
-                                                   caches, pos)
+                                                   caches, pos, mesh=mesh,
+                                                   rules=rules)
                 return logits
-        tok = _sample(logits[:, -1], temperature, generator, cfg)
+        tok = _sample(_whole(logits)[:, -1], temperature, generator, cfg)
         outs = [tok]
         for i in range(max_new - 1):
             logits = step(tok[:, None], S + i)
-            tok = _sample(logits[:, 0], temperature, generator, cfg)
+            tok = _sample(_whole(logits)[:, 0], temperature, generator, cfg)
             outs.append(tok)
     return torch.stack(outs, dim=1)
+
+
+def _whole(logits):
+    """The logits whole on every rank (a sharded step's are a DTensor)."""
+    return logits.full_tensor() if isinstance(logits, DTensor) else logits
 
 
 def _tokens_only(cfg):
@@ -116,30 +145,61 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")
+    ap.add_argument("--mesh", choices=["local", "pod", "multipod"],
+                    default=None, help="serve sharded, under torchrun")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="generate this many times on the same graphs; "
+                         "the last call is timed alone")
     args = ap.parse_args(argv)
 
     cfg = get(args.arch)
     if args.tiny:
         cfg = tiny_variant(cfg)
     _tokens_only(cfg)
-    device = resolve_device(args.device)
-    params = steps.init_params(cfg, 0, device)
-    prompts = torch.randint(0, cfg.vocab_size,
-                            (args.batch, args.prompt_len),
-                            generator=torch.Generator().manual_seed(1)).to(
-                                device)
-    t0 = time.perf_counter()
-    out = generate(cfg, params, prompts, max_new=args.max_new,
-                   cache_len=args.prompt_len + args.max_new)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
-    total = args.batch * args.max_new
-    print(f"generated {total} tokens on {device} in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s incl. the kernels' first build and "
-          f"the graphs' capture)")
-    print("sample row:", out[0][:16].tolist())
+    mesh = mesh_from_env(args.mesh, args.device) if args.mesh else None
+    try:
+        device = mesh_device(mesh) if mesh is not None \
+            else resolve_device(args.device)
+        params = steps.init_params(cfg, 0, device, mesh=mesh)
+        prompts = torch.randint(0, cfg.vocab_size,
+                                (args.batch, args.prompt_len),
+                                generator=torch.Generator().manual_seed(1)
+                                ).to(device)
+        graphs = steps.StepGraphs(cfg, params, mesh) \
+            if device.type == "cuda" else None
+        times = []
+        for _ in range(max(args.repeat, 1)):
+            t0 = time.perf_counter()
+            out = generate(cfg, params, prompts, max_new=args.max_new,
+                           cache_len=args.prompt_len + args.max_new,
+                           graphs=graphs, mesh=mesh)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        if first_rank(mesh):
+            _report(args, mesh, device, times, out)
+        # the graphs hold the communicators' captured work: gone first
+        del graphs
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     return out
+
+
+def _report(args, mesh, device, times, out):
+    total = args.batch * args.max_new
+    where = device if mesh is None else \
+        f"a {tuple(mesh.shape)} mesh of {mesh.device_type} ranks"
+    print(f"generated {total} tokens on {where} in {times[0]:.2f}s "
+          f"({total / times[0]:.1f} tok/s incl. the kernels' first "
+          f"build and the graphs' capture)")
+    if len(times) > 1:
+        print(f"last of {len(times)} calls: {times[-1] * 1e3:.2f} ms "
+              f"({total / times[-1]:.1f} tok/s; "
+              f"{times[-1] * 1e3 / args.max_new:.3f} ms a step)")
+    print("sample row:", out[0][:16].tolist())
+    print("tokens sha256:", hashlib.sha256(
+        out.cpu().numpy().tobytes()).hexdigest(), flush=True)
 
 
 if __name__ == "__main__":

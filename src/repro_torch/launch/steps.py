@@ -4,12 +4,15 @@ from, the train step, one prefill and one decode step, and
 ``jax.jit`` of them).
 
 The reference builds these as closures for ``jax.jit`` over a device
-mesh; here they are plain functions on one device. ``make_train_step``
+mesh; here they are plain functions, on one device or, given a ``mesh``,
+on each rank of a ``torch.distributed`` mesh over DTensors placed by the
+logical-axis rules (``sharding.rules``). ``make_train_step``
 differentiates the forward with ``torch.autograd.grad`` over the fp32
 master leaves, cast to the compute dtype once a step as the reference's
 loss does, and applies the config's optimizer (``optim``); on the card
-``StepGraphs`` captures each serving step once per shape and replays it.
-A decoder-only LM (``lm``) may take patch embeddings before its tokens
+``StepGraphs`` captures each serving step once per shape and replays it
+(on a mesh, one graph a rank, its collectives inside). A decoder-only
+LM (``lm``) may take patch embeddings before its tokens
 (``prefix_embeds``, the reference's ``patch_embeds``); an encoder-decoder
 (``encdec``) takes its frame embeddings (``frames``) at the prefill and
 in training, and reads their cross-attention K and V from the cache at
@@ -23,6 +26,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch import optim
+from repro_torch.configs import ShapeSpec
 from repro_torch.core.device import capture, resolve_device
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.launch.mesh import mesh_device
@@ -116,12 +120,23 @@ def state_specs(cfg):
     return {"params": params, "opt": opt}
 
 
-def init_params(cfg, seed=0, device=None):
+def init_params(cfg, seed=0, device=None, mesh=None, rules=None):
     """The model's weights drawn from ``seed`` on ``device``: the card
     unless the caller names another device; no card and no ``device``
-    raises. What serving draws: no optimizer state."""
-    return pspec.init_params(registry.model_specs(cfg), seed,
-                             cfg.param_dtype, device=resolve_device(device))
+    raises. What serving draws: no optimizer state.
+
+    With a ``mesh`` (``rules`` default to the config's ``rules_for``)
+    each leaf is drawn whole, as without one, and distributed by its
+    placements: ``init_state(cfg, seed, mesh=mesh)["params"]``."""
+    specs = registry.model_specs(cfg)
+    if mesh is None:
+        return pspec.init_params(specs, seed, cfg.param_dtype,
+                                 device=resolve_device(device))
+    rules = rules if rules is not None else rules_for(cfg, mesh)
+    return pspec.init_params(specs, seed, cfg.param_dtype,
+                             device=mesh_device(mesh), mesh=mesh,
+                             shardings=pspec.param_shardings(specs, mesh,
+                                                             rules))
 
 
 def init_state(cfg, seed=0, device=None, mesh=None, rules=None):
@@ -166,7 +181,8 @@ def compute_params(params, cfg):
     """``params`` with every leaf that each use casts to the compute dtype
     cast once, so a step does no cast of the stored weights; the leaves
     read in fp32 stay as stored. The forward computes the same values from
-    either tree; a leaf already in the compute dtype is the same tensor."""
+    either tree; a leaf already in the compute dtype is the same tensor.
+    A DTensor leaf keeps its placements (the cast is elementwise)."""
     dt = torch_dtype(cfg.dtype)
     out = {}
     for key, v in params.items():
@@ -341,34 +357,55 @@ def make_train_step(cfg, mesh=None, rules=None, *, peak_lr=3e-4,
 # the serving steps
 
 
+def _rules(cfg, mesh, rules):
+    """``rules``, or the config's ``rules_for`` on a ``mesh``."""
+    return rules if rules is not None or mesh is None \
+        else rules_for(cfg, mesh)
+
+
 def prefill_step(params, cfg, tokens, *, cache_len=0, impl="auto",
-                 frames=None, prefix_embeds=None):
+                 frames=None, prefix_embeds=None, mesh=None, rules=None):
     """The prompt ``tokens`` (B, S) -> (last-position logits (B, 1, V),
     caches); an attention layer's cache is padded to ``cache_len``. An
     encoder-decoder reads ``frames`` (B, T_enc, d_model); a decoder-only
-    LM may read ``prefix_embeds`` (B, P, d_model) before the tokens."""
-    if cfg.is_encoder_decoder:
-        logits, caches, _ = encdec.forward(params, cfg, tokens, frames,
+    LM may read ``prefix_embeds`` (B, P, d_model) before the tokens.
+
+    With a ``mesh`` (``rules`` default to the config's ``rules_for``) the
+    step runs in ``sharding.sharded_region(rules, mesh, serving=True)``
+    on ``params`` placed by the rules (``init_params(cfg, mesh=mesh)``);
+    the inputs may be DTensors on ``input_specs``' placements or tensors
+    alike on every rank, and the caches come out on the placements
+    ``input_specs`` gives a decode cell."""
+    rules = _rules(cfg, mesh, rules)
+    with sharded_region(rules, mesh, serving=True):
+        if cfg.is_encoder_decoder:
+            logits, caches, _ = encdec.forward(params, cfg, tokens, frames,
+                                               mode="prefill",
+                                               cache_len=cache_len)
+        else:
+            logits, caches, _ = lm.forward(params, cfg, tokens,
                                            mode="prefill",
-                                           cache_len=cache_len)
-    else:
-        logits, caches, _ = lm.forward(params, cfg, tokens, mode="prefill",
-                                       prefix_embeds=prefix_embeds,
-                                       cache_len=cache_len, impl=impl)
+                                           prefix_embeds=prefix_embeds,
+                                           cache_len=cache_len, impl=impl)
     return logits, caches
 
 
-def decode_step(params, cfg, tokens, caches, pos, *, impl="auto"):
+def decode_step(params, cfg, tokens, caches, pos, *, impl="auto", mesh=None,
+                rules=None):
     """One new token per row, ``tokens`` (B, 1), at position ``pos`` (an
     int or a 0-d tensor on the tokens' device) -> (logits (B, 1, V),
-    caches)."""
-    if cfg.is_encoder_decoder:
-        logits, caches, _ = encdec.forward(params, cfg, tokens, None,
-                                           mode="decode", caches=caches,
-                                           pos=pos)
-    else:
-        logits, caches, _ = lm.decode_step(params, cfg, tokens, caches, pos,
-                                           impl=impl)
+    caches). With a ``mesh``, as ``prefill_step``: the caches are read
+    and written on ``input_specs``' placements, an attention cache split
+    along its sequence (the split-KV decode of ``models.layers``)."""
+    rules = _rules(cfg, mesh, rules)
+    with sharded_region(rules, mesh, serving=True):
+        if cfg.is_encoder_decoder:
+            logits, caches, _ = encdec.forward(params, cfg, tokens, None,
+                                               mode="decode", caches=caches,
+                                               pos=pos)
+        else:
+            logits, caches, _ = lm.decode_step(params, cfg, tokens, caches,
+                                               pos, impl=impl)
     return logits, caches
 
 
@@ -384,8 +421,25 @@ class _Graph:
 
 
 def _signature(caches) -> tuple:
-    return tuple((k, tuple(v.shape), v.dtype)
+    return tuple((k, tuple(v.shape), v.dtype,
+                  tuple(getattr(v, "placements", ())))
                  for k, v in flatten(caches).items())
+
+
+def _local(t):
+    """The block of ``t`` this rank holds (``t`` itself for a tensor)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _copy_into(static, new):
+    """``new`` copied into the static buffer ``static``: for DTensors,
+    each rank's block into its block, the placements the same (nothing
+    moves between ranks, so a capture may hold it)."""
+    if isinstance(static, DTensor):
+        if tuple(new.placements) != tuple(static.placements):
+            raise ValueError(f"a step's output on {new.placements}, its "
+                             f"static buffer on {static.placements}")
+    _local(static).copy_(_local(new))
 
 
 class StepGraphs:
@@ -405,15 +459,27 @@ class StepGraphs:
     logits returned are the graph's static buffer: read them before the
     next replay. One caller at a time.
 
-    Before each capture the step runs once eagerly on a side stream (the
-    kernels' first build and plans, and the thread's cuBLAS handle, which
-    a graph cannot hold); the kernel wrappers' launch counters tick at
-    that warm-up and at the capture, never on a replay. ``prefills`` and
-    ``steps`` count the traced prefills and decode steps."""
+    With a ``mesh`` (``params`` placed by ``rules``, the config's
+    ``rules_for`` by default) every rank of it builds its own
+    ``StepGraphs`` and calls it alike: each captures one graph a step,
+    its collectives inside it. The static tokens, position, inputs and
+    caches are DTensors on ``input_specs``' placements, and a replay
+    copies each rank's block of its arguments into its block of them.
 
-    def __init__(self, cfg, params):
+    Before each capture the step runs once eagerly on a side stream (the
+    kernels' first build and plans, the thread's cuBLAS handle and, on a
+    mesh, the communicators of its collectives, none of which a capture
+    can make); the kernel wrappers' launch counters tick at that warm-up
+    and at the capture, never on a replay. ``prefills`` and ``steps``
+    count the traced prefills and decode steps."""
+
+    mesh = rules = None  # unsharded unless built with a mesh
+
+    def __init__(self, cfg, params, mesh=None, rules=None):
         self.cfg, self.source = cfg, params
-        self.device = next(iter(flatten(params).values())).device
+        self.mesh, self.rules = mesh, _rules(cfg, mesh, rules)
+        self.device = mesh_device(mesh) if mesh is not None else next(
+            iter(flatten(params).values())).device
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs run on the card, not on "
                              f"{self.device}: pass replay=False")
@@ -428,6 +494,26 @@ class StepGraphs:
     @property
     def graphs(self) -> int:
         return len(self._prefills) + len(self._decodes)
+
+    def _static(self, shape, dtype, axes):
+        """A zero static input of the global ``shape``: on a mesh a
+        DTensor placed by its logical ``axes``."""
+        zeros = torch.zeros(shape, dtype=dtype, device=self.device)
+        if self.mesh is None:
+            return zeros
+        pl = logical_sharding(axes, shape, self.rules, self.mesh)
+        return distribute_tensor(zeros, self.mesh, pl, src_data_rank=None)
+
+    def _fill(self, static, t):
+        """``t`` copied into the static input ``static``: on a mesh this
+        rank's block of it (a tensor alike on every rank is cut, a DTensor
+        moved to the static one's placements)."""
+        if isinstance(static, DTensor):
+            t = t.redistribute(self.mesh, static.placements) \
+                if isinstance(t, DTensor) else distribute_tensor(
+                    t.to(self.device), self.mesh, static.placements,
+                    src_data_rank=None)
+        _local(static).copy_(_local(t))
 
     def _capture(self, fn):
         """``fn()`` once eagerly on the side stream, then captured; returns
@@ -448,18 +534,24 @@ class StepGraphs:
         g = self._prefills.get(key)
         if g is not None:
             return g
-        static = torch.zeros_like(tokens)
-        static_inputs = {k: torch.zeros_like(v) for k, v in inputs.items()}
+        shape = ShapeSpec("prefill", tokens.shape[1], tokens.shape[0],
+                          "prefill")
+        axes = batch_axes(self.cfg, shape)
+        static = self._static(tokens.shape, tokens.dtype, axes["tokens"])
+        static_inputs = {k: self._static(
+            v.shape, v.dtype, axes["patch_embeds" if k == "prefix_embeds"
+                                   else k]) for k, v in inputs.items()}
         box = {}
 
         def run():
             self.prefills += 1
             logits, caches = prefill_step(self.params, self.cfg, static,
                                           cache_len=cache_len,
+                                          mesh=self.mesh, rules=self.rules,
                                           **static_inputs)
             if "caches" in box:  # the capture: into the static caches
                 for k, v in flatten(caches).items():
-                    box["caches"][k].copy_(v)
+                    _copy_into(box["caches"][k], v)
             else:  # the warm-up: the static caches of this shape
                 sig = _signature(caches)
                 target = self._caches.setdefault(sig, {
@@ -484,9 +576,9 @@ class StepGraphs:
                                     ("prefix_embeds", prefix_embeds))
                   if v is not None}
         g = self._prefill_graph(tokens, cache_len, inputs)
-        g.tokens.copy_(tokens)
+        self._fill(g.tokens, tokens)
         for k, v in inputs.items():
-            g.inputs[k].copy_(v)
+            self._fill(g.inputs[k], v)
         g.graph.replay()
         return g.logits, unflatten(self._caches[g.sig])
 
@@ -501,20 +593,19 @@ class StepGraphs:
         g = self._decodes.get(key)
         if g is not None:
             return g
-        tok = torch.zeros(tokens.shape, dtype=tokens.dtype,
-                          device=self.device)
-        pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        tok = self._static(tokens.shape, tokens.dtype, ("batch", None))
+        pos = self._static((), torch.int64, ())
         nested = unflatten(static)
         captured = [False]
 
         def run():
             self.steps += 1
             logits, new = decode_step(self.params, self.cfg, tok, nested,
-                                      pos)
+                                      pos, mesh=self.mesh, rules=self.rules)
             if captured[0]:  # the capture: back into the static caches
                 for k, v in flatten(new).items():
                     if v is not static[k]:
-                        static[k].copy_(v)
+                        _copy_into(static[k], v)
             captured[0] = True
             return logits
 
@@ -527,8 +618,7 @@ class StepGraphs:
         position ``pos`` (an int), against and into the static ``caches``
         of a prefill -> static logits (B, 1, V)."""
         g = self._decode_graph(caches, tokens)
-        g.tokens.copy_(tokens)
-        g.pos.fill_(pos)
+        self._fill(g.tokens, tokens)
+        _local(g.pos).fill_(pos)
         g.graph.replay()
         return g.logits
-

@@ -22,10 +22,8 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 from dataclasses import dataclass, field
 
-import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
@@ -34,7 +32,7 @@ from repro_torch.configs import get, tiny_variant
 from repro_torch.core.device import resolve_device
 from repro_torch.data import TokenPipeline
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import first_rank, mesh_from_env
 from repro_torch.runtime import StragglerWatch, resilient_train
 from repro_torch.runtime.fault_tolerance import _device_put_like
 from repro_torch.sharding.rules import rules_for
@@ -78,7 +76,7 @@ def train(cfg, *, steps_total, batch=8, seq=128, lr=3e-4,
         cfg, mesh, rules, peak_lr=lr, warmup=warmup_steps(steps_total),
         total_steps=steps_total)
     state = steps.init_state(cfg, seed, device, mesh, rules)
-    first = mesh is None or not any(mesh.get_coordinate())
+    first = first_rank(mesh)
     start = ckpt.latest_step() or 0
     if start:
         _, host = ckpt.restore()
@@ -105,19 +103,6 @@ def train(cfg, *, steps_total, batch=8, seq=128, lr=3e-4,
     return run
 
 
-def _mesh(kind, device):
-    """The process group from ``torchrun``'s environment (NCCL on the
-    card, one rank a device; gloo on the CPU) and the ``kind`` mesh."""
-    device = resolve_device(device)
-    if device.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-    if kind == "local":
-        return make_local_mesh(device)
-    return make_production_mesh(multi_pod=(kind == "multipod"),
-                                device=device)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -140,7 +125,7 @@ def main(argv=None):
     cfg = get(args.arch)
     if args.tiny:
         cfg = tiny_variant(cfg)
-    mesh = _mesh(args.mesh, args.device) if args.mesh else None
+    mesh = mesh_from_env(args.mesh, args.device) if args.mesh else None
     try:
         run = train(cfg, steps_total=args.steps, batch=args.batch,
                     seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
@@ -149,7 +134,7 @@ def main(argv=None):
     finally:
         if mesh is not None:
             dist.destroy_process_group()
-    if mesh is None or not any(mesh.get_coordinate()):
+    if first_rank(mesh):
         print(f"done: step={run.step} restarts={run.restarts}", flush=True)
     return run
 

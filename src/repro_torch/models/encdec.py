@@ -22,11 +22,10 @@ are the reference's parameter paths (``embed.table``, ``enc_pos``,
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _index, _stack, remat
+from repro_torch.models.lm import _index, _stack, pad_seq, remat
 from repro_torch.models.module import SpecNetwork
 from repro_torch.models.spec import ParamSpec, stack_tree
 from repro_torch.sharding.rules import constrain
@@ -35,6 +34,10 @@ from repro_torch.sharding.rules import constrain
 # sequence (sequence parallelism's gather before a layer's products)
 _RESIDUAL = ("batch", "seq", "embed")
 _WHOLE_SEQ = ("batch", None, "embed")
+# the decode caches' logical axes (``cache_struct``), each stacked along a
+# leading layer axis: the self K and V, the cross K and V
+_SELF_CACHE = ("layer", "batch", "kv_seq", "kv_heads", None)
+_CROSS_CACHE = ("layer", "batch", None, "kv_heads", None)
 
 
 def _enc_block_specs(cfg):
@@ -110,7 +113,7 @@ def cross_kv(params, cfg, enc_out):
         p = _index(params["dec"], i)["xattn"]
         xk.append(L.to_heads(enc_out, p["wk"].to(dt)))
         xv.append(L.to_heads(enc_out, p["wv"].to(dt)))
-    return {"xk": torch.stack(xk), "xv": torch.stack(xv)}
+    return {"xk": _stack(xk), "xv": _stack(xv)}
 
 
 def _dec_block(p, cfg, x, positions, enc_kv, enc_pos, *, mode, cache, pos):
@@ -170,8 +173,9 @@ def forward(params, cfg, tokens, frames=None, *, mode="train", caches=None,
         x, c = block(x, _index(params["dec"], i), _index(enc_kv_all, i),
                      _index(self_caches, i) if self_caches else None)
         if mode == "prefill" and cache_len:
-            c = {k: F.pad(a, (0, 0, 0, 0, 0, cache_len - a.shape[1]))
-                 for k, a in c.items()}
+            c = {k: pad_seq(a, cache_len) for k, a in c.items()}
+        if mode == "prefill":  # placed as a decode cell reads them
+            c = {k: constrain(a, _SELF_CACHE[1:]) for k, a in c.items()}
         new_self.append(c)
     x = constrain(L.apply_norm(params["dec_ln"], x, cfg.norm_eps),
                   _WHOLE_SEQ)
@@ -183,6 +187,9 @@ def forward(params, cfg, tokens, frames=None, *, mode="train", caches=None,
     logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     logits = constrain(logits, ("batch", "seq", "vocab_act"))
     new_caches = None
+    if mode == "prefill":
+        enc_kv_all = {k: constrain(v, _CROSS_CACHE)
+                      for k, v in enc_kv_all.items()}
     if mode != "train":
         new_caches = {"self": _stack(new_self), "cross": enc_kv_all}
     return logits, new_caches, torch.zeros((), dtype=torch.float32,
@@ -197,8 +204,7 @@ def cache_struct(cfg, batch: int, max_seq: int):
     n = cfg.num_layers
     kvd = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     xkvd = (n, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
-    ax = ("layer", "batch", "kv_seq", "kv_heads", None)
-    xax = ("layer", "batch", None, "kv_heads", None)
+    ax, xax = _SELF_CACHE, _CROSS_CACHE
     return {"self": {"k": (kvd, dt, ax), "v": (kvd, dt, ax)},
             "cross": {"xk": (xkvd, dt, xax), "xv": (xkvd, dt, xax)}}
 

@@ -14,6 +14,14 @@ to the full head count (``jnp.repeat`` as ``repeat_interleave``). The
 sharding hints (``constrain``) have no counterpart on one device. Nothing
 in a decode step or in ``moe`` waits on the host, so both run inside a
 CUDA graph capture.
+
+Under a mesh the reference's split-KV decode holds (its
+``gqa_decode`` and ``mla_decode`` constraints): a decode cache is split
+along its sequence (``kv_seq``), the query and the attention output are
+replicated over that split, and each rank attends over its own block,
+the blocks' softmax statistics merged in rank order; a serving lookup is
+vocab-parallel. Where the ``model`` axis has size 1 the products take the
+unsharded op sequence, so a (1, 1) mesh computes the unsharded bits.
 """
 from __future__ import annotations
 
@@ -25,8 +33,10 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models.spec import ParamSpec
-from repro_torch.sharding.rules import (as_dtensor, axis_size, constrain,
-                                        current, current_mesh, run_local)
+from repro_torch.sharding.rules import (as_dtensor, axis_rules, axis_size,
+                                        axis_sizes, constrain, current,
+                                        current_mesh, logical_spec,
+                                        run_local, serving)
 
 # full-score attention only up to this Sq*Sk (else online-softmax chunks)
 _FULL_THRESH = 2048 * 2048
@@ -85,13 +95,43 @@ def lookup(table, idx):
     """``table[idx]``: the rows of an embedding table at (B, S) indices.
     Under a mesh each rank looks its own block of the indices up in the
     whole table (``run_local``; the table gathered, its gradient a
-    partial sum), not through DTensor's indexing strategies."""
+    partial sum), not through DTensor's indexing strategies; in a serving
+    step, vocab-parallel (``_lookup_vocab_parallel``)."""
     if current() is None:
         return table[idx.long()]
+    if serving():
+        return _lookup_vocab_parallel(table, idx)
     B, S = idx.shape
     return run_local(lambda t, i: t[i.long()], (table, idx),
                      ((None, None), ("batch", "seq")),
                      [(("batch", "seq", None), (B, S, table.shape[1]))])
+
+
+def _lookup_vocab_parallel(table, idx):
+    """``lookup`` with the table left where its placements put it
+    (Megatron's vocab-parallel embedding): each rank looks every index up
+    in its block of rows and columns, zero where the row is another
+    rank's, the blocks summed over the vocab's split (an exact sum: one
+    row and zeros) and their columns moved to the batch's split. Only the
+    indices and the looked-up rows move, never the table."""
+    B, S = idx.shape
+    V, E = table.shape
+    rules, mesh = current()
+    entry = logical_spec(("vocab", "embed_fsdp"), (V, E), rules, mesh)[0]
+    split = () if entry is None else (entry if isinstance(entry, tuple)
+                                      else (entry,))
+
+    def local(t, rows, i):
+        j = i.long() - rows[0]
+        inside = (j >= 0) & (j < t.shape[0])
+        picked = t[j.clamp(0, t.shape[0] - 1)]
+        return torch.where(inside[..., None], picked,
+                           torch.zeros((), dtype=t.dtype, device=t.device))
+    rows = torch.arange(V, device=table.device)
+    out = run_local(local, (table, rows, idx),
+                    (("vocab", "embed_fsdp"), ("vocab",), (None, None)),
+                    [((None, None, "embed_fsdp"), (B, S, E), split)])
+    return constrain(out, ("batch", None, None))
 
 
 def embed(p, cfg, tokens, positions=None):
@@ -273,6 +313,54 @@ _HEADS = ("batch", None, "heads_act", None)
 _HEADS_FLAT = ("batch", None, "heads_act")
 
 
+def _mesh_axes(entry) -> tuple:
+    """A spec entry's mesh axes: () for None, a tuple for a joint one."""
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def stationary(eq, x, w, w_axes, out_axes, shape):
+    """``torch.einsum(eq, x, w)`` of a few tokens' activations x (B, S, K)
+    and a weight w (K, ...) of logical axes ``w_axes``, the weight left on
+    its placements: x moved to the split of K and whole along the batch
+    but for its split over mesh axes that split no dim of w (``pod``'s
+    model replicas), each rank's product a partial sum over the split of
+    K, reduced onto ``out_axes`` (global ``shape``). A serving step's
+    products thus move activations, not weights. None where that would
+    not move fewer bytes than gathering the weight's block along K, as
+    ``column`` does: no mesh, a training step (its gradients keep the
+    weights' placements), no mesh axis splitting K, or a prefill's many
+    tokens."""
+    if not serving():
+        return None
+    rules, mesh = current()
+    spec = logical_spec(w_axes, tuple(w.shape), rules, mesh)
+    sizes = axis_sizes(mesh)
+    split = _mesh_axes(spec[0])
+    d = math.prod(sizes[a] for a in split)
+    K = w.shape[0]
+    n = math.prod(w.shape[1:]) // math.prod(
+        sizes[a] for e in spec[1:] for a in _mesh_axes(e))
+    held = {a for e in spec for a in _mesh_axes(e)}
+    kept = tuple(a for a in _mesh_axes(logical_spec(
+        ("batch",), x.shape[:1], rules, mesh)[0]) if a not in held)
+    rows = x.shape[0] * x.shape[1] // math.prod(sizes[a] for a in kept)
+    # per rank: x's rows and the partial outputs, against w's block of K
+    if d == 1 or rows * (K + n) >= d * K * n:
+        return None
+    # the batch's kept split as a logical axis of its own
+    with axis_rules({**rules, _KEPT: (kept or None,)}, mesh, serving=True):
+        out = run_local(lambda a, b: torch.einsum(eq, a, b), (x, w),
+                        ((_KEPT, None, w_axes[0]), w_axes),
+                        [((_KEPT, None, *w_axes[1:]), shape, split)])
+    # the partial sums reduced onto the batch's split first: a gather of
+    # the other dims before it would move every row of them
+    return constrain(constrain(out, ("batch", None, *w_axes[1:])), out_axes)
+
+
+_KEPT = "batch_kept"
+
+
 def column(eq, x, w, axes, shape):
     """``torch.einsum(eq, x, w)`` of an activation x (B, S, E) and a
     weight w (E, ...) -> an output whose dims ``axes`` place, of global
@@ -281,9 +369,14 @@ def column(eq, x, w, axes, shape):
     along E and split as the output's trailing dims, each rank
     multiplying its rows by its columns. No partial sums, and nothing for
     DTensor to plan: its own plan of such a product could split the
-    flattened (batch, seq) rows over a mesh axis, a strided shard."""
+    flattened (batch, seq) rows over a mesh axis, a strided shard. A
+    serving step's few tokens move instead of the weight
+    (``stationary``)."""
     if current() is None:
         return torch.einsum(eq, x, w)
+    out = stationary(eq, x, w, ("embed_fsdp", *axes[2:]), axes, shape)
+    if out is not None:
+        return out
     return run_local(lambda a, b: torch.einsum(eq, a, b), (x, w),
                      (("batch", None, None), (None, *axes[2:])),
                      [(axes, shape)])
@@ -297,17 +390,27 @@ def to_heads(x, w):
     return column("bse,ehd->bshd", x, w, _HEADS, (*x.shape[:2], H, D))
 
 
+def _heads_whole() -> bool:
+    """No mesh, or one whose ``model`` axis has size 1: nothing splits
+    the heads (nor the experts), so a product runs the unsharded op
+    sequence, and a (1, 1) mesh computes the unsharded bits."""
+    return axis_size(current_mesh(), "model") == 1
+
+
 def from_heads(x, w):
     """x (B, S, H, D) against w (H, D, E) -> (B, S, E): the reference's
-    einsum("bshd,hde->bse"), one head-major product under a mesh (see
-    ``to_heads``)."""
-    if current() is None:
+    einsum("bshd,hde->bse"), one head-major product under a mesh whose
+    ``model`` axis splits the heads (see ``to_heads``)."""
+    if _heads_whole():
         return torch.einsum("bshd,hde->bse", x, w)
     H, D, E = w.shape
     B, S = x.shape[:2]
     x = constrain(constrain(x, _HEADS).reshape(B, S, H * D), _HEADS_FLAT,
                   (B, S, H))
-    return x @ merged(w, 0)
+    w = merged(w, 0)
+    out = stationary("bsk,ke->bse", x, w, ("heads", "embed_fsdp"),
+                     ("batch", None, None), (B, S, E))
+    return x @ w if out is None else out
 
 
 # ----------------------------------------------------------------------
@@ -362,14 +465,104 @@ def gqa_attn(p, cfg, x, positions, *, causal=True, kv=None, kv_pos=None):
     return out, (k, v)
 
 
-def _masked_cache_write(cache_arr, new, pos):
+def _masked_cache_write(cache_arr, new, pos, iota=None):
     """Write ``new`` (B,1,...) at sequence index ``pos`` through an iota
     mask, as the reference does: ``pos`` may be a Python int or a 0-d
-    tensor on the cache's device (a CUDA graph's static position)."""
+    tensor on the cache's device (a CUDA graph's static position).
+    ``iota`` holds the positions of the cache's rows (a rank's block of
+    them under a split-KV decode; ``arange`` of its length by default),
+    so the write stays local under any split of the sequence."""
     S = cache_arr.shape[1]
-    iota = torch.arange(S, device=cache_arr.device).reshape(
-        (1, S) + (1,) * (cache_arr.ndim - 2))
+    if iota is None:
+        iota = torch.arange(S, device=cache_arr.device)
+    iota = iota.reshape((1, S) + (1,) * (cache_arr.ndim - 2))
     return torch.where(iota == pos, new.to(cache_arr.dtype), cache_arr)
+
+
+# ----------------------------------------------------------------------
+# split-KV decode (FlashDecoding): under a mesh that splits a decode
+# cache's sequence, the one query is replicated over the split, each rank
+# attends over its own block of the cache (its running max, sum and
+# unnormalised output), and the blocks' statistics are reduced over the
+# split: their maximum, then their rescaled sums, the output's summed
+# into the heads' split. Only the query, the new K and V and the
+# statistics move; a cache block never does.
+
+# a decode cache's logical axes: GQA's K and V, MLA's latent and rope key
+_KV_CACHE = ("batch", "kv_seq", "kv_heads", None)
+_LATENT_CACHE = ("batch", "kv_seq", None)
+# a one-token activation replicated over every axis but the batch's
+_REPLICATED = ("batch", None, None, None)
+# the per-block statistics (batch, heads, blocks[, dim]), the blocks split
+# as the cache's sequence is
+_STATS = ("batch", None, "kv_seq")
+_STATS_ACC = ("batch", None, "kv_seq", None)
+
+
+def _seq_split(axes, shape) -> tuple:
+    """The mesh axes that split a decode cache's sequence (dim 1) under
+    the ambient mesh; () outside a mesh or where none of more than one
+    rank splits it."""
+    ctx = current()
+    if ctx is None:
+        return ()
+    sizes = axis_sizes(ctx[1])
+    return tuple(a for a in _mesh_axes(logical_spec(axes, shape, *ctx)[1])
+                 if sizes[a] > 1)
+
+
+def _pos_axes(pos):
+    """``run_local``'s axes for a decode position: an int passes through,
+    a 0-d tensor is replicated."""
+    return () if isinstance(pos, torch.Tensor) else None
+
+
+def _block_stats(s, valid, weigh):
+    """One block's softmax statistics: s (b,H,1,T) fp32 scores, ``valid``
+    (T,) the positions attended, ``weigh`` the weighted sum of the
+    block's values by fp32 weights (b,H,1,T) -> (running max (b,H,1), sum
+    of exponents (b,H,1), unnormalised output (b,H,1,Dv) fp32). A block
+    with no valid position has max -inf and zero sum and output."""
+    s = s.masked_fill(~valid, -math.inf)
+    m = s.amax(dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=s.device)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, zero)[..., None])
+    return m, p.sum(dim=-1), weigh(p).float()
+
+
+def _rescaled(m, l, acc, top):
+    """A rank's blocks rescaled to the global max ``top`` (b,H) and summed
+    over its blocks: m, l (b,H,k), acc (b,H,k,Dv) -> (sum (b,H), output
+    (b,H,Dv)), terms of the sums over every block."""
+    zero = torch.zeros((), dtype=torch.float32, device=m.device)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - top[..., None]),
+                       zero)
+    return (l * corr).sum(dim=-1), (acc * corr[..., None]).sum(dim=2)
+
+
+def _split_kv(core, args, in_axes, caches, stats_shape, split):
+    """``core(*local args)`` -> (new cache blocks..., m, l, acc) on each
+    rank's block of the caches (``run_local``), then the statistics
+    reduced over the mesh axes ``split``: the max gathered (B·H·n
+    values), each rank's output rescaled to it, and the sums reduced,
+    the output's into the heads' split -> (output (B,1,H,Dv) fp32 split
+    by its heads, new caches on their axes). ``caches``: (logical axes,
+    shape) of each cache output; ``stats_shape``: (B, H, Dv)."""
+    B, H, Dv = stats_shape
+    n = math.prod(axis_sizes(current_mesh())[a] for a in split)
+    outs = run_local(core, args, in_axes,
+                     [*caches, (_STATS, (B, H, n)), (_STATS, (B, H, n)),
+                      (_STATS_ACC, (B, H, n, Dv))])
+    m, l, acc = outs[-3:]
+    top = constrain(m, ("batch", None, None)).amax(dim=-1)
+    l, acc = run_local(_rescaled, (m, l, acc, top),
+                       (_STATS, _STATS, _STATS_ACC, ("batch", None)),
+                       [(("batch", None), (B, H), split),
+                        (("batch", None, None), (B, H, Dv), split)])
+    l = constrain(l, ("batch", None))
+    acc = constrain(acc, ("batch", "heads_act", None))
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return constrain(out[:, None], _HEADS), outs[:-3]
 
 
 def gqa_decode(p, cfg, x, cache, pos):
@@ -384,14 +577,52 @@ def gqa_decode(p, cfg, x, cache, pos):
         positions = torch.full((B, 1), pos, dtype=torch.int64,
                                device=x.device)
     q, k_new, v_new = gqa_qkv(p, cfg, x, positions)
+    split = _seq_split(_KV_CACHE, cache["k"].shape)
+    if split:
+        return _gqa_decode_split(p, cfg, q, k_new, v_new, cache, pos, split)
     k = _masked_cache_write(cache["k"], k_new, pos)
     v = _masked_cache_write(cache["v"], v_new, pos)
     kv_pos = torch.arange(k.shape[1], device=x.device)[None].expand(
         B, k.shape[1])
     out = attention(q, k.to(dt), v.to(dt), causal=True, q_pos=positions,
                     kv_pos=kv_pos, chunk=cfg.attn_chunk)
-    out = torch.einsum("bshd,hde->bse", out, p["wo"].to(dt))
-    return out, {"k": k, "v": v}
+    out = from_heads(out, p["wo"].to(dt))
+    # under a mesh the caches stay where a decode cell places them
+    return out, {"k": constrain(k, _KV_CACHE), "v": constrain(v, _KV_CACHE)}
+
+
+def _gqa_decode_split(p, cfg, q, k_new, v_new, cache, pos, split):
+    """``gqa_decode``'s attention split over the blocks the mesh axes
+    ``split`` make of the cache's sequence (see ``_split_kv``): the query
+    and the new K and V
+    replicated over the split, each rank writing and attending over its
+    own block of K and V (whole along the heads), the blocks merged."""
+    dt = torch_dtype(cfg.dtype)
+    B, S, KV, D = cache["k"].shape
+    H, Dv = q.shape[2], cache["v"].shape[3]
+    scale = q.shape[-1] ** -0.5
+    # the cache's heads whole inside: a query of every head meets them
+    blk = ("batch", "kv_seq", None, None)
+
+    def core(q, kc, vc, kn, vn, t, pos):
+        k = _masked_cache_write(kc, kn, pos, t)
+        v = _masked_cache_write(vc, vn, pos, t)
+        kk, vv = k.to(dt), v.to(dt)
+        if KV != H:  # GQA: expand K and V to the full head count
+            kk = torch.repeat_interleave(kk, H // KV, dim=2)
+            vv = torch.repeat_interleave(vv, H // KV, dim=2)
+        s = (torch.einsum("bshd,bthd->bhst", q, kk) * scale).float()
+        return (k, v, *_block_stats(s, t <= pos, lambda w: torch.einsum(
+            "bhst,bthd->bhsd", w.to(vv.dtype), vv)))
+
+    t = torch.arange(S, device=cache["k"].device)
+    out, (k, v) = _split_kv(
+        core, (q, cache["k"], cache["v"], k_new, v_new, t, pos),
+        (_REPLICATED, blk, blk, _REPLICATED, _REPLICATED, ("kv_seq",),
+         _pos_axes(pos)),
+        [(blk, (B, S, KV, D)), (blk, (B, S, KV, Dv))], (B, H, Dv), split)
+    out = from_heads(out.to(q.dtype), p["wo"].to(dt))
+    return out, {"k": constrain(k, _KV_CACHE), "v": constrain(v, _KV_CACHE)}
 
 
 # ----------------------------------------------------------------------
@@ -464,13 +695,31 @@ def mla_attn(p, cfg, x, positions):
     return out, (c_kv, k_r)
 
 
+def per_head(eq, x, w, dim):
+    """``torch.einsum(eq, x, w)`` of an activation x (B, S, H, ·) and a
+    weight w (·, H, ·) whose heads are not contracted -> (B, S, H, dim).
+    Under a mesh each rank multiplies its own heads (``run_local``)."""
+    if current() is None:
+        return torch.einsum(eq, x, w)
+    return run_local(lambda a, b: torch.einsum(eq, a, b), (x, w),
+                     (_HEADS, (None, "heads", None)),
+                     [(_HEADS, (*x.shape[:3], dim))])
+
+
 def mla_decode(p, cfg, x, cache, pos):
     """Absorbed-matrix MLA decode against a cache of the latent only,
     {"c_kv" (B, Smax, kv_lora_rank), "k_rope" (B, Smax, qk_rope)}:
     ``W_uk`` is folded into the query and ``W_uv`` applied after the
-    weighted sum of latents. ``pos`` is an int or a 0-d device tensor."""
+    weighted sum of latents. ``pos`` is an int or a 0-d device tensor.
+
+    Under a mesh the query's latent ``q_lat`` and its rope part are
+    replicated over the split of the cache's sequence, each rank writing
+    and attending over its own block of ``c_kv`` and ``k_rope``, the
+    blocks reduced into the heads' split (``_split_kv``); without a split
+    each rank runs the unsharded op sequence on its rows. ``W_uk``,
+    ``W_uv`` and ``wo`` multiply each rank's heads."""
     dt = torch_dtype(cfg.dtype)
-    B = x.shape[0]
+    B, S, Lr = cache["c_kv"].shape
     if isinstance(pos, torch.Tensor):
         positions = pos.reshape(1, 1).expand(B, 1)
     else:
@@ -478,18 +727,44 @@ def mla_decode(p, cfg, x, cache, pos):
                                device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_new, kr_new = _mla_latent(p, cfg, x, positions)
-    c_kv = _masked_cache_write(cache["c_kv"], c_new, pos)
-    k_r = _masked_cache_write(cache["k_rope"], kr_new, pos)
-    q_lat = torch.einsum("bshd,lhd->bshl", q_nope, p["w_uk"].to(dt))
+    H = q_nope.shape[2]
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    scores = (torch.einsum("bshl,btl->bhst", q_lat, c_kv.to(dt))
-              + torch.einsum("bshd,btd->bhst", q_rope, k_r.to(dt))) * scale
-    valid = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= pos
-    scores = scores.float().masked_fill(~valid[:, None, None], -math.inf)
-    w = torch.softmax(scores, dim=-1).to(dt)
-    lat_out = torch.einsum("bhst,btl->bshl", w, c_kv.to(dt))
-    out = torch.einsum("bshl,lhd->bshd", lat_out, p["w_uv"].to(dt))
-    out = torch.einsum("bshd,hde->bse", out, p["wo"].to(dt))
+    q_lat = per_head("bshd,lhd->bshl", q_nope, p["w_uk"].to(dt), Lr)
+    split = _seq_split(_LATENT_CACHE, cache["c_kv"].shape)
+    t = torch.arange(S, device=cache["c_kv"].device)
+
+    def core(q_lat, q_rope, cc, kc, cn, kn, t, pos):
+        c_kv = _masked_cache_write(cc, cn, pos, t)
+        k_r = _masked_cache_write(kc, kn, pos, t)
+        s = ((torch.einsum("bshl,btl->bhst", q_lat, c_kv.to(dt))
+              + torch.einsum("bshd,btd->bhst", q_rope, k_r.to(dt)))
+             * scale).float()
+        if split:
+            return (c_kv, k_r, *_block_stats(s, t <= pos, lambda w:
+                                             torch.einsum("bhst,btl->bhsl",
+                                                          w.to(dt),
+                                                          c_kv.to(dt))))
+        w = torch.softmax(s.masked_fill(~(t <= pos)[None, None, None],
+                                        -math.inf), dim=-1).to(dt)
+        return c_kv, k_r, torch.einsum("bhst,btl->bshl", w, c_kv.to(dt))
+
+    args = (q_lat, q_rope, cache["c_kv"], cache["k_rope"], c_new, kr_new, t,
+            pos)
+    in_axes = (_REPLICATED, _REPLICATED, _LATENT_CACHE, _LATENT_CACHE,
+               ("batch", None, None), ("batch", None, None), ("kv_seq",),
+               _pos_axes(pos))
+    caches = [(_LATENT_CACHE, tuple(cache["c_kv"].shape)),
+              (_LATENT_CACHE, tuple(cache["k_rope"].shape))]
+    if split:
+        lat_out, (c_kv, k_r) = _split_kv(core, args, in_axes, caches,
+                                         (B, H, Lr), split)
+        lat_out = lat_out.to(dt)
+    else:
+        c_kv, k_r, lat_out = run_local(core, args, in_axes, [
+            *caches, (_REPLICATED, (B, 1, H, Lr))])
+    out = per_head("bshl,lhd->bshd", lat_out, p["w_uv"].to(dt),
+                   cfg.v_head_dim)
+    out = from_heads(out, p["wo"].to(dt))
     return out, {"c_kv": c_kv, "k_rope": k_r}
 
 
@@ -514,15 +789,30 @@ def ffn_specs(cfg, d_ff=None):
     }
 
 
+def matmul(x, w, w_axes, out_axes):
+    """``x @ w`` of activations x (B, S, K) and a weight w (K, N) of
+    logical axes ``w_axes``: DTensor's product under a mesh, or, for a
+    serving step's few tokens, ``stationary``'s onto ``out_axes``."""
+    out = stationary("bsk,kn->bsn", x, w, w_axes, out_axes,
+                     (*x.shape[:2], w.shape[1]))
+    return x @ w if out is None else out
+
+
 def ffn(p, cfg, x):
     """SwiGLU where the params have ``w3``, else the GELU MLP with the
     tanh approximation (``jax.nn.gelu``'s default)."""
     dt = torch_dtype(cfg.dtype)
+    up, down = ("embed_fsdp", "d_ff"), ("d_ff", "embed_fsdp")
+    hidden = ("batch", None, "d_ff")
+
+    def into(w):
+        return matmul(x, p[w].to(dt), up, hidden)
     if "w3" in p:
-        h = F.silu(x @ p["w1"].to(dt)) * (x @ p["w3"].to(dt))
-        return h @ p["w2"].to(dt)
-    h = F.gelu(x @ p["w1"].to(dt) + p["b1"].to(dt), approximate="tanh")
-    return h @ p["w2"].to(dt) + p["b2"].to(dt)
+        h = F.silu(into("w1")) * into("w3")
+        return matmul(h, p["w2"].to(dt), down, _REPLICATED[:3])
+    h = F.gelu(into("w1") + p["b1"].to(dt), approximate="tanh")
+    return matmul(h, p["w2"].to(dt), down, _REPLICATED[:3]) \
+        + p["b2"].to(dt)
 
 
 # ----------------------------------------------------------------------
@@ -616,10 +906,16 @@ _EXPERTS = ("experts_act", None, None)
 def _dispatch_product(disp, xf):
     """einsum("tnc,te->nce"); under a mesh one product over the (N, cap)
     slots flattened expert-major (see ``to_heads``)."""
-    if current() is None:
+    if _heads_whole():
         return torch.einsum("tnc,te->nce", disp, xf)
     T, N, cap = disp.shape
     E = xf.shape[1]
+    if serving() and T < N * cap:
+        # serving's few tokens gathered, not every slot's partial sums
+        return run_local(lambda d, x: torch.einsum("tnc,te->nce", d, x),
+                         (disp, xf), ((None, "experts_act", None),
+                                      (None, None)),
+                         [(_EXPERTS, (N, cap, E))])
     buf = disp.reshape(T, N * cap).transpose(0, 1) @ xf
     buf = constrain(buf, ("experts_act", None), (N, E))
     return constrain(buf.reshape(N, cap, E), _EXPERTS)
@@ -628,7 +924,7 @@ def _dispatch_product(disp, xf):
 def _combine_product(w, out_buf):
     """einsum("tnc,nce->te"); under a mesh one product over the (N, cap)
     slots flattened expert-major."""
-    if current() is None:
+    if _heads_whole():
         return torch.einsum("tnc,nce->te", w, out_buf)
     T, N, cap = w.shape
     E = out_buf.shape[2]
@@ -755,7 +1051,7 @@ def _group_experts(p, dt, buf):
     an einsum's own flattening leaves a rank's block of them
     non-contiguous, which DTensor's views reject."""
     w1, w3, w2 = (p[k].to(dt) for k in ("w1", "w3", "w2"))
-    if current() is None:
+    if _heads_whole():
         h = F.silu(torch.einsum("bgxcd,xdf->bgxcf", buf, w1)) \
             * torch.einsum("bgxcd,xdf->bgxcf", buf, w3)
         return torch.einsum("bgxcf,xfd->bgxcd", h, w2)

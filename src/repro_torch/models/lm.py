@@ -31,6 +31,7 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.dtypes import torch_dtype
@@ -136,9 +137,20 @@ def cache_spec(cfg, plan: Plan, batch: int, max_seq: int):
                            ("batch", "kv_seq", None))}
     d_inner, G, N, P, H, Hg, conv_ch = S._dims(cfg)
     return {"conv": ((batch, cfg.ssm_conv_k - 1, conv_ch), dt,
-                     ("batch", None, "ssm_inner")),
-            "state": ((batch, G, Hg, P, N), dt,
-                      ("batch", None, "ssm_heads", None, None))}
+                     S.CONV_CACHE),
+            "state": ((batch, G, Hg, P, N), dt, S.STATE_CACHE)}
+
+
+def place_cache(cfg, plan: Plan, cache):
+    """A layer's cache on the placements ``cache_spec`` gives a decode
+    cell under the ambient mesh (a no-op without one): a prefill's caches
+    are made as the layer computes them (K and V split by heads, a Mamba
+    state by ``run_local``'s heads) and read by the decode step this
+    way."""
+    if current() is None:
+        return cache
+    axes = {k: ax for k, (_, _, ax) in cache_spec(cfg, plan, 1, 1).items()}
+    return {k: constrain(a, axes[k]) for k, a in cache.items()}
 
 
 def apply_block(p, cfg, plan: Plan, x, positions, *, mode, cache, pos,
@@ -199,12 +211,36 @@ def _pad_cache_seq(cfg, plan, cache, max_seq):
     if cache is None or mixer == "mamba":
         return cache
 
-    def pad(a):
-        s = a.shape[1]
-        if s >= max_seq:
-            return a
-        return F.pad(a, (0, 0) * (a.ndim - 2) + (0, max_seq - s))
-    return {k: pad(a) for k, a in cache.items()}
+    return {k: pad_seq(a, max_seq) for k, a in cache.items()}
+
+
+def pad_seq(a, n):
+    """``a`` zero-padded along dim 1 to length ``n`` (never cut). A
+    DTensor pads each rank's block, whole along dim 1: DTensor's own pad
+    (torch 2.11, on four cards) gave its output one placement on a
+    two-dim mesh, and the constraint after it a block at the whole
+    length."""
+    s = a.shape[1]
+    if s >= n:
+        return a
+    widths = (0, 0) * (a.ndim - 2) + (0, n - s)
+    if not isinstance(a, DTensor):
+        return F.pad(a, widths)
+    mesh = a.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in a.placements]
+    return _from_local(F.pad(a.redistribute(mesh, pl).to_local(), widths),
+                       mesh, pl, (a.shape[0], n, *a.shape[2:]))
+
+
+def _from_local(local, mesh, placements, shape):
+    """``DTensor.from_local`` of each rank's block, its global ``shape``
+    (contiguous) given, not inferred from the block."""
+    stride = [1] * len(shape)
+    for j in range(len(shape) - 2, -1, -1):
+        stride[j] = stride[j + 1] * shape[j + 1]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 # ----------------------------------------------------------------------
@@ -237,17 +273,40 @@ def cache_struct(cfg, batch: int, max_seq: int):
 
 
 def _index(tree, i):
-    """Layer ``i`` of a tree of stacked tensors."""
+    """Layer ``i`` of a tree of stacked tensors; a DTensor's layer is
+    taken from each rank's block (``_blockwise``)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return _blockwise([tree], lambda b: b[0][i], -1, tree.shape[1:])
     return tree[i]
 
 
 def _stack(trees):
-    """The per-layer trees stacked along a new leading layer axis."""
+    """The per-layer trees stacked along a new leading layer axis;
+    DTensors stack their blocks (``_blockwise``)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], DTensor):
+        return _blockwise(trees, torch.stack, 1,
+                          (len(trees), *trees[0].shape))
     return torch.stack(trees)
+
+
+def _blockwise(ts, fn, shift, shape):
+    """``fn`` of the blocks each rank holds of DTensors ``ts`` on one
+    placement (the first one's; the others moved to it), its result on
+    those placements with each split dim moved by ``shift``: a layer axis
+    added (1) or taken (-1) in front, which no mesh axis splits; of global
+    ``shape``. Every rank does the same local stack or select: nothing
+    moves and DTensor plans nothing, and ``to_local`` and ``from_local``
+    carry the gradient back the same way."""
+    mesh, pl = ts[0].device_mesh, tuple(ts[0].placements)
+    blocks = [(t if tuple(t.placements) == pl else
+               t.redistribute(mesh, pl)).to_local() for t in ts]
+    return _from_local(fn(blocks), mesh, [
+        Shard(p.dim + shift) if isinstance(p, Shard) else p for p in pl],
+        shape)
 
 
 def remat(fn, cfg, mode):
@@ -292,6 +351,8 @@ def _run_segment(p_seg, cfg, body, n, x, positions, *, mode, caches, pos,
                                       pos=pos, impl=impl)
             if c_new is not None and mode == "prefill" and cache_len:
                 c_new = _pad_cache_seq(cfg, pl, c_new, cache_len)
+            if c_new is not None and mode == "prefill":
+                c_new = place_cache(cfg, pl, c_new)
             if c_new is not None:
                 new_caches[f"sub{j}"] = c_new
             aux = aux + a

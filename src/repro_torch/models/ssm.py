@@ -20,10 +20,16 @@ import torch.nn.functional as F
 
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ops
-from repro_torch.models.layers import norm_spec, rms_norm
+from repro_torch.models.layers import norm_spec, rms_norm, stationary
 from repro_torch.models.spec import ParamSpec
 from repro_torch.sharding.rules import (axis_size, constrain, current_mesh,
                                         run_local)
+
+
+# a decode cache's logical axes: the conv window (B, k - 1, conv_ch) and
+# the state (B, G, Hg, P, N)
+CONV_CACHE = ("batch", None, "ssm_inner")
+STATE_CACHE = ("batch", None, "ssm_heads", None, None)
 
 
 def _dims(cfg):
@@ -205,7 +211,9 @@ def xBC_raw_tail(cfg, xres, p):
     """Last (k-1) pre-conv xBC values: the decode conv window."""
     k = cfg.ssm_conv_k
     tail_in = xres[:, -(k - 1):]
-    zxbcdt = tail_in @ p["in_proj"].to(torch_dtype(cfg.dtype))
+    # under a mesh the channels gathered, as ``mamba_forward`` gathers them
+    zxbcdt = constrain(tail_in @ p["in_proj"].to(torch_dtype(cfg.dtype)),
+                       ("batch", None, None))
     _, xBC, _ = _split_proj(cfg, zxbcdt)
     pad = (k - 1) - tail_in.shape[1]
     if pad > 0:
@@ -216,30 +224,61 @@ def xBC_raw_tail(cfg, xres, p):
 def mamba_decode(p, cfg, xres, cache, pos):
     """One-token recurrent update. xres: (B,1,E); cache: {conv:
     (B,k-1,conv_ch), state: (B,G,Hg,P,N)}. ``pos`` is unused, as in the
-    reference: the state carries the position."""
+    reference: the state carries the position.
+
+    Under a mesh, as ``mamba_forward``: the in-projection's channels
+    gathered once (its z, xBC and dt slices cross the shard boundaries),
+    the conv window updated on each rank's block of the channels and the
+    state on its block of the heads (``run_local``), each cache kept on
+    its placements (``CONV_CACHE``, ``STATE_CACHE``)."""
     dt_ = torch_dtype(cfg.dtype)
     d_inner, G, N, P, H, Hg, conv_ch = _dims(cfg)
     B_ = xres.shape[0]
-    zxbcdt = xres[:, 0] @ p["in_proj"].to(dt_)           # (B, d_in_proj)
+    w = p["in_proj"].to(dt_)
+    zx = stationary("bse,ef->bsf", xres, w, ("embed_fsdp", "ssm_inner"),
+                    ("batch", None, None), (B_, 1, w.shape[1]))
+    zxbcdt = constrain(xres[:, 0] @ w, ("batch", None)) if zx is None \
+        else zx[:, 0]                                       # (B, d_in_proj)
     z, xBC_new, dt = _split_proj(cfg, zxbcdt)
 
-    window = torch.cat([cache["conv"], xBC_new[:, None]], dim=1)  # (B,k,ch)
-    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(dt_)) \
-        + p["conv_b"].to(dt_)
-    xBC = F.silu(conv_out)
+    def conv(c, x_new, w, b):
+        window = torch.cat([c, x_new[:, None]], dim=1)       # (B,k,ch)
+        return window[:, 1:], torch.einsum("bkc,kc->bc", window, w) + b
+    ch = ("batch", "ssm_inner")
+    conv_cache, conv_out = run_local(
+        conv, (cache["conv"], xBC_new, p["conv_w"].to(dt_),
+               p["conv_b"].to(dt_)),
+        (CONV_CACHE, ch, ("conv_k", "ssm_inner"), ("ssm_inner",)),
+        [(CONV_CACHE, tuple(cache["conv"].shape)), (ch, (B_, conv_ch))])
+    xBC = constrain(F.silu(conv_out), ("batch", None))
     x = xBC[..., :d_inner].reshape(B_, G, Hg, P)
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(B_, G, N)
     C = xBC[..., d_inner + G * N:].reshape(B_, G, N)
-    dt = _softplus(dt.float() + p["dt_bias"].float()).reshape(B_, G, Hg)
-    A = -torch.exp(p["A_log"].float()).reshape(G, Hg)
 
-    s = cache["state"]
-    dA = torch.exp(dt * A)[..., None, None].to(s.dtype)      # (B,G,Hg,1,1)
-    upd = torch.einsum("bgh,bgn,bghp->bghpn", dt.to(dt_), Bm, x)
-    s = s * dA + upd
-    y = torch.einsum("bgn,bghpn->bghp", C, s) \
-        + p["D"].to(dt_).reshape(G, Hg)[..., None] * x
-    y = y.reshape(B_, d_inner)
+    def whole(v):  # a per-head leaf gathered before its (G, Hg) view
+        return constrain(v, (None,))
+    dt = _softplus(dt.float() + whole(p["dt_bias"]).float()).reshape(
+        B_, G, Hg)
+    A = -torch.exp(whole(p["A_log"]).float()).reshape(G, Hg)
+    D = whole(p["D"]).to(dt_).reshape(G, Hg)
+
+    def update(s, x, dt, A, D, Bm, C):
+        dA = torch.exp(dt * A)[..., None, None].to(s.dtype)  # (B,G,Hg,1,1)
+        upd = torch.einsum("bgh,bgn,bghp->bghpn", dt.to(dt_), Bm, x)
+        s = s * dA + upd
+        return s, torch.einsum("bgn,bghpn->bghp", C, s) + D[..., None] * x
+    hs, grp = ("batch", None, "ssm_heads"), ("batch", None, None)
+    s, y = run_local(update, (cache["state"], x, dt, A, D, Bm, C),
+                     (STATE_CACHE, hs + (None,), hs, hs[1:], hs[1:], grp,
+                      grp),
+                     [(STATE_CACHE, tuple(cache["state"].shape)),
+                      (hs + (None,), (B_, G, Hg, P))])
+    y = constrain(y, ("batch", None, None, None)).reshape(B_, d_inner)
     y = rms_norm(y * F.silu(z), p["norm"]["w"], cfg.norm_eps)
-    out = (y @ p["out_proj"].to(dt_))[:, None]               # (B,1,E)
-    return out, {"conv": window[:, 1:], "state": s}
+    w = p["out_proj"].to(dt_)
+    out = stationary("bsk,ke->bse", y[:, None], w,
+                     ("ssm_inner", "embed_fsdp"), ("batch", None, None),
+                     (B_, 1, w.shape[1]))
+    if out is None:
+        out = (y @ w)[:, None]                              # (B,1,E)
+    return out, {"conv": conv_cache, "state": s}

@@ -194,15 +194,17 @@ _CTX = threading.local()
 
 
 @contextlib.contextmanager
-def axis_rules(rules: Rules | None, mesh):
-    """Make (rules, mesh) ambient for ``constrain`` in this thread."""
-    prev = getattr(_CTX, "val", None)
+def axis_rules(rules: Rules | None, mesh, serving: bool = False):
+    """Make (rules, mesh) ambient for ``constrain`` in this thread, and
+    whether the region is a serving step's (``serving``)."""
+    prev = getattr(_CTX, "val", None), getattr(_CTX, "serving", False)
     _CTX.val = (rules, mesh) if rules is not None and mesh is not None \
         else None
+    _CTX.serving = serving and _CTX.val is not None
     try:
         yield
     finally:
-        _CTX.val = prev
+        _CTX.val, _CTX.serving = prev
 
 
 def current():
@@ -210,15 +212,26 @@ def current():
     return getattr(_CTX, "val", None)
 
 
+def serving() -> bool:
+    """Whether the ambient region is a serving step's: its products move
+    a few tokens' activations instead of weights, where a train step's
+    keep the weights' placements for their gradients. False outside a
+    mesh."""
+    return getattr(_CTX, "serving", False)
+
+
 @contextlib.contextmanager
-def sharded_region(rules: Rules | None, mesh):
-    """``axis_rules(rules, mesh)`` with DTensor's implicit replication:
-    a tensor made alike on every rank (a position, a mask, a constant)
-    meets the DTensors as a replicated one. A no-op without a mesh."""
-    if rules is None or mesh is None or current() == (rules, mesh):
+def sharded_region(rules: Rules | None, mesh, serving: bool = False):
+    """``axis_rules(rules, mesh, serving)`` with DTensor's implicit
+    replication: a tensor made alike on every rank (a position, a mask, a
+    constant) meets the DTensors as a replicated one. A no-op without a
+    mesh."""
+    if rules is None or mesh is None or (
+            current() == (rules, mesh)
+            and getattr(_CTX, "serving", False) == serving):
         yield
         return
-    with axis_rules(rules, mesh), replicate_implicitly():
+    with axis_rules(rules, mesh, serving), replicate_implicitly():
         yield
 
 
@@ -268,11 +281,12 @@ def run_local(fn, args, in_axes, out_axes):
 
     ``in_axes`` holds each argument's logical axes (None passes a
     non-tensor through); ``out_axes`` holds (logical axes, global shape)
-    of each output. Each input is redistributed to its placements first.
-    An input replicated over a mesh dim along which some output is
-    sharded reaches its gradient as a partial sum over that dim (each
-    rank's outputs used it); otherwise its gradient keeps its
-    placements."""
+    of each output, and optionally a third item: the mesh axes over which
+    that output is a partial sum (each rank's block a term of it). Each
+    input is redistributed to its placements first. An input replicated
+    over a mesh dim along which some output is sharded reaches its
+    gradient as a partial sum over that dim (each rank's outputs used
+    it); otherwise its gradient keeps its placements."""
     ctx = current()
     if ctx is None:
         return fn(*args)
@@ -280,8 +294,11 @@ def run_local(fn, args, in_axes, out_axes):
     in_pl = tuple(None if ax is None
                   else logical_sharding(ax, a.shape, rules, mesh)
                   for a, ax in zip(args, in_axes))
-    out_pl = tuple(logical_sharding(ax, shape, rules, mesh)
-                   for ax, shape in out_axes)
+    names = list(axis_sizes(mesh))
+    out_pl = tuple(tuple(
+        Partial() if len(o) > 2 and names[j] in o[2] else p
+        for j, p in enumerate(logical_sharding(o[0], o[1], rules, mesh)))
+        for o in out_axes)
     sharded = [any(isinstance(pl[j], Shard) for pl in out_pl)
                for j in range(mesh.ndim)]
     grad_pl = tuple(None if pl is None else tuple(

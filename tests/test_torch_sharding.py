@@ -32,6 +32,7 @@ from repro.configs import get as jget
 from repro.configs import tiny_variant as jtiny
 from repro.launch import steps as jsteps
 from repro.models import layers as jlayers
+from repro.models import registry as jregistry
 from repro.models import spec as jspec
 from repro.sharding import rules as jrules
 from repro_torch.configs import ASSIGNED, get, tiny_variant
@@ -265,25 +266,54 @@ def test_moe_groups_match_reference(S):
 # the dry run
 
 
-def _reference_local_bytes(jcfg, shape, names) -> int:
-    """Each rank's bytes of the state, from the reference's specs: every
-    leaf's dims divided by the mesh axes its spec names."""
+def _local_elems(dims, axes, jr, jmesh, sizes) -> int:
+    """The elements of a rank's block of a leaf: its dims divided by the
+    mesh axes the reference's spec names."""
+    spec = jrules.logical_spec(axes, dims, jr, jmesh)
+    n = 1
+    for dim, entry in zip(dims, tuple(spec) + (None,) * len(dims)):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        n *= dim // int(np.prod([sizes[a] for a in axes]))
+    return n
+
+
+def _itemsize(dtype) -> int:
+    return 2 if str(dtype) == "bfloat16" else np.dtype(str(dtype)).itemsize
+
+
+def _reference_local_bytes(jcfg, shape, names, part=None) -> int:
+    """Each rank's bytes of the state (or of its ``part``, "params" or
+    "opt"), from the reference's specs: every leaf's dims divided by the
+    mesh axes its spec names."""
     jmesh = _jmesh(shape, names)
     jr = jrules.rules_for(jcfg, jmesh)
     sizes = dict(zip(names, shape))
+    specs = jsteps.state_specs(jcfg)
     total = 0
-    for s in _leaves(jsteps.state_specs(jcfg)).values():
-        spec = jrules.logical_spec(s.axes, s.shape, jr, jmesh)
-        n = 1
-        for dim, entry in zip(s.shape, tuple(spec) + (None,) * len(s.shape)):
-            axes = () if entry is None else (
-                entry if isinstance(entry, tuple) else (entry,))
-            n *= dim // int(np.prod([sizes[a] for a in axes]))
-        dt = np.dtype(s.dtype or jcfg.param_dtype) \
-            if (s.dtype or jcfg.param_dtype) != "bfloat16" else np.dtype(
-                np.float16)
-        total += n * dt.itemsize
+    for s in _leaves(specs if part is None else specs[part]).values():
+        total += _local_elems(s.shape, s.axes, jr, jmesh, sizes) \
+            * _itemsize(s.dtype or jcfg.param_dtype)
     return total
+
+
+def _reference_cache_bytes(jcfg, cell, shape, names) -> int:
+    """Each rank's bytes of a cell's decode caches: the reference's
+    ``cache_struct`` split by its ``logical_spec``."""
+    jmesh = _jmesh(shape, names)
+    jr = jrules.rules_for(jcfg, jmesh)
+    sizes = dict(zip(names, shape))
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        else:
+            leaves.append(node)
+    walk(jregistry.cache_struct(jcfg, cell.global_batch, cell.seq_len))
+    return sum(_local_elems(tuple(dims), axes, jr, jmesh, sizes)
+               * _itemsize(dt) for dims, dt, axes in leaves)
 
 
 @pytest.mark.parametrize("name", ["mamba2-370m"])
@@ -312,3 +342,63 @@ def test_dry_run_counts_match_the_reference_specs(name, tmp_path):
         assert all(v > 0 for v in r["collectives"].values())
         assert {"all-gather", "all-reduce"} <= set(r["collectives"])
         assert rep["peaks"].startswith("H100 SXM")
+
+
+def test_dry_run_serving_cells_match_the_reference_specs(tmp_path):
+    """Tiny mamba2-370m's ``prefill_32k`` cell and tiny qwen2's
+    ``decode_32k`` cell on the 16x16 fake group, and tiny mamba2-370m's
+    ``decode_32k`` on the 2x16x16 one: the parameter bytes a rank and the
+    cache bytes a rank are the reference's specs split by its rules (the
+    prefill's caches padded to the decode length, at its batch); a decode
+    step's collectives move fewer bytes than its caches hold (the
+    split-KV decode: no cache block moves; the products leave the weights
+    in place and keep the tokens split over ``pod``, which splits no
+    weight); no group is left behind."""
+    for name, cell, mesh in (("mamba2-370m", "prefill_32k", "16x16"),
+                             ("qwen2-0.5b", "decode_32k", "16x16"),
+                             ("mamba2-370m", "decode_32k", "2x16x16")):
+        shape, names = MESHES[mesh]
+        jcfg = jtiny(jget(name))
+        out = tmp_path / f"{cell}_{mesh}.json"
+        assert dryrun.main(["--arch", name, "--tiny", "--shape", cell,
+                            "--out", str(out)]
+                           + (["--multi-pod"] if mesh == "2x16x16" else [])
+                           ) == 0
+        assert not dist.is_initialized()  # no group left behind
+        (rep,) = json.loads(out.read_text())
+        r = rep["per_rank"]
+        assert rep["kind"] == SHAPES[cell].kind and rep["mesh"] == mesh
+        assert r["param_bytes"] == _reference_local_bytes(
+            jcfg, shape, names, "params")
+        assert r["opt_bytes"] == 0
+        assert r["cache_bytes"] == _reference_cache_bytes(
+            jcfg, SHAPES[cell], shape, names) > 0
+        assert r["flops"] > 0 and r["collective_bytes"] > 0
+        assert rep["model_flops"] == 2 * jcfg.num_params() \
+            * SHAPES[cell].global_batch * (
+                1 if cell == "decode_32k" else SHAPES[cell].seq_len)
+        if cell == "decode_32k":
+            assert r["collective_bytes"] < r["cache_bytes"]
+
+
+
+def test_pad_seq_pads_each_block_and_keeps_two_placements():
+    """``lm.pad_seq`` of a prefill cache on a (1, 4) mesh: each rank pads
+    its block, the result keeps one placement a mesh dim and its values,
+    and the decode cell's constraint after it leaves each rank a quarter
+    of the padded sequence (on the card's torch 2.11 DTensor's own pad
+    returned one placement, and the constraint a whole-length block)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import lm
+    a = torch.arange(4 * 32 * 2 * 3, dtype=torch.float32).reshape(4, 32, 2, 3)
+    with fake_mesh((1, 4), ("data", "model")) as mesh:
+        d = distribute_tensor(a, mesh, [Replicate(), Replicate()])
+        out = lm.pad_seq(d, 36)
+        assert tuple(out.placements) == (Replicate(), Replicate())
+        assert tuple(out.shape) == (4, 36, 2, 3)
+        assert torch.equal(out.to_local(),
+                           torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 4)))
+        split = out.redistribute(mesh, [Replicate(), Shard(1)])
+        assert tuple(split.to_local().shape) == (4, 9, 2, 3)
+        assert lm.pad_seq(d, 32) is d

@@ -298,3 +298,190 @@ def remesh(rank, world, ckpt_dir):
             ckpt.save(1, state)
             dist.barrier()
     return out
+
+
+def _greedy_agree(got, want, tol) -> bool:
+    """The argmax of ``got`` (B, V) equals ``want``'s in every row where
+    ``want``'s top-1 leads its top-2 by more than ``tol * max|want|``."""
+    top = torch.topk(want.double(), 2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) > tol * want.abs().max()
+    return bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+
+
+def _decode_bytes(fn):
+    """(fn(), the bytes this rank's collectives move in it: by kind, and
+    the largest one's under ``"largest"``)."""
+    from repro_torch.launch.dryrun import RankCounter
+
+    class Counter(RankCounter):
+        largest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = sum(self.collectives.values())
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            self.largest = max(self.largest,
+                               sum(self.collectives.values()) - before)
+            return out
+    with Counter() as counter:
+        out = fn()
+    return out, {**counter.collectives, "largest": counter.largest}
+
+
+def serve_case(cfg, mesh, rules, B, S, cache_len, new, seed=0,
+               measure=True):
+    """The sharded prefill and ``new`` decode steps of ``cfg`` against the
+    unsharded ones from the same weights, teacher-forced on the unsharded
+    greedy tokens: each step's logits error, greedy agreement, the
+    caches' placements against ``input_specs``' and each decode step's
+    collective bytes, by kind."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models.spec import flatten
+
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    V = cfg.vocab_size  # the padding columns are masked alike
+    inputs = {}
+    if cfg.is_encoder_decoder:
+        inputs["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    params = steps.init_params(cfg, seed, mesh=mesh, rules=rules)
+    plain = steps.init_params(cfg, seed, "cpu")
+    kept = all(tuple(v.placements) == tuple(flatten(params)[k].placements)
+               for k, v in flatten(steps.compute_params(params, cfg)).items())
+    want_pl = {k: tuple(v.placements) for k, v in flatten(steps.input_specs(
+        cfg, ShapeSpec("decode", cache_len, B, "decode"), mesh,
+        rules)["caches"]).items()}
+    with torch.no_grad():  # DTensor views fail in inference mode
+        slog, scache = steps.prefill_step(params, cfg, tokens,
+                                          cache_len=cache_len, mesh=mesh,
+                                          rules=rules, **inputs)
+        plog, pcache = steps.prefill_step(plain, cfg, tokens,
+                                          cache_len=cache_len, **inputs)
+        rec = {"logits": [rel(full(slog)[..., :V], plog[..., :V])],
+               "greedy": [_greedy_agree(full(slog)[:, -1, :V],
+                                        plog[:, -1, :V], FP32)],
+               "bitwise": [torch.equal(full(slog), plog)],
+               "placements": [{k: tuple(v.placements) == want_pl[k]
+                               for k, v in flatten(scache).items()}],
+               "cache_len": cache_len, "bytes": [],
+               "compute_params_placed": kept}
+        for i in range(new):
+            tok = plog[:, -1, :V].argmax(-1)[:, None]
+            if measure:
+                (slog, scache), coll = _decode_bytes(
+                    lambda: steps.decode_step(params, cfg, tok, scache,
+                                              S + i, mesh=mesh,
+                                              rules=rules))
+                rec["bytes"].append(coll)
+            else:
+                slog, scache = steps.decode_step(params, cfg, tok, scache,
+                                                 S + i, mesh=mesh,
+                                                 rules=rules)
+            plog, pcache = steps.decode_step(plain, cfg, tok, pcache, S + i)
+            rec["logits"].append(rel(full(slog)[..., :V], plog[..., :V]))
+            rec["greedy"].append(_greedy_agree(full(slog)[:, 0, :V],
+                                               plog[:, 0, :V], FP32))
+            rec["bitwise"].append(torch.equal(full(slog), plog))
+            rec["placements"].append({k: tuple(v.placements) == want_pl[k]
+                                      for k, v in flatten(scache).items()})
+        rec["caches"] = max(rel(full(v), flatten(pcache)[k])
+                            for k, v in flatten(scache).items())
+    return rec
+
+
+def serving(rank, world, archs, B=4, S=12, cache_len=512, new=4):
+    """Each tiny fp32 config's sharded prefill and ``new`` decode steps
+    on a 2x2 (data, model) mesh against the unsharded steps
+    (``serve_case``), and ``serve.generate``'s greedy tokens sharded and
+    unsharded (``"generate"``, of the first config); every rank returns
+    its records."""
+    from repro_torch.configs import get, tiny_variant
+    from repro_torch.launch import serve, steps
+    from repro_torch.sharding.rules import rules_for
+
+    mesh = _mesh((2, 2), ("data", "model"))
+    out = {}
+    for arch in archs:
+        cfg = tiny_variant(get(arch))
+        out[arch] = serve_case(cfg, mesh, rules_for(cfg, mesh), B, S,
+                               cache_len, new)
+    cfg = tiny_variant(get(archs[0]))
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)))
+    kw = dict(max_new=new + 1, cache_len=S + new + 1)
+    out["generate"] = {
+        "sharded": serve.generate(cfg, steps.init_params(cfg, 0, mesh=mesh),
+                                  prompts, mesh=mesh, **kw),
+        "unsharded": serve.generate(cfg, steps.init_params(cfg, 0, "cpu"),
+                                    prompts, **kw)}
+    return out
+
+
+def one_rank_serving(archs, tmp_path, B=2, S=12, cache_len=16, new=4):
+    """In this process: a gloo group of one rank and the (1, 1) mesh;
+    each tiny fp32 config's sharded steps against the unsharded ones
+    (``serve_case``), the group destroyed after."""
+    from repro_torch.configs import get, tiny_variant
+    from repro_torch.sharding.rules import rules_for
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv1",
+                            rank=0, world_size=1)
+    try:
+        mesh = _mesh((1, 1), ("data", "model"))
+        out = {}
+        for arch in archs:
+            cfg = tiny_variant(get(arch))
+            out[arch] = serve_case(cfg, mesh, rules_for(cfg, mesh), B, S,
+                                   cache_len, new, measure=False)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def reference_serving(rank, world, npz_path):
+    """The reference's parameters, prompt and its greedy tokens (from its
+    own sharded prefill and decode steps, saved to ``npz_path``, which
+    the ranks wait for) through the port's sharded steps on a 2x2 mesh,
+    teacher-forced on the same tokens: each step's logits against the
+    reference's (rank 0 measures)."""
+    from repro_torch.configs import get, tiny_variant
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import steps
+    from repro_torch.models import spec as pspec
+    from repro_torch.models.spec import flatten, unflatten
+    from repro_torch.sharding.rules import rules_for
+
+    cfg = tiny_variant(get("qwen2-0.5b"))
+    mesh = _mesh((2, 2), ("data", "model"))
+    rules = rules_for(cfg, mesh)
+    deadline = time.monotonic() + TIMEOUT
+    while not os.path.exists(npz_path):  # written whole, then renamed
+        if time.monotonic() > deadline:
+            raise TimeoutError(npz_path)
+        time.sleep(0.1)
+    z = np.load(npz_path)
+    params = unflatten(params_from_reference(unflatten(
+        {k[2:]: z[k] for k in z.files if k.startswith("p.")})))
+    shard = flatten(pspec.param_shardings(steps.state_specs(cfg)["params"],
+                                          mesh, rules))
+    dparams = unflatten({k: distribute_tensor(v, mesh, shard[k],
+                                              src_data_rank=None)
+                         for k, v in flatten(params).items()})
+    tokens, fed = torch.from_numpy(z["tokens"]), torch.from_numpy(z["fed"])
+    S, V = tokens.shape[1], cfg.vocab_size
+    got = []
+    with torch.no_grad():
+        logits, caches = steps.prefill_step(dparams, cfg, tokens,
+                                            cache_len=int(z["cache_len"]),
+                                            mesh=mesh, rules=rules)
+        got.append(full(logits))
+        for i in range(fed.shape[1]):
+            logits, caches = steps.decode_step(dparams, cfg, fed[:, i:i + 1],
+                                               caches, S + i, mesh=mesh,
+                                               rules=rules)
+            got.append(full(logits))
+    if rank:
+        return {}
+    return {"logits": [rel(g[..., :V], torch.from_numpy(z[f"l{i}"])[..., :V])
+                       for i, g in enumerate(got)]}

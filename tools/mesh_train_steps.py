@@ -12,6 +12,13 @@ and the card's name and power limit.
     torchrun --nproc-per-node 4 tools/mesh_train_steps.py \\
         --arch mamba2-370m --arch granite-8b --steps 3
 
+With ``--unsharded`` (no ``torchrun``) the same pipeline and schedule
+train the unsharded step on one card, the losses a sharded run is held
+against:
+
+    python3 tools/mesh_train_steps.py --arch mamba2-370m --steps 4 \\
+        --unsharded
+
 Nothing is checkpointed (the state of granite-8b with AdamW is ~100 GB).
 """
 from __future__ import annotations
@@ -46,8 +53,12 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--unsharded", action="store_true",
+                    help="one process, no mesh: the unsharded step")
     args = ap.parse_args(argv)
     cuda = args.device == "cuda"
+    if args.unsharded:
+        return unsharded(args)
     if cuda:
         # fp32 means IEEE fp32, as chip_smoke.py sets it
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -105,6 +116,39 @@ def main(argv=None):
                 torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+
+
+def unsharded(args):
+    """``main``'s run of each config without a mesh, on one device."""
+    cuda = args.device == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines() if cuda else None
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for arch in args.arch:
+        cfg = tiny_variant(get(arch)) if args.tiny else get(arch)
+        state = steps.init_state(cfg, 0, args.device)
+        pipe = TokenPipeline(16, args.seq, args.batch)
+        step = steps.make_train_step(cfg, peak_lr=1e-3, warmup=2,
+                                     total_steps=20)
+        ms, losses = [], []
+        for i in range(args.steps):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, pipe.batch(i, args.device))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        print(json.dumps({"arch": cfg.name, "mesh": None,
+                          "batch": args.batch, "seq": args.seq,
+                          "parameters": cfg.num_params(), "step_ms": ms,
+                          "losses": losses, "card": card}), flush=True)
+        del state, step
+        if cuda:
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
