@@ -170,8 +170,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      halo share), the same times as the kernel phase and
      ``F.conv1d(groups=C)`` as the library call; then its backward,
      ``causal_conv1d_bwd``, at the train class (4, 1024, 2304) in fp32,
-     bf16 and fp16 and at the ragged class in fp32 and bf16, dx, dw and
-     db bitwise ``ref.causal_conv1d_bwd`` at the plan's tile, beside one
+     bf16 and fp16, at the ragged class in fp32 and bf16 and at Jamba's
+     train class (4, 1024, 17408) in fp32, bf16 and fp16, dx, dw and db
+     bitwise ``ref.causal_conv1d_bwd`` at the plan's tile, beside one
      ``aten.convolution_backward(groups=C)`` call;
    - ``mamba2_370m`` and ``qwen2_0_5b``, serving at the published dtype
      (bf16 over fp32 master weights): batch 4, prompt 1024 (4 SSD
@@ -294,6 +295,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
      for the main train path: one step and its gradients alone (the
      optimizer's share), the top kernels, ``causal_conv1d``'s forward,
      recompute and backward;
+   - every other LM family's training (``FAMILY_TRAIN``), after the
+     profiles have freed the serving paths' graphs and weights: a
+     ``train/<config>`` line each, at published widths in its own
+     compute dtype, weights, optimizer and remat, 6 steps of 4 x 1024
+     positions of a 16-token vocabulary (qwen2-0.5b, whole, and
+     granite-moe-3b-a800m, 16 of 32 layers, AdamW; DeepSeek-V2, layer 0,
+     and Jamba, layer 0, Adafactor over bf16 weights; the four through
+     ``launch.train.train``, DeepSeek with a checkpoint of its last step
+     restored bitwise; internvl2-26b, 2 of 48 layers, on 256 patch
+     embeddings and 768 tokens, Adafactor, and whisper-base, whole, on
+     1500 frames a row, AdamW, through ``steps.make_train_step``): every
+     loss finite, the mean of the last 3 at least 0.2 below the first
+     3's, launches exactly ``train_launches`` (Jamba's one Mamba layer,
+     not rematerialized: 1 + 1 a step; the others none), the median step
+     ms, tokens/s, ``train_bounds`` and its share, peak and state GB and
+     ``reduced``; beside each its ``/fp32`` line, ``train_parity`` at the
+     family's least full-width depth on one row of 128 tokens (qwen2 two
+     rows through ``accum=2``);
 8. the ``host_split`` line, after every timed line (a profiler session
    slows later graph replays): where one eager tuned ResNet-18 run's host
    time goes, by ``torch.profiler`` (host time inside aten ops against the
@@ -306,8 +325,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
    plan splits the contraction; the launches are those of the engine
    phases' traced forwards and of the LM and training runs
    (``causal_conv1d``'s ``train``: its launches a train step and its
-   forward-plus-backward times; ``causal_conv1d_bwd`` per train step, at
-   the train class in the main path's dtype times its 48 launches);
+   forward-plus-backward times; ``causal_conv1d_bwd`` per train step of
+   mamba2-370m and of Jamba-1L, each path's class in its dtype times its
+   launches, 48 and 1);
 10. the card's name and power limit as ``nvidia-smi`` gives them, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -578,9 +598,72 @@ LM_PATHS.update({MESH_SERVE_PATH: "bfloat16",
 RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 12, 4, 9
 RESUME_BATCH, RESUME_SEQ = 2, 256
 OPTIM_STEPS, OPTIM_BOUND = 3, 2e-5
-# bytes a parameter costs an AdamW step at least: p, g, m, v read, p, m, v
-# written, fp32
-ADAMW_BYTES = 28
+# The training lines of every other LM family (after the mesh lines and
+# the profiles, which free the serving paths' graphs and weights: before
+# them an H100 80GB had ~29 GB left, and granite-moe-16L ran out of
+# memory): each config at published widths, in its own
+# compute dtype (bf16), weights, optimizer and remat, FAMILY_STEPS steps
+# of TRAIN_BATCH x TRAIN_SEQ positions from TokenPipeline(TRAIN_VOCAB),
+# peak lr FAMILY_LR; the loss's mean over the last FAMILY_MEAN steps below
+# its first FAMILY_MEAN's by TRAIN_DROP. Depth is cut where two optimizer
+# states and the gradients would not fit the card (``reduced`` says what
+# the whole depth needs). The token-only families through
+# launch.train.train (DeepSeek with one checkpoint at its last step, the
+# others with none); the VLM (FAMILY_PREFIX patch embeddings before the
+# rest of the positions' tokens) and the encoder-decoder (ENCDEC frames a
+# row) through steps.make_train_step on the same pipeline's tokens. Only
+# Jamba's Mamba layer launches port kernels (train_launches); the others
+# launch none. path: (config, layers kept or None, entry)
+FAMILY_TRAIN = {
+    "train/qwen2_0_5b": ("qwen2-0.5b", None, "train"),
+    "train/granite_moe_3b_16l": ("granite-moe-3b-a800m", 16, "train"),
+    "train/deepseek_v2_1l": ("deepseek-v2-236b", 1, "train"),
+    "train/jamba_1_5_large_1l": ("jamba-1.5-large-398b", 1, "train"),
+    "train/internvl2_26b_2l": ("internvl2-26b", 2, "step"),
+    "train/whisper_base": ("whisper-base", None, "step"),
+}
+# peak lr: TRAIN_LR, but 1e-4 for the three Adafactor lines (d_model
+# 5120-8192): at 1e-3 DeepSeek-1L's and internvl2-2L's losses fell for two
+# steps and climbed back past 11 (H100 80GB, 700 W), at 3e-4 internvl2-2L's
+# did the same; Adafactor's update is clipped to an RMS of 1 a leaf, so
+# every entry of a wide matrix moves by ~lr at once
+FAMILY_LR = {"train/deepseek_v2_1l": 1e-4, "train/jamba_1_5_large_1l": 1e-4,
+             "train/internvl2_26b_2l": 1e-4}
+FAMILY_CKPT = "train/deepseek_v2_1l"
+JAMBA_TRAIN_PATH = "train/jamba_1_5_large_1l"
+FAMILY_STEPS, FAMILY_MEAN, FAMILY_PREFIX, ENCDEC_FRAMES = 6, 3, 256, 1500
+# why a line's depth is cut, beside the state the whole depth needs
+FAMILY_CUT = {
+    "granite-moe-3b-a800m": "two copies of the optimizer state and the "
+                            "gradients exceed 80 GB at full depth",
+    "deepseek-v2-236b": "its second layer is the first MoE layer (160 "
+                        "experts): two states, the gradients and "
+                        "Adafactor's fp32 temporaries of the expert leaf "
+                        "exceed 80 GB; layer 0 keeps MLA and the dense ffn",
+    "jamba-1.5-large-398b": "its second layer's MoE (16 experts of d_ff "
+                            "24576) alone brings the state and gradients "
+                            "past 80 GB; layer 0 keeps the Mamba mixer and "
+                            "the dense ffn",
+    "internvl2-26b": "two copies of the optimizer state and the gradients "
+                     "exceed 80 GB at full depth; 2 layers hold every "
+                     "layer kind of the backbone",
+}
+# The fp32 parity lines of the same families (path + "/fp32"): full width,
+# the least depth that holds every layer kind of the family (whisper 2
+# encoder and 2 decoder layers), FAMILY_PARITY_SEQ tokens a row (128, not
+# 256: at 256 the CPU's side of the six lines took 495 s on an H100's
+# host; internvl2's FAMILY_PREFIX patch embeddings before them),
+# ``train_parity``'s two steps on the card and on the port's CPU; qwen2
+# with accum=2 (two rows, one a micro-batch), the others one row
+FAMILY_PARITY = {"train/qwen2_0_5b": 2, "train/granite_moe_3b_16l": 2,
+                 "train/deepseek_v2_1l": 1, "train/jamba_1_5_large_1l": 1,
+                 "train/internvl2_26b_2l": 2, "train/whisper_base": 2}
+FAMILY_PARITY_SEQ, FAMILY_PARITY_ACCUM = 128, {"train/qwen2_0_5b": 2}
+# the train paths that launch causal_conv1d, with their steps, and those
+# timed at a class of the kernel lines, with their compute dtypes
+TIMED_TRAIN_STEPS = {TRAIN_PATH: TRAIN_STEPS, MESH_PATH: MESH_STEPS,
+                     JAMBA_TRAIN_PATH: FAMILY_STEPS}
+TRAIN_DTYPES = {TRAIN_PATH: "bfloat16", JAMBA_TRAIN_PATH: "bfloat16"}
 # leaf names of an LM's parameters that no matrix product reads: norm
 # scales and shifts, biases, the Mamba conv (counted on its own) and its
 # per-head decay, skip and time-step bias
@@ -1949,6 +2032,58 @@ def _nbytes(*trees):
                for v in flatten(tree).values())
 
 
+def active_matmul(cfg, params):
+    """The weights of the segments' matrix products that a token visits:
+    routed experts at ``top_k / num_experts`` of theirs (shared experts
+    whole: ``count_params(active_only=True)``'s count)."""
+    from repro_torch.models import lm
+    from repro_torch.models.spec import flatten
+
+    routed = {f"seg{si}.sub{j}.ffn.{w}"
+              for si, (body, _) in enumerate(lm.segments(cfg))
+              for j, (_, ffn) in enumerate(body) if ffn == "moe"
+              for w in ("w1", "w2", "w3")}
+    share = cfg.top_k / cfg.num_experts if cfg.num_experts else 1.0
+    return sum(v.numel() * (share if k in routed else 1.0)
+               for k, v in flatten(params).items() if k.startswith("seg")
+               and k.rsplit(".", 1)[1] not in NOT_MATMUL)
+
+
+def attention_pair_flops(cfg):
+    """(operations a query-key pair costs every attention layer together
+    at the widths the path computes: with the full scores, and in an
+    absorbed MLA decode step). GQA: two products of ``head_dim`` a head;
+    MLA: qk_nope + qk_rope for the scores and v_head_dim for the values,
+    its absorbed decode kv_lora_rank + qk_rope and kv_lora_rank."""
+    from repro_torch.models import lm
+
+    H = cfg.num_heads
+    pair = {"gqa": (4 * H * cfg.head_dim, 4 * H * cfg.head_dim),
+            "mla": (2 * H * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                             + cfg.v_head_dim),
+                    2 * H * (2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim))}
+    plans = lm.layer_plan(cfg)
+    return (sum(pair[m][0] for m, _ in plans if m in pair),
+            sum(pair[m][1] for m, _ in plans if m in pair))
+
+
+def ssd_flops(cfg, S):
+    """(operations a position costs every Mamba layer together in a pass
+    of S positions, and in a decode step): the SSD as the chunked scan
+    computes it (the chunk's C Bᵀ scores, Q N a group, and their product
+    with x, Q P a head, the chunk state and its readout, N P a head each;
+    a decode step the state update and readout) and the K-tap conv."""
+    from repro_torch.models import ssm
+
+    if not mamba_layers(cfg):
+        return 0, 0
+    _, G, N, P, Hm, _, conv_ch = ssm._dims(cfg)
+    Q, conv = min(cfg.ssd_chunk, S), 2 * cfg.ssm_conv_k * conv_ch
+    return (mamba_layers(cfg) * (2 * (G * Q * N + Hm * Q * P + 2 * Hm * N * P)
+                                 + conv),
+            mamba_layers(cfg) * (4 * Hm * N * P + conv))
+
+
 def lm_bounds(cfg, cparams, caches, B, S, Lc, peaks):
     """The least time of a decoder-only model's prefill of (B, S)
     positions and of one decode step against caches of ``Lc`` positions:
@@ -1969,35 +2104,12 @@ def lm_bounds(cfg, cparams, caches, B, S, Lc, peaks):
     unembed of the positions the step scores. The dense MoE dispatch's
     two contractions with its (T, N, cap) tensor are the reference's way
     of routing, not work the function needs, and are not counted."""
-    from repro_torch.models import lm, ssm
     from repro_torch.models.layers import padded_vocab
-    from repro_torch.models.spec import flatten
 
-    leaves = flatten(cparams)
-    routed = {f"seg{si}.sub{j}.ffn.{w}"
-              for si, (body, _) in enumerate(lm.segments(cfg))
-              for j, (_, ffn) in enumerate(body) if ffn == "moe"
-              for w in ("w1", "w2", "w3")}
-    share = cfg.top_k / cfg.num_experts if cfg.num_experts else 1.0
-    matmul = sum(v.numel() * (share if k in routed else 1.0)
-                 for k, v in leaves.items() if k.startswith("seg")
-                 and k.rsplit(".", 1)[1] not in NOT_MATMUL)
+    matmul = active_matmul(cfg, cparams)
     head = cfg.d_model * padded_vocab(cfg.vocab_size)
-    H = cfg.num_heads
-    pair = {"gqa": (4 * H * cfg.head_dim, 4 * H * cfg.head_dim),
-            "mla": (2 * H * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-                             + cfg.v_head_dim),
-                    2 * H * (2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim))}
-    plans = lm.layer_plan(cfg)
-    attn_pre = sum(pair[m][0] for m, _ in plans if m in pair)
-    attn_dec = sum(pair[m][1] for m, _ in plans if m in pair)
-    ssd_pre = ssd_dec = 0
-    if mamba_layers(cfg):
-        _, G, N, P, Hm, _, conv_ch = ssm._dims(cfg)
-        Q, conv = min(cfg.ssd_chunk, S), 2 * cfg.ssm_conv_k * conv_ch
-        ssd_pre = mamba_layers(cfg) * (
-            2 * (G * Q * N + Hm * Q * P + 2 * Hm * N * P) + conv)
-        ssd_dec = mamba_layers(cfg) * (4 * Hm * N * P + conv)
+    attn_pre, attn_dec = attention_pair_flops(cfg)
+    ssd_pre, ssd_dec = ssd_flops(cfg, S)
     flops = {"prefill": 2 * B * S * matmul + attn_pre * B * S * S
              + ssd_pre * B * S + 2 * B * head,
              "decode_step": 2 * B * (matmul + head) + attn_dec * B * Lc
@@ -2005,6 +2117,23 @@ def lm_bounds(cfg, cparams, caches, B, S, Lc, peaks):
     nbytes = _nbytes(cparams, caches)
     return _bounds(flops, {"prefill": nbytes, "decode_step": nbytes},
                    cfg.dtype, peaks)
+
+
+def encdec_weights(params):
+    """(the encoder's, the decoder's and the decoder's cross K and V
+    projections') weights of matrix products: the cross K and V read the
+    encoder's positions."""
+    from repro_torch.models.spec import flatten
+
+    leaves = {k: v for k, v in flatten(params).items()
+              if k.rsplit(".", 1)[-1] not in NOT_MATMUL}
+    cross = (".xattn.wk", ".xattn.wv")
+
+    def total(prefix, keep):
+        return sum(v.numel() for k, v in leaves.items()
+                   if k.startswith(prefix) and keep(k.endswith(cross)))
+    return (total("enc.", lambda _: True), total("dec.", lambda x: not x),
+            total("dec.", lambda x: x))
 
 
 def encdec_bounds(cfg, cparams, caches, frames, B, S, Lc, peaks):
@@ -2018,16 +2147,8 @@ def encdec_bounds(cfg, cparams, caches, frames, B, S, Lc, peaks):
     pair, the unembed of the scored positions) over the compute dtype's
     peak."""
     from repro_torch.models.layers import padded_vocab
-    from repro_torch.models.spec import flatten
 
-    def product_weights(prefix, keep=lambda k: True):
-        return sum(v.numel() for k, v in flatten(cparams).items()
-                   if k.startswith(prefix) and keep(k)
-                   and k.rsplit(".", 1)[1] not in NOT_MATMUL)
-    cross = (".xattn.wk", ".xattn.wv")
-    enc = product_weights("enc.")
-    dec = product_weights("dec.", lambda k: not k.endswith(cross))
-    xkv = product_weights("dec.", lambda k: k.endswith(cross))
+    enc, dec, xkv = encdec_weights(cparams)
     T = frames.shape[1]
     attn = 4 * cfg.num_heads * cfg.head_dim
     head = cfg.d_model * padded_vocab(cfg.vocab_size)
@@ -2574,8 +2695,7 @@ def conv1d_summary(rows, launches, peaks, grad_lines, train_launches):
                          for path, n in train_launches.items()},
             "launches_per_step": {
                 path: train_launches[path]["causal_conv1d"] / n
-                for path, n in ((TRAIN_PATH, TRAIN_STEPS),
-                                (MESH_PATH, MESH_STEPS))},
+                for path, n in TIMED_TRAIN_STEPS.items()},
             "fwd_bwd_at": [TRAIN_BATCH, TRAIN_SEQ],
             "fwd_bwd": {r["dtype"]: {
                 "ms": r["fwd_bwd_ms"], "plain_ms": r["plain_fwd_bwd_ms"],
@@ -2584,15 +2704,24 @@ def conv1d_summary(rows, launches, peaks, grad_lines, train_launches):
                 for r in grad_lines}}}
 
 
-def conv1d_bwd_summary(rows, train_launches, dtype):
-    """The ``kernels`` entry of causal_conv1d_bwd: its line at the train
-    class in the main train path's ``dtype`` times its launches a step
-    (one a Mamba layer), with one call's times in each dtype;
-    ``launches`` the training runs' counts (``train_launches``)."""
+def conv1d_bwd_summary(rows, train_launches, peaks):
+    """The ``kernels`` entry of causal_conv1d_bwd: each train path's class
+    (its line in the path's dtype, ``TRAIN_DTYPES``) times its launches a
+    step (one a Mamba layer), summed over the paths and per path, with
+    one call's times at each class and dtype; ``launches`` the training
+    runs' counts (``train_launches``)."""
     source, replaces = KERNEL_INFO["causal_conv1d_bwd"]
-    step = {r["dtype"]: r for r in rows if r["launches_per_step"]}
-    main = step[dtype]
-    n = main["launches_per_step"][TRAIN_PATH]
+    step_rows = [r for r in rows if r["launches_per_step"]]
+
+    def per_step_sum(key, path=None):
+        return sum(r[key] * n for r in step_rows
+                   for p, n in r["launches_per_step"].items()
+                   if r["dtype"] == TRAIN_DTYPES[p] and path in (None, p))
+    t_ops = sum(r["flops"] * n / peaks[r["dtype"]] for r in step_rows
+                for p, n in r["launches_per_step"].items()
+                if r["dtype"] == TRAIN_DTYPES[p])
+    t_bytes = per_step_sum("bytes") / peaks["mem_bw"]
+    keys = ("kernel_ms", "bound_ms", "plain_ms", "library_ms")
     return {
         "name": "causal_conv1d_bwd", "route": "cuda", "source": source,
         "replaces": replaces,
@@ -2600,17 +2729,19 @@ def conv1d_bwd_summary(rows, train_launches, dtype):
                         for t in train_launches.values()),
         "launches_per_step": {
             path: train_launches[path]["causal_conv1d_bwd"] / n
-            for path, n in ((TRAIN_PATH, TRAIN_STEPS),
-                            (MESH_PATH, MESH_STEPS))},
+            for path, n in TIMED_TRAIN_STEPS.items()},
         "train": {path: t["causal_conv1d_bwd"]
                   for path, t in train_launches.items()},
         "parity": "ok", "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main["kernel_ms"] * n, "plain_ms": main["plain_ms"] * n,
-        "bound_ms": main["bound_ms"] * n, "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"] * n,
-        "per_call": {d: {key: r[key] for key in (
-            "kernel_ms", "bound_ms", "frac_of_bound", "plain_ms",
-            "library_ms")} for d, r in step.items()}}
+        "ms": per_step_sum("kernel_ms"), "plain_ms": per_step_sum("plain_ms"),
+        "bound_ms": per_step_sum("bound_ms"),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": per_step_sum("library_ms"),
+        "per_path": {path: {key: per_step_sum(key, path) for key in keys}
+                     for path in TRAIN_DTYPES},
+        "per_call": {"{B}x{L}x{C} ".format(**r["shape"]) + r["dtype"]: {
+            key: r[key] for key in (*keys, "frac_of_bound")}
+            for r in step_rows}}
 
 
 def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
@@ -2727,38 +2858,61 @@ def hybrid_vlm_encdec(hcfg, h2cfg, counters, peaks, lm_launches, profiles):
 # training
 
 
-def train_bounds(cfg, params, B, S, peaks):
-    """The least time of one train step of (B, S) tokens in the compute
-    dtype: the larger of the operations over its peak and the optimizer's
-    bytes (``ADAMW_BYTES`` a parameter) over the memory rate. The
-    operations count the forward of every matrix product of the weights
-    (the segments' and the tied unembed) and every Mamba layer's SSD as
-    the chunked scan computes it (``lm_bounds``' count), four times for
-    the segments (the forward, its rematerialized recompute and the two
-    products of the backward) and three for the unembed (it is not
-    rematerialized); ``8 N T`` is that count without the SSD's terms.
-    Left out: the elementwise work (norms, the softmax of the loss, the
-    optimizer's arithmetic), bytes that the optimizer's bound covers."""
-    from repro_torch.models import ssm
+def opt_bytes(params, opt):
+    """Bytes an optimizer step must move: each weight read and written,
+    its gradient (in the weight's dtype) read, each leaf of the optimizer
+    state read and written, in their own dtypes (AdamW over fp32 weights:
+    28 a parameter; Adafactor over bf16 weights and an fp32 momentum: 14,
+    and its factored statistics)."""
+    from repro_torch.models.spec import flatten
+
+    state = {k: v for k, v in flatten(opt).items() if k != "step"}
+    return 3 * _nbytes(params) + 2 * _nbytes(state)
+
+
+def train_bounds(cfg, state, B, S, peaks, frames=0):
+    """The least time of one train step of (B, S) positions (an
+    encoder-decoder's ``frames`` encoder positions a row besides) in the
+    compute dtype: the larger of the operations over its peak and the
+    optimizer's bytes (``opt_bytes`` of the state) over the memory rate.
+    The operations count the forward as ``lm_bounds`` and
+    ``encdec_bounds`` count a prefill of every position (the matrix
+    products of the weights a position visits, routed experts at
+    ``top_k / num_experts`` of theirs; the attention's score and value
+    products of every layer at its widths over the full scores the path
+    computes; every Mamba layer's SSD and conv), four times for the layers
+    (the forward, its rematerialized recompute and the two products of
+    the backward) and three for the unembed of every position (it is not
+    rematerialized); ``8 N T`` is the count of every parameter's products
+    alone. Left out: the elementwise work (norms, the softmax of the
+    loss, the optimizer's arithmetic), bytes that the optimizer's bound
+    covers."""
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.spec import flatten
 
-    leaves = flatten(params)
-    n = sum(v.numel() for v in leaves.values())
-    matmul = sum(v.numel() for k, v in leaves.items() if k.startswith("seg")
-                 and k.rsplit(".", 1)[1] not in NOT_MATMUL)
+    params = state["params"]
+    n = sum(v.numel() for v in flatten(params).values())
     head = cfg.d_model * padded_vocab(cfg.vocab_size)
-    _, G, N, P, Hm, _, conv_ch = ssm._dims(cfg)
-    Q = min(cfg.ssd_chunk, S)
-    ssd = mamba_layers(cfg) * (2 * (G * Q * N + Hm * Q * P + 2 * Hm * N * P)
-                               + 2 * cfg.ssm_conv_k * conv_ch)
     T = B * S
-    flops = T * (4 * (2 * matmul + ssd) + 3 * 2 * head)
-    line = _bounds({"train_step": flops}, {"train_step": ADAMW_BYTES * n},
+    if cfg.is_encoder_decoder:
+        enc, dec, xkv = encdec_weights(params)
+        pair = 4 * cfg.num_heads * cfg.head_dim
+        matmul = B * frames * (enc + xkv) + T * dec
+        attn = pair * B * (cfg.num_encoder_layers * frames * frames
+                           + cfg.num_layers * (S * S + S * frames))
+        ssd = 0
+    else:
+        matmul = T * active_matmul(cfg, params)
+        attn = attention_pair_flops(cfg)[0] * B * S * S
+        ssd = ssd_flops(cfg, S)[0] * T
+    flops = 4 * (2 * matmul + attn + ssd) + 3 * 2 * T * head
+    nbytes = opt_bytes(params, state["opt"])
+    line = _bounds({"train_step": flops}, {"train_step": nbytes},
                    cfg.dtype, peaks)["train_step"]
-    return {**line, "parameters": n, "ssd_flops": 4 * T * ssd,
+    return {**line, "parameters": n, "ssd_flops": 4 * ssd,
+            "attention_flops": 4 * attn,
             "bound_ms_8NT": max(8 * n * T / peaks[cfg.dtype],
-                                ADAMW_BYTES * n / peaks["mem_bw"]) * 1e3}
+                                nbytes / peaks["mem_bw"]) * 1e3}
 
 
 def conv_grad_phase(cfg, peaks):
@@ -2893,9 +3047,11 @@ def optim_phase(cfg, peaks):
         ms = call_ms(lambda mod=mod, card=card: mod.update(
             grads[0], card[1], card[0], lr=lr), samples=5, inner=1)
         line[name] = {"max_rel_err_vs_cpu": errs[worst], "worst_leaf": worst,
-                      "update_ms": ms, "cpu_s_3_steps": cpu_s}
+                      "update_ms": ms, "cpu_s_3_steps": cpu_s,
+                      "bytes": opt_bytes(*card)}
         del card, host, got, want
-    line["adamw"].update(_bounds({"update": 0}, {"update": ADAMW_BYTES * n},
+    line["adamw"].update(_bounds({"update": 0},
+                                 {"update": line["adamw"]["bytes"]},
                                  "float32", peaks)["update"])
     return line
 
@@ -2908,87 +3064,118 @@ def _to(tree, device):
 
 def train_launches(cfg, steps) -> dict:
     """causal_conv1d's forward and backward launches in ``steps`` train
-    steps of ``cfg``: per Mamba layer a step, the forward and its
-    rematerialized recompute, and one backward."""
-    layers = mamba_layers(cfg) * steps
-    return {"causal_conv1d": CONV_FWD_PER_LAYER_STEP * layers,
-            "causal_conv1d_bwd": CONV_BWD_PER_LAYER_STEP * layers}
+    steps of ``cfg``: per Mamba layer a step, the forward, its
+    rematerialized recompute where the layer's segment is stacked (a
+    segment of one layer is not rematerialized, as in the reference's
+    ``_run_segment``), and one backward."""
+    from repro_torch.models import lm
+
+    fwd = bwd = 0
+    for body, n in lm.segments(cfg):
+        layers = n * sum(mixer == "mamba" for mixer, _ in body)
+        remat = n > 1 and cfg.remat == "full"
+        fwd += (CONV_FWD_PER_LAYER_STEP if remat else 1) * layers
+        bwd += CONV_BWD_PER_LAYER_STEP * layers
+    return {"causal_conv1d": fwd * steps, "causal_conv1d_bwd": bwd * steps}
 
 
 def train_parity_phase(cfg, counters):
     """The first ``TRAIN_PARITY_LAYERS`` layers of the full-width model
     (a leaf is seeded by its path, so these are the full draw's first
-    layers) in fp32, two train steps of 2 x 512 tokens on the card and on
-    the port's CPU from one state and batch, the second from the CPU's
-    state after the first: the loss, the grad norm and every gradient
-    leaf (``steps.loss_and_grads``) within ``TRAIN_BOUND``, and the
-    parameters after the step, within it, on the entries whose first
-    moment on the CPU (AdamW's ``m``: the gradient at the first step)
-    exceeds ``TRAIN_LIVE`` times its leaf's largest (an entry nearer zero
-    may take its sign from rounding, and Adam moves it by a whole
-    step)."""
+    layers) in fp32, ``train_parity``'s two steps of 2 x 512 tokens."""
     from repro_torch.data import TokenPipeline
-    from repro_torch.launch import steps
-    from repro_torch.models.spec import flatten
 
     cfg2 = cfg.replace(num_layers=TRAIN_PARITY_LAYERS, dtype="float32")
     pipe = TokenPipeline(cfg2.vocab_size, TRAIN_PARITY_SEQ,
                          TRAIN_PARITY_BATCH, seed=1)
-    step_fn = steps.make_train_step(cfg2, peak_lr=TRAIN_LR, warmup=1,
-                                    total_steps=TRAIN_STEPS)
-    state = steps.init_state(cfg2, 0, "cuda")
-    host = _to(state, "cpu")
-    per_step, card_ms, cpu_s = [], [], 0.0
-    zero_counts(counters)
-    for i in range(TRAIN_PARITY_STEPS):
-        batch, cbatch = pipe.batch(i, "cuda"), pipe.batch(i, "cpu")
-        g, m = steps.loss_and_grads(cfg2, state["params"], batch)
-        t0 = time.perf_counter()
-        cg, cm = steps.loss_and_grads(cfg2, host["params"], cbatch)
-        new_host, chm = step_fn(host, cbatch)
-        cpu_s += time.perf_counter() - t0
-        t, (new, hm) = host_ms(lambda: step_fn(state, batch))
-        card_ms.append(t)
-        cg, g = flatten(cg), flatten(g)
-        grad_err = max(rel_err(g[k].cpu(), cg[k]) for k in g)
-        newp, cnewp = flatten(new["params"]), flatten(new_host["params"])
-        cm1 = flatten(new_host["opt"]["m"])
-        param_err = 0.0
-        for k, ref in cnewp.items():
-            live = cm1[k].abs() > TRAIN_LIVE * cm1[k].abs().max()
-            diff = (newp[k].cpu() - ref).abs()[live]
-            if diff.numel():
-                param_err = max(param_err, (diff.max() / ref.abs().max())
-                                .item())
-        errs = {"loss": rel_err(m["loss"].cpu(), cm["loss"]),
-                "step_loss": rel_err(hm["loss"].cpu(), chm["loss"]),
-                "grad_norm": rel_err(hm["grad_norm"].cpu(),
-                                     chm["grad_norm"]),
-                "grads": grad_err, "params": param_err}
-        require(all(e <= TRAIN_BOUND for e in errs.values()),
-                f"{TRAIN_PARITY_PATH} step {i + 1}: {errs} > {TRAIN_BOUND}")
-        per_step.append({"step": i + 1, "loss": float(chm["loss"]),
-                         "grad_norm": float(chm["grad_norm"]),
-                         **{f"{k}_max_rel_err": v for k, v in errs.items()}})
-        host = new_host
-        state = _to(new_host, "cuda")
-    launches = read_counts(counters)
-    want = {**NO_LAUNCHES, **train_launches(cfg2, 2 * TRAIN_PARITY_STEPS)}
-    require(launches == want, f"{TRAIN_PARITY_PATH}: launches {launches}, "
-            f"want {want} (loss_and_grads and the step, each step)")
     return {"phase": "train", "path": TRAIN_PARITY_PATH, "config": cfg.name,
             "entry": "repro_torch.launch.steps.make_train_step and "
-                     "loss_and_grads, card against CPU",
+                     "batch_grads, card against CPU",
             "dtype": "float32", "layers": cfg2.num_layers,
             "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
             "optimizer": cfg2.optimizer, "remat": cfg2.remat,
-            "launches": launches, "bound": TRAIN_BOUND,
-            "steps": per_step, "card_step_ms": card_ms, "cpu_s": cpu_s,
-            "parameters": sum(v.numel() for v in
-                              flatten(state["params"]).values()),
+            **train_parity(TRAIN_PARITY_PATH, cfg2, pipe, counters,
+                           lr=TRAIN_LR),
             "reduced": {"num_layers": f"{cfg.num_layers} -> "
                                       f"{TRAIN_PARITY_LAYERS}",
                         "dtype": "bfloat16 -> float32"}}
+
+
+def train_parity(path, cfg, pipe, counters, *, lr, accum=1):
+    """Two train steps of ``cfg`` (fp32) on ``pipe``'s batches (with the
+    family's other input, ``family_batch``) on the card and on the port's
+    CPU from one state and batch, the second from the CPU's state after
+    the first: the loss, the step's loss, the grad norm and every
+    gradient leaf (``steps.batch_grads``, with ``accum`` micro-batches)
+    within TRAIN_BOUND, and the parameters after the step within it on
+    the live entries: AdamW's where the CPU's new first moment exceeds
+    TRAIN_LIVE of its leaf's largest (an entry nearer zero may take its
+    sign from rounding, and Adam moves it by a whole step), Adafactor's
+    where the CPU's gradient does. The CPU takes each gradient once and
+    its step by ``train_step.apply``; the card's batch_grads and train
+    step launch exactly ``train_launches``. -> the line's fields."""
+    from repro_torch.launch import steps
+    from repro_torch.models.spec import flatten
+
+    step_fn = steps.make_train_step(cfg, peak_lr=lr, warmup=1,
+                                    total_steps=TRAIN_STEPS, accum=accum)
+    host = steps.init_state(cfg, 0, "cpu")  # drawn on the CPU either way
+    state = _to(host, "cuda")
+    per_step, card_ms, cpu_s = [], [], 0.0
+    zero_counts(counters)
+    for i in range(TRAIN_PARITY_STEPS):
+        batch = family_batch(cfg, pipe, i)
+        t0 = time.perf_counter()
+        cg, cm = steps.batch_grads(cfg, host["params"], _to(batch, "cpu"),
+                                   accum)
+        new_host, chm = step_fn.apply(host, cg, cm)
+        cpu_s += time.perf_counter() - t0
+        # compared on the card, each CPU leaf copied over in turn
+        cg = flatten(cg)
+        g, m = steps.batch_grads(cfg, state["params"], batch, accum)
+        g = flatten(g)
+        grad_err = max(_leaf_err(g[k], cg[k].cuda()) for k in cg)
+        loss_err = _leaf_err(m["loss"], cm["loss"].cuda())
+        del g, m
+        t, (new, hm) = host_ms(lambda state=state: step_fn(state, batch))
+        card_ms.append(t)
+        del state
+        newp = flatten(new["params"])
+        live_of = flatten(new_host["opt"]["m"]) \
+            if cfg.optimizer == "adamw" else cg
+        param_err = 0.0
+        for k, ref in flatten(new_host["params"]).items():
+            ref, of = ref.cuda(), live_of[k].cuda()
+            diff = (newp[k] - ref).abs()[of.abs() > TRAIN_LIVE
+                                         * of.abs().max()]
+            if diff.numel():
+                param_err = max(param_err,
+                                (diff.max() / ref.abs().max()).item())
+        errs = {"loss": loss_err,
+                "step_loss": _leaf_err(hm["loss"].cpu(), chm["loss"]),
+                "grad_norm": _leaf_err(hm["grad_norm"].cpu(),
+                                       chm["grad_norm"]),
+                "grads": grad_err, "params": param_err}
+        require(all(e <= TRAIN_BOUND for e in errs.values()),
+                f"{path} step {i + 1}: {errs} > {TRAIN_BOUND}")
+        per_step.append({"step": i + 1, "loss": float(chm["loss"]),
+                         "grad_norm": float(chm["grad_norm"]),
+                         **{f"{k}_max_rel_err": v for k, v in errs.items()}})
+        del new, newp, cg, batch
+        host = new_host
+        # the next step starts on both sides from the CPU's state
+        state = _to(host, "cuda") if i + 1 < TRAIN_PARITY_STEPS else None
+    launches = read_counts(counters)
+    # each step: the card's batch_grads and its train step, each taking
+    # ``accum`` loss_and_grads
+    want = {**NO_LAUNCHES,
+            **train_launches(cfg, 2 * accum * TRAIN_PARITY_STEPS)}
+    require(launches == want, f"{path}: launches {launches}, want {want}")
+    return {"launches": launches, "bound": TRAIN_BOUND,
+            "live_entries": "AdamW m" if cfg.optimizer == "adamw"
+            else "CPU gradient", "steps": per_step, "card_step_ms": card_ms,
+            "cpu_s": cpu_s, "parameters": sum(
+                v.numel() for v in flatten(host["params"]).values())}
 
 
 def resume_phase(cfg, counters):
@@ -3121,8 +3308,7 @@ def train_phase(cfg, counters, peaks):
                for i in range(TRAIN_TIMED_FROM, TRAIN_STEPS)]
     median_ms = statistics.median(step_ms)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    bound = train_bounds(cfg, run.state["params"], TRAIN_BATCH, TRAIN_SEQ,
-                         peaks)
+    bound = train_bounds(cfg, run.state, TRAIN_BATCH, TRAIN_SEQ, peaks)
     line = {"phase": "train", "path": TRAIN_PATH, "config": cfg.name,
             "entry": "repro_torch.launch.train.train",
             "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
@@ -3156,6 +3342,233 @@ def train_phase(cfg, counters, peaks):
         lambda: steps.loss_and_grads(cfg, state["params"], batch),
         mamba_layers(cfg))}
     return line, thunks
+
+
+def family_cfg(path, parity=False):
+    """The config of a FAMILY_TRAIN line: its depth cut, or (``parity``)
+    its parity line's depth in fp32."""
+    from repro_torch.configs import get
+
+    name, layers, _ = FAMILY_TRAIN[path]
+    cfg = get(name)
+    if parity:
+        n = FAMILY_PARITY[path]
+        kw = {"num_encoder_layers": n} if cfg.is_encoder_decoder else {}
+        return cfg.replace(num_layers=n, dtype="float32",
+                           param_dtype="float32", **kw)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def family_inputs(cfg):
+    """(patch embeddings, frames) a row of the config's family."""
+    return (FAMILY_PREFIX if cfg.frontend == "vit_stub" else 0,
+            ENCDEC_FRAMES if cfg.is_encoder_decoder else 0)
+
+
+def family_batch(cfg, pipe, step):
+    """``pipe``'s batch of ``step`` on the card with the family's other
+    input, laid out as the CPU tests' ``_batch``: a VLM's patch
+    embeddings (N(0, 0.02²)) before its tokens, the labels of their
+    positions masked; an encoder-decoder's frame embeddings (N(0, 1));
+    drawn from a generator seeded by the step."""
+    batch = pipe.batch(step, "cuda")
+    prefix, frames = family_inputs(cfg)
+    B = batch["tokens"].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+    if prefix:
+        batch["patch_embeds"] = torch.randn(
+            (B, prefix, cfg.d_model), generator=gen, device="cuda") * 0.02
+        batch["labels"] = torch.cat([torch.full_like(
+            batch["labels"][:, :1], -1).expand(B, prefix), batch["labels"]],
+            dim=1)
+    if frames:
+        batch["frames"] = torch.randn((B, frames, cfg.d_model),
+                                      generator=gen, device="cuda")
+    return batch
+
+
+def spec_gb(cfg):
+    """GB of the weights, the optimizer state and the gradients of
+    ``cfg`` (counted from its spec trees; nothing is drawn)."""
+    from repro_torch.core.dtypes import torch_dtype
+    from repro_torch.launch import steps
+    from repro_torch.models.spec import flatten
+
+    def nbytes(tree):
+        return sum(math.prod(s.shape) * torch.empty(
+            (), dtype=torch_dtype(s.dtype or cfg.param_dtype)).element_size()
+            for s in flatten(tree).values())
+    specs = steps.state_specs(cfg)
+    return (2 * nbytes(specs["params"]) + nbytes(specs["opt"])) / 1e9
+
+
+def free_device():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_train_phase(path, counters, peaks):
+    """One FAMILY_TRAIN line: ``launch.train.train`` or a loop of
+    ``steps.make_train_step`` over FAMILY_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ positions (an encoder-decoder's decoder tokens, besides
+    ENCDEC_FRAMES frames a row); the counters set to 0 before and read
+    after, exactly ``train_launches`` (Jamba's Mamba layer) and nothing
+    else; every loss finite and the mean of the last FAMILY_MEAN below
+    the first FAMILY_MEAN's by TRAIN_DROP; DeepSeek's checkpoint of its
+    last step restored with its digest checked, bitwise the live state
+    (bf16 weights, fp32 momentum and factored statistics); the median
+    step ms (steps 3 on), tokens a second, ``train_bounds`` and its
+    share, the device's peak GB and the state's GB."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.models.spec import flatten
+
+    name, layers, entry = FAMILY_TRAIN[path]
+    cfg = family_cfg(path)
+    lr = FAMILY_LR.get(path, TRAIN_LR)
+    prefix, frames = family_inputs(cfg)
+    pipe = TokenPipeline(TRAIN_VOCAB, TRAIN_SEQ - prefix, TRAIN_BATCH,
+                         seed=0)
+    free_device()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    restored = None
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    if entry == "train":
+        with tempfile.TemporaryDirectory() as tmp:
+            run = train.train(
+                cfg, steps_total=FAMILY_STEPS, lr=lr,
+                ckpt_dir=tmp if path == FAMILY_CKPT else None,
+                ckpt_every=FAMILY_STEPS, seed=0, device="cuda",
+                pipeline=pipe)
+            wall_s = time.perf_counter() - t0
+            launches = read_counts(counters)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if path == FAMILY_CKPT:
+                step, host = CheckpointManager(tmp).restore(FAMILY_STEPS)
+                live, got = flatten(run.state), flatten(host)
+                restored = step == FAMILY_STEPS and set(got) == set(live) \
+                    and all(torch.equal(got[k], v.cpu())
+                            for k, v in live.items())
+                del host, got
+        require(run.restarts == 0 and run.step == FAMILY_STEPS,
+                f"{path}: {run.restarts} restarts, step {run.step}")
+        state, metrics = run.state, [run.metrics[i]
+                                     for i in range(FAMILY_STEPS)]
+        del run
+    else:
+        state = steps.init_state(cfg, 0, "cuda")
+        step_fn = steps.make_train_step(
+            cfg, peak_lr=lr, warmup=train.warmup_steps(FAMILY_STEPS),
+            total_steps=FAMILY_STEPS)
+        metrics = []
+        for i in range(FAMILY_STEPS):
+            ms, (state, m) = host_ms(
+                lambda i=i, state=state: step_fn(
+                    state, family_batch(cfg, pipe, i)))
+            metrics.append({**{k: float(v) for k, v in m.items()},
+                            "seconds": ms / 1e3})
+        wall_s = time.perf_counter() - t0
+        launches = read_counts(counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {**NO_LAUNCHES, **train_launches(cfg, FAMILY_STEPS)}
+    require(launches == want, f"{path}: launches {launches}, want {want}")
+    losses = [m["loss"] for m in metrics]
+    drop = statistics.mean(losses[:FAMILY_MEAN]) \
+        - statistics.mean(losses[-FAMILY_MEAN:])
+    require(all(map(math.isfinite, losses)), f"{path}: losses {losses}")
+    require(drop >= TRAIN_DROP, f"{path}: the loss fell by {drop}, want "
+            f"{TRAIN_DROP}: {losses}")
+    if path == FAMILY_CKPT:
+        require(restored, f"{path}: the checkpoint of step {FAMILY_STEPS} "
+                "is not bitwise the live state")
+    step_ms = [m["seconds"] * 1e3 for m in metrics]
+    median_ms = statistics.median(step_ms[TRAIN_TIMED_FROM:])
+    bound = train_bounds(cfg, state, TRAIN_BATCH, TRAIN_SEQ, peaks, frames)
+    line = {"phase": "train", "path": path, "config": name,
+            "entry": "repro_torch.launch.train.train" if entry == "train"
+            else "repro_torch.launch.steps.make_train_step",
+            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+            "optimizer": cfg.optimizer,
+            "opt_state_dtype": cfg.opt_state_dtype, "remat": cfg.remat,
+            "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+            "positions": TRAIN_SEQ, "patch_embeds": prefix,
+            "frames": frames, "vocab_fed": TRAIN_VOCAB,
+            "steps": FAMILY_STEPS, "peak_lr": lr,
+            "warmup": train.warmup_steps(FAMILY_STEPS),
+            "launches": launches, "losses": losses, "loss_drop": drop,
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_ms": step_ms, "step_ms_median": median_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
+            "bound": bound, "bound_share": bound["bound_ms"] / median_ms,
+            "wall_s": wall_s, "device_allocated_before_gb": base_gb,
+            "device_peak_gb": peak_gb,
+            "state_gb": _nbytes(state) / 1e9}
+    if path == FAMILY_CKPT:
+        line["checkpoint_restored_bitwise"] = restored
+    if layers is not None:
+        full = get(name)
+        line["reduced"] = {
+            "num_layers": f"{full.num_layers} -> {layers}",
+            "why": FAMILY_CUT[name],
+            "full_depth_weights_state_grads_gb": spec_gb(full)}
+    return line
+
+
+def _leaf_err(y, ref):
+    """max|y - ref| / max|ref| (max|y| where ``ref`` is all zeros)."""
+    den = ref.abs().max().item()
+    return (y - ref).abs().max().item() / den if den else \
+        y.abs().max().item()
+
+
+def family_parity_phase(path, counters):
+    """The fp32 parity line of a FAMILY_TRAIN path (``path`` + "/fp32"):
+    FAMILY_PARITY layers at full width, FAMILY_PARITY_SEQ tokens a row
+    (FAMILY_PARITY_ACCUM rows through as many micro-batches where given),
+    ``train_parity``'s two steps."""
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipeline
+
+    cfg = family_cfg(path, parity=True)
+    prefix, frames = family_inputs(cfg)
+    accum = FAMILY_PARITY_ACCUM.get(path, 1)
+    pipe = TokenPipeline(cfg.vocab_size, FAMILY_PARITY_SEQ, accum, seed=1)
+    full = get(FAMILY_TRAIN[path][0])
+    return {"phase": "train", "path": f"{path}/fp32", "config": full.name,
+            "entry": "repro_torch.launch.steps.make_train_step and "
+                     "batch_grads, card against CPU",
+            "dtype": "float32", "layers": cfg.num_layers,
+            "encoder_layers": cfg.num_encoder_layers,
+            "batch": accum, "positions": FAMILY_PARITY_SEQ + prefix,
+            "patch_embeds": prefix, "frames": frames, "accum": accum,
+            "optimizer": cfg.optimizer, "remat": cfg.remat,
+            **train_parity(f"{path}/fp32", cfg, pipe, counters,
+                           lr=FAMILY_LR.get(path, TRAIN_LR), accum=accum),
+            "reduced": {"num_layers": f"{full.num_layers} -> "
+                                      f"{cfg.num_layers}",
+                        **({"num_encoder_layers":
+                            f"{full.num_encoder_layers} -> "
+                            f"{cfg.num_encoder_layers}"}
+                           if cfg.is_encoder_decoder else {}),
+                        "dtype": f"{full.dtype} -> float32",
+                        "param_dtype": f"{full.param_dtype} -> float32"}}
+
+
+def family_lines(path, counters, peaks):
+    """The train line of a FAMILY_TRAIN path, then its fp32 parity line,
+    the card's memory freed after each."""
+    yield family_train_phase(path, counters, peaks)
+    free_device()
+    yield family_parity_phase(path, counters)
+    free_device()
 
 
 def mesh_phase(cfg, params, counters, smi):
@@ -3815,6 +4228,7 @@ def main() -> None:
     hcfg = get(HYBRID_CONFIG).replace(num_layers=HYBRID_LAYERS)
     h2cfg = hcfg.replace(num_layers=HYBRID_PARITY_LAYERS,
                          param_dtype="float32")
+    jcfg = family_cfg(JAMBA_TRAIN_PATH)
     conv_gen = torch.Generator(device="cuda").manual_seed(2)
     conv_results = []
     # fp32 and bf16 at every class, then fp16 at every class (no path runs
@@ -3826,25 +4240,35 @@ def main() -> None:
                 line = kernel_case("causal_conv1d", shape, dtype, conv_gen,
                                    peaks)
                 line["launches_per_prefill"] = dict(paths)
+                if shape == conv1d_class(jcfg, TRAIN_BATCH, TRAIN_SEQ):
+                    line["launches_per_train_step"] = {JAMBA_TRAIN_PATH: (
+                        train_launches(jcfg, 1)["causal_conv1d"])}
                 emit(line)
                 conv_results.append(line)
     # then the forward's ragged class, and the backward at the train class
-    # in fp32, bf16 and fp16 and at the ragged class
-    train_class = conv1d_class(lcfg, TRAIN_BATCH, TRAIN_SEQ)
+    # in fp32, bf16 and fp16, at the ragged class, and at Jamba's train
+    # class in the three dtypes
+    train_classes = {conv1d_class(lcfg, TRAIN_BATCH, TRAIN_SEQ): {
+        TRAIN_PATH: mamba_layers(lcfg)}}
+    train_classes[conv1d_class(jcfg, TRAIN_BATCH, TRAIN_SEQ)] = {
+        JAMBA_TRAIN_PATH: mamba_layers(jcfg)}
+    train_class, jamba_class = train_classes
     extra = [("causal_conv1d", CONV1D_RAGGED, dtype)
              for dtype in (torch.float32, torch.bfloat16)]
     extra += [("causal_conv1d_bwd", train_class, dtype)
               for dtype in (torch.float32, torch.bfloat16, torch.float16)]
     extra += [("causal_conv1d_bwd", CONV1D_RAGGED, dtype)
               for dtype in (torch.float32, torch.bfloat16)]
+    extra += [("causal_conv1d_bwd", jamba_class, dtype)
+              for dtype in (torch.float32, torch.bfloat16, torch.float16)]
     for kernel, shape, dtype in extra:
         line = kernel_case(kernel, shape, dtype, conv_gen, peaks)
         if kernel == "causal_conv1d":
             line["launches_per_prefill"] = {}
         else:
-            line["launches_per_step"] = {TRAIN_PATH: CONV_BWD_PER_LAYER_STEP
-                                         * mamba_layers(lcfg)} \
-                if shape == train_class else {}
+            line["launches_per_step"] = {
+                path: CONV_BWD_PER_LAYER_STEP * n
+                for path, n in train_classes.get(shape, {}).items()}
         emit(line)
         conv_results.append(line)
     bad = [(r["kernel"], r["dtype"], r["shape"]) for r in conv_results
@@ -3907,20 +4331,20 @@ def main() -> None:
         emit(line)
     emit(optim_phase(lcfg, peaks))
     line = train_parity_phase(lcfg, counters)
-    train_launches = {TRAIN_PARITY_PATH: {k: line["launches"][k]
-                                          for k in CONV1D_KERNELS}}
+    train_counts = {TRAIN_PARITY_PATH: {k: line["launches"][k]
+                                        for k in CONV1D_KERNELS}}
     emit(line)
     emit(resume_phase(lcfg, counters))
     line, thunks = train_phase(lcfg, counters, peaks)
-    train_launches[TRAIN_PATH] = {k: line["launches"][k]
-                                  for k in CONV1D_KERNELS}
+    train_counts[TRAIN_PATH] = {k: line["launches"][k]
+                                for k in CONV1D_KERNELS}
     profiles.append((line["path"], thunks))
     emit(line)
     # ---- the train step across a mesh (NCCL, one rank) -----------------
     parity, line, serve_lines = mesh_phase(lcfg, lparams, counters, smi)
     emit(parity)
-    train_launches[MESH_PATH] = {k: line["launches"][k]
-                                 for k in CONV1D_KERNELS}
+    train_counts[MESH_PATH] = {k: line["launches"][k]
+                               for k in CONV1D_KERNELS}
     emit(line)
     for line in serve_lines:
         lm_launches[line["path"]] = (line["launches_at_capture"],
@@ -3932,6 +4356,16 @@ def main() -> None:
         emit({"phase": "lm", "part": "profile", "path": path,
               **{name: fn() for name, fn in thunks.items()}})
     del lparams, profiles, thunks
+    # ---- every other LM family's train step, each beside its fp32
+    # parity line: after the profiles, whose serving graphs, weights and
+    # caches (~50 GB) stay on the card until they have run ----------------
+    free_device()
+    for path in FAMILY_TRAIN:
+        for line in family_lines(path, counters, peaks):
+            if mamba_layers(family_cfg(path)):
+                train_counts[line["path"]] = {
+                    k: line["launches"][k] for k in CONV1D_KERNELS}
+            emit(line)
 
     # ---- after every timed line (a profiler session slows later graph
     # replays): where an eager tuned ResNet-18 run's host time goes ------
@@ -3947,9 +4381,9 @@ def main() -> None:
             rows = [r for r in conv_results if r["kernel"] == name]
             kernels.append(
                 conv1d_summary(rows, lm_launches, peaks, grad_lines,
-                               train_launches)
+                               train_counts)
                 if name == "causal_conv1d" else
-                conv1d_bwd_summary(rows, train_launches, lcfg.dtype))
+                conv1d_bwd_summary(rows, train_counts, peaks))
             continue
         rows = [r for r in results if r["kernel"] == name]
 

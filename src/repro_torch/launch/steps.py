@@ -294,16 +294,38 @@ def replicated(t, mesh):
         mesh, target)
 
 
+def batch_grads(cfg, params, batch, accum=1, mesh=None, rules=None):
+    """(gradients, {"loss", "aux"}) of ``batch``: ``loss_and_grads`` of
+    the whole batch, or with ``accum`` > 1 of ``accum`` micro-batches (the
+    batch rows split in order) summed into fp32 zeros in order, then
+    divided, the metrics averaged."""
+    if accum == 1:
+        return loss_and_grads(cfg, params, batch, mesh, rules)
+    grads = pspec.tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32), params)
+    metrics = {k: torch.zeros((), dtype=torch.float32,
+                              device=batch["tokens"].device)
+               for k in ("loss", "aux")}
+    for i in range(accum):
+        mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+              for k, v in batch.items()}
+        g, m = loss_and_grads(cfg, params, mb, mesh, rules)
+        grads = pspec.tree_map(torch.add, grads, g)
+        metrics = {k: metrics[k] + m[k] for k in metrics}
+    return (pspec.tree_map(lambda g: g / accum, grads),
+            {k: v / accum for k, v in metrics.items()})
+
+
 def make_train_step(cfg, mesh=None, rules=None, *, peak_lr=3e-4,
                     warmup=100, total_steps=10_000, clip_norm=1.0,
                     accum: int = 1):
     """-> ``train_step(state, batch) -> (state, metrics)``: the gradients
-    of the batch (with ``accum`` > 1, of ``accum`` micro-batches summed
-    into fp32 zeros in order, then divided), clipped to ``clip_norm``, one
-    step of ``cfg.optimizer`` at ``warmup_cosine(step + 1)``, the step
-    being taken. ``metrics``: ``loss``, ``aux`` (averaged over the
+    of the batch (``batch_grads``), clipped to ``clip_norm``, one step of
+    ``cfg.optimizer`` at ``warmup_cosine(step + 1)``, the step being
+    taken. ``metrics``: ``loss``, ``aux`` (averaged over the
     micro-batches), ``grad_norm`` (before the clip) and ``lr``, 0-d fp32
-    tensors on the state's device.
+    tensors on the state's device. ``train_step.apply(state, grads,
+    metrics)`` is the same step from gradients already taken.
 
     With a ``mesh`` (``rules`` default to the config's ``rules_for``) the
     state and the batch are DTensors placed by the rules (``init_state``,
@@ -314,42 +336,34 @@ def make_train_step(cfg, mesh=None, rules=None, *, peak_lr=3e-4,
     if mesh is not None and rules is None:
         rules = rules_for(cfg, mesh)
 
-    def train_step(state, batch):
+    def update(state, grads, gnorm, metrics):
+        """The optimizer step of clipped ``grads``."""
         params, opt_state = state["params"], state["opt"]
-        with sharded_region(rules, mesh):
-            if accum == 1:
-                grads, metrics = loss_and_grads(cfg, params, batch, mesh,
-                                                rules)
-            else:
-                grads = pspec.tree_map(lambda p: torch.zeros_like(
-                    p, dtype=torch.float32), params)
-                metrics = {k: torch.zeros((), dtype=torch.float32,
-                                          device=batch["tokens"].device)
-                           for k in ("loss", "aux")}
-                for i in range(accum):
-                    mb = {k: v.reshape(accum, v.shape[0] // accum,
-                                       *v.shape[1:])[i]
-                          for k, v in batch.items()}
-                    g, m = loss_and_grads(cfg, params, mb, mesh, rules)
-                    grads = pspec.tree_map(torch.add, grads, g)
-                    metrics = {k: metrics[k] + m[k] for k in metrics}
-                grads = pspec.tree_map(lambda g: g / accum, grads)
-                metrics = {k: v / accum for k, v in metrics.items()}
-            grads, gnorm = schedule.clip_by_global_norm(grads, clip_norm)
-            lr = schedule.warmup_cosine(opt_state["step"] + 1,
-                                        peak_lr=peak_lr,
-                                        warmup_steps=warmup,
-                                        total_steps=total_steps)
-            new_params, new_opt = opt_mod.update(grads, opt_state, params,
-                                                 lr=lr)
-            new = {"params": new_params, "opt": new_opt}
-            metrics = dict(metrics, grad_norm=gnorm, lr=lr)
-            if mesh is not None:
-                new = pspec.tree_map(_like, new, state)
-                metrics = {k: replicated(v, mesh)
-                           for k, v in metrics.items()}
+        lr = schedule.warmup_cosine(opt_state["step"] + 1, peak_lr=peak_lr,
+                                    warmup_steps=warmup,
+                                    total_steps=total_steps)
+        new_params, new_opt = opt_mod.update(grads, opt_state, params, lr=lr)
+        new = {"params": new_params, "opt": new_opt}
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        if mesh is not None:
+            new = pspec.tree_map(_like, new, state)
+            metrics = {k: replicated(v, mesh) for k, v in metrics.items()}
         return new, metrics
 
+    def apply(state, grads, metrics):
+        with sharded_region(rules, mesh):
+            return update(state, *schedule.clip_by_global_norm(
+                grads, clip_norm), metrics)
+
+    def train_step(state, batch):
+        with sharded_region(rules, mesh):
+            grads, metrics = batch_grads(cfg, state["params"], batch, accum,
+                                         mesh, rules)
+            # rebound, so the unclipped gradients are freed before the step
+            grads, gnorm = schedule.clip_by_global_norm(grads, clip_norm)
+            return update(state, grads, gnorm, metrics)
+
+    train_step.apply = apply
     return train_step
 
 

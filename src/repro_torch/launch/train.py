@@ -65,25 +65,26 @@ def train(cfg, *, steps_total, batch=8, seq=128, lr=3e-4,
     seed=seed)``; ``log_every`` > 0 prints every that many steps (on a
     mesh, its first rank prints). With a ``mesh`` every rank of it calls
     ``train``: the state is sharded by ``rules`` (the config's
-    ``rules_for`` unless given) and saved whole."""
+    ``rules_for`` unless given) and saved whole. ``ckpt_dir=None`` saves
+    no checkpoint and resumes from none."""
     if mesh is not None:
         rules = rules if rules is not None else rules_for(cfg, mesh)
     else:
         device = resolve_device(device)
-    ckpt = CheckpointManager(ckpt_dir)
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir is not None else None
     pipe = pipeline or TokenPipeline(cfg.vocab_size, seq, batch, seed=seed)
     train_step = steps.make_train_step(
         cfg, mesh, rules, peak_lr=lr, warmup=warmup_steps(steps_total),
         total_steps=steps_total)
     state = steps.init_state(cfg, seed, device, mesh, rules)
     first = first_rank(mesh)
-    start = ckpt.latest_step() or 0
+    start = (ckpt.latest_step() or 0) if ckpt is not None else 0
     if start:
         _, host = ckpt.restore()
         state = _device_put_like(host, state)
         if first:
             print(f"resumed from step {start}", flush=True)
-    run = TrainRun(state, start, 0)
+    run = TrainRun({}, start, 0)
 
     def on_metrics(step, m, dt):
         rec = {k: float(v.to_local() if isinstance(v, DTensor) else v)
@@ -94,8 +95,13 @@ def train(cfg, *, steps_total, batch=8, seq=128, lr=3e-4,
                   f"gnorm {rec['grad_norm']:.3f}  lr {rec['lr']:.2e}  "
                   f"{dt * 1e3:.0f} ms", flush=True)
 
+    # handed over, not kept: a name here would hold the first state (a
+    # second copy of the weights and the optimizer state) through the run
+    first_state = [state]
+    del state
     run.state, run.step, run.restarts = resilient_train(
-        state=state, train_step=train_step, pipeline=pipe, ckpt=ckpt,
+        state=first_state.pop(), train_step=train_step, pipeline=pipe,
+        ckpt=ckpt,
         total_steps=steps_total, start_step=start, ckpt_every=ckpt_every,
         max_failures=max_failures, straggler=StragglerWatch(),
         fail_injector=fail_injector, on_metrics=on_metrics, mesh=mesh,

@@ -9,6 +9,7 @@ not JAX's: tests carry weights across with ``repro_torch.convert``.
 """
 from __future__ import annotations
 
+import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -64,8 +65,9 @@ def _fan_in(spec: ParamSpec) -> int:
 # a leaf above this many elements is drawn in flat pieces of this size
 # (a multiple of 16, see ``init_leaf``)
 _PIECE = 1 << 24
-# leaves drawn at once by ``init_params`` (each holds one piece on the host)
-_DRAW_THREADS = 4
+# leaves drawn at once by ``init_params`` (each holds one piece on the
+# host): a thread a core, the generator being serial
+_DRAW_THREADS = min(max(os.cpu_count() or 4, 4), 16)
 
 
 def _std(spec: ParamSpec) -> float:
@@ -99,10 +101,11 @@ def init_leaf(spec: ParamSpec, generator: torch.Generator,
         return (z * scale).to(dtype).to(device)
     out = torch.empty(spec.shape, dtype=dtype, device=device)
     flat = out.view(-1)
+    z = torch.empty(_PIECE, dtype=torch.float32)  # one buffer, refilled
     for start in range(0, n, _PIECE):
         m = min(_PIECE, n - start)
-        z = torch.randn((m,), generator=generator, dtype=torch.float32)
-        flat[start:start + m].copy_((z * scale).to(dtype))
+        piece = z[:m].normal_(generator=generator)  # what randn draws
+        flat[start:start + m].copy_(piece.mul_(scale))
     return out
 
 

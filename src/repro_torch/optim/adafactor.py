@@ -52,24 +52,38 @@ def update(grads, state, params, *, lr, b1=0.9, decay=0.99, eps=1e-30,
         ("one", 1.0), ("clip", clip_threshold), ("tiny", 1e-30))}
 
     def upd(g, m, vr, vc, p):
-        g32 = g.float()
-        g2 = g32 * g32 + k["eps"]
+        # the reference's expression, each temporary updated in place
+        # (the same roundings, fewer leaf-sized buffers alive at once)
+        g32, p32 = g.float(), p.float()
+        g2 = g32 * g32
+        g2 += k["eps"]
         if _factored(p.shape):
             vr32 = k["decay"] * vr + k["1-decay"] * g2.mean(dim=-1)
             vc32 = k["decay"] * vc + k["1-decay"] * g2.mean(dim=-2)
+            del g2
             rfac = torch.rsqrt(vr32 / torch.maximum(
                 vr32.mean(dim=-1, keepdim=True), k["eps"]))
             cfac = torch.rsqrt(vc32)
-            u = g32 * rfac[..., None] * cfac[..., None, :]
+            u = g32 * rfac[..., None]
+            u *= cfac[..., None, :]
         else:
-            vr32 = k["decay"] * vr + k["1-decay"] * g2
+            g2 *= k["1-decay"]
+            vr32 = k["decay"] * vr
+            vr32 += g2
+            del g2
             vc32 = vc
-            u = g32 * torch.rsqrt(vr32)
+            u = torch.rsqrt(vr32)
+            u *= g32
         rms = torch.sqrt(torch.mean(u * u) + k["tiny"])
-        u = u / torch.maximum(k["one"], rms / k["clip"])
-        m32 = k["b1"] * m.float() + k["1-b1"] * u
-        p32 = p.float()
-        newp = p32 - lr * (m32 + k["wd"] * p32)
+        u /= torch.maximum(k["one"], rms / k["clip"])
+        m32 = k["b1"] * m.float()
+        u *= k["1-b1"]
+        m32 += u
+        del u
+        t = k["wd"] * p32
+        t += m32
+        t *= lr
+        newp = p32 - t
         return newp.to(p.dtype), m32.to(m.dtype), vr32, vc32
 
     out = tree_map(upd, grads, state["m"], state["vr"], state["vc"], params)

@@ -40,13 +40,25 @@ def update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
         ("eps", eps), ("wd", weight_decay))}
 
     def upd(g, m, v, p):
-        g32 = g.float()
-        m32 = k["b1"] * m.float() + k["1-b1"] * g32
-        v32 = k["b2"] * v.float() + k["1-b2"] * g32 * g32
-        u = (m32 / c1) / (torch.sqrt(v32 / c2) + k["eps"])
-        p32 = p.float()
-        u = u + k["wd"] * p32
-        newp = p32 - lr * u
+        # the reference's expression, each temporary updated in place
+        # (the same roundings, fewer leaf-sized buffers alive at once)
+        g32, p32 = g.float(), p.float()
+        m32 = k["b1"] * m.float()
+        m32 += k["1-b1"] * g32
+        t = k["1-b2"] * g32
+        t *= g32
+        v32 = k["b2"] * v.float()
+        v32 += t
+        den = v32 / c2
+        den.sqrt_()
+        den += k["eps"]
+        u = m32 / c1
+        u /= den
+        del den
+        t = k["wd"] * p32
+        u += t
+        u *= lr
+        newp = p32 - u
         return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
     out = tree_map(upd, grads, state["m"], state["v"], params)

@@ -74,7 +74,9 @@ def resilient_train(*, state, train_step, pipeline, ckpt, total_steps,
     Each step reads ``pipeline.batch(step, device=...)`` on the state's
     device (with a ``mesh``, placed on it by ``rules``) and ends in a
     synchronize of it; every ``ckpt_every`` steps and at the end the
-    state is saved. Returns (state, step, restarts).
+    state is saved (with ``ckpt`` None nothing is saved, and a failure is
+    raised: there is nothing to restart from). Returns (state, step,
+    restarts).
     ``fail_injector(step)`` may raise to simulate faults; on a mesh every
     rank must fail at the same step, and the ranks meet before they read
     the checkpoint back."""
@@ -98,9 +100,12 @@ def resilient_train(*, state, train_step, pipeline, ckpt, total_steps,
                 if on_metrics is not None:
                     on_metrics(step, metrics, dt)
                 step += 1
-                if step % ckpt_every == 0 or step == total_steps:
+                if ckpt is not None and (step % ckpt_every == 0
+                                         or step == total_steps):
                     ckpt.save(step, state)
         except (TransientFailure, RuntimeError) as e:  # noqa: PERF203
+            if ckpt is None:
+                raise
             failures += 1
             log.warning("step %d failed (%s); restart %d/%d",
                         step, e, failures, max_failures)
@@ -115,7 +120,8 @@ def resilient_train(*, state, train_step, pipeline, ckpt, total_steps,
                 continue
             state = _device_put_like(host_state, state)
             step = restored_step
-    ckpt.wait()
+    if ckpt is not None:
+        ckpt.wait()
     return state, step, failures
 
 

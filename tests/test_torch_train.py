@@ -81,16 +81,19 @@ def _batch(jcfg, seed=0):
     return out
 
 
-def _jgrads(jcfg):
+def _jgrads(jcfg, metrics=False):
     """The reference's gradients of its train loss (``make_train_step``'s
-    ``loss_fn`` on fp32 weights), jitted: (params, batch) -> grads."""
+    ``loss_fn`` on fp32 weights), jitted: (params, batch) -> grads; with
+    ``metrics``, -> (grads, {"loss", "aux"})."""
     fwd = jsteps._forward_for(jcfg)
 
     def total(p, batch):
         logits, _, aux = fwd(p, batch, "train", None, None)
-        return jsteps._ce_loss(logits, batch["labels"]) \
-            + jcfg.router_aux_weight * aux
-    return jax.jit(jax.grad(total))
+        loss = jsteps._ce_loss(logits, batch["labels"])
+        return loss + jcfg.router_aux_weight * aux, {"loss": loss, "aux": aux}
+    if metrics:
+        return jax.jit(lambda p, b: jax.grad(total, has_aux=True)(p, b))
+    return jax.jit(jax.grad(lambda p, b: total(p, b)[0]))
 
 
 def _state(jcfg, seed=0):
@@ -160,25 +163,58 @@ def test_train_steps_match_reference(name, accum):
     A leaf whose gradient is rounding noise (largest entry within the
     bound of the largest of any leaf) is held to that noise level and not
     compared entry by entry against the reference's step."""
-    jcfg, tcfg = jtiny(jget(name)), ttiny(tget(name))
-    jstate, _ = _state(jcfg)
-    zero = {k for k, v in flatten(jstate["params"]).items() if not v.any()}
+    hold_train_steps(jtiny(jget(name)), ttiny(tget(name)), accum)
+
+
+def _f32(a):
+    return np.asarray(a, dtype=np.float32)
+
+
+def hold_train_steps(jcfg, tcfg, accum=1, bound=FP32, own_step=True,
+                     jstate=None):
+    """``test_train_steps_match_reference``'s two steps of ``jcfg`` and
+    ``tcfg`` within ``bound``, from ``jstate`` (the reference's draw by
+    default); ``own_step=False`` leaves out the third check, against the
+    reference's own step (16-bit weights round an entry's step to the
+    weight's grid, where a rounding of the gradient moves it by a whole
+    unit)."""
+    if jstate is None:
+        jstate, _ = _state(jcfg)
+    zero = {k for k, v in flatten(jstate["params"]).items()
+            if not _f32(v).any()}
     batch = _batch(jcfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     jts = jax.jit(jsteps.make_train_step(jcfg, accum=accum, **KW))
     tts = steps.make_train_step(tcfg, accum=accum, **KW)
-    jopt, jgrads = joptim.get(jcfg.optimizer), _jgrads(jcfg)
+    # without the reference's own step, its loss and aux come with its
+    # gradients (one compiled function fewer)
+    jopt, jgrads = joptim.get(jcfg.optimizer), _jgrads(jcfg, not own_step)
+
+    @jax.jit
+    def jupdate(grads, jstate, step):
+        """The reference's clip and optimizer update of ``grads`` (jitted:
+        eager, each of its operations compiles on its own)."""
+        clipped, _ = jschedule.clip_by_global_norm(grads, 1.0)
+        lr = jschedule.warmup_cosine(step, peak_lr=KW["peak_lr"],
+                                     warmup_steps=KW["warmup"],
+                                     total_steps=KW["total_steps"])
+        return jopt.update(clipped, jstate["opt"], jstate["params"],
+                           lr=lr), lr
     rows = [slice(i * B // accum, (i + 1) * B // accum) for i in range(accum)]
+    # the reference's gradient of a leaf has the leaf's dtype
+    jdt = {k: np.asarray(v).dtype
+           for k, v in flatten(jstate["params"]).items()}
     for step in range(2):
         tstate = unflatten(params_from_reference(jstate))
-        jparts = [flatten(jax.tree.map(np.asarray, jgrads(
-            jstate["params"], {k: v[r] for k, v in jb.items()})))
+        jouts = [jax.tree.map(np.asarray, jgrads(
+            jstate["params"], {k: v[r] for k, v in jb.items()}))
             for r in rows]
+        jparts = [flatten(o if own_step else o[0]) for o in jouts]
         tparts = [flatten(steps.loss_and_grads(
             tcfg, tstate["params"], {k: v[r] for k, v in tb.items()})[0])
             for r in rows]
-        jg = {k: sum(g[k] for g in jparts) / accum for k in jparts[0]}
+        jg = {k: sum(_f32(g[k]) for g in jparts) / accum for k in jparts[0]}
         tg = {k: sum((g[k] for g in tparts), torch.zeros_like(v)) / accum
               for k, v in tparts[0].items()}
         gmax = max(np.abs(g).max() for g in jg.values())
@@ -187,27 +223,33 @@ def test_train_steps_match_reference(name, accum):
             if k in noise:
                 assert float(v.abs().max()) <= FP32 * gmax, (step, k)
             else:
-                assert _rel(v, jg[k]) <= FP32, (step, k)
-        jnew, jm = jts(jstate, jb)
+                assert _rel(v, jg[k]) <= bound, (step, k)
         tnew, tm = tts(tstate, tb)
-        jnew = jax.tree.map(np.asarray, jnew)
+        (jp, jo), lr = jupdate(unflatten({
+            k: jnp.asarray(v.float().numpy()).astype(jdt[k])
+            for k, v in tg.items()}), jstate, jnp.asarray(step + 1, jnp.int32))
+        if own_step:
+            jnew, jm = jts(jstate, jb)
+            jnew = jax.tree.map(np.asarray, jnew)
+        else:
+            jnew = {"params": jax.tree.map(np.asarray, jp),
+                    "opt": jax.tree.map(np.asarray, jo)}
+            jm = {k: sum(o[1][k] for o in jouts) / accum
+                  for k in ("loss", "aux")}
+            jm.update(lr=lr, grad_norm=np.sqrt(sum(
+                np.sum(g.astype(np.float64) ** 2) for g in jg.values())))
         assert set(tm) == set(jm) == {"loss", "aux", "grad_norm", "lr"}
         for k in jm:
             assert tm[k].dtype == torch.float32
-            assert _rel(tm[k], jm[k]) <= FP32, (step, k)
+            assert _rel(tm[k], jm[k]) <= bound, (step, k)
         tflat = flatten(tnew)
         assert int(tflat["opt.step"]) == step + 1
         assert tflat["opt.step"].dtype == torch.int32
-        clipped, _ = jschedule.clip_by_global_norm(
-            unflatten({k: jnp.asarray(v.numpy()) for k, v in tg.items()}),
-            1.0)
-        lr = jschedule.warmup_cosine(jnp.asarray(step + 1, jnp.int32),
-                                     peak_lr=KW["peak_lr"],
-                                     warmup_steps=KW["warmup"],
-                                     total_steps=KW["total_steps"])
-        jp, jo = jopt.update(clipped, jstate["opt"], jstate["params"], lr=lr)
         for k, want in flatten({"params": jp, "opt": jo}).items():
-            assert _rel(tflat[k], want) <= FP32, (step, k)
+            assert _rel(tflat[k], want) <= bound, (step, k)
+        jstate = jnew
+        if not own_step:
+            continue
         jflat = flatten(jnew)
         for k, want in jflat.items():
             tree, _, leaf = k.partition(".")
@@ -217,13 +259,12 @@ def test_train_steps_match_reference(name, accum):
                     continue
             if leaf in noise or leaf in zero:
                 continue
-            m = np.abs(jflat[f"opt.m.{leaf}"].astype(np.float32))
+            m = np.abs(_f32(jflat[f"opt.m.{leaf}"]))
             live = (np.abs(jg[leaf]) > LIVE * np.abs(jg[leaf]).max()) \
                 & (m > LIVE * m.max())
             diff = np.abs(tflat[k].numpy() - want)[live]
             assert diff.size == 0 or diff.max() / np.abs(want).max() \
-                <= FP32, (step, k)
-        jstate = jnew
+                <= bound, (step, k)
 
 
 def test_ssd_gradient_is_finite_at_the_published_chunk():
