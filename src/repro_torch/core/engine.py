@@ -59,6 +59,7 @@ from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.device import capture, resolve_device
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.kernels import ref
+from repro_torch.runtime import trace
 
 log = logging.getLogger(__name__)
 
@@ -271,7 +272,11 @@ class InferenceEngine:
                 f"{', '.join(map(str, want))}) floating point")
 
     def _images(self, images, batched):
+        span = trace.leaf("repro_torch.engine.copy_in")
         x = torch.as_tensor(images, device=self.device)
+        # a tensor already on the device (a dispatch's batch) copies nothing
+        if span is not None and x is not images:
+            trace.end(span)
         self._check(x, batched)
         return x
 
@@ -332,25 +337,36 @@ class InferenceEngine:
     def run(self, image):
         """image: (H, W, C) single image -> logits (classes,) on the
         engine's device."""
-        x = self._images(image, batched=False)[None]
-        key = (tuple(x.shape), x.dtype)
-        with self._lock, torch.inference_mode():
-            if not self.replay:
-                return self._forward(x)[0]
-            return self._replay(self._graph(self._runs, key, x), x)[0]
+        span = trace.root("repro_torch.engine.run")
+        try:
+            x = self._images(image, batched=False)[None]
+            key = (tuple(x.shape), x.dtype)
+            with self._lock, torch.inference_mode():
+                if not self.replay:
+                    return self._forward(x)[0]
+                return self._replay(self._graph(self._runs, key, x), x)[0]
+        finally:
+            if span is not None:
+                trace.end(span)
 
     def run_batch(self, images):
         """images: (B, H, W, C) -> logits (B, classes). Each element runs
         the identical single-image computation of ``run``, so the result
         is bitwise equal to B calls of ``run``. One graph a distinct B
         (``trace_count``)."""
-        xs = self._images(images, batched=True)
-        key = (tuple(xs.shape), xs.dtype)
-        with self._lock, torch.inference_mode():
-            if not self.replay:
-                self._batches[key] = None
-                return self._forwards(xs)
-            return self._replay(self._graph(self._batches, key, xs), xs)
+        span = trace.root("repro_torch.engine.run_batch")
+        try:
+            xs = self._images(images, batched=True)
+            key = (tuple(xs.shape), xs.dtype)
+            with self._lock, torch.inference_mode():
+                if not self.replay:
+                    self._batches[key] = None
+                    return self._forwards(xs)
+                return self._replay(self._graph(self._batches, key, xs),
+                                    xs)
+        finally:
+            if span is not None:
+                trace.end(span)
 
     def trace_count(self) -> int:
         """Distinct batch shapes ``run_batch`` has been prepared for (each

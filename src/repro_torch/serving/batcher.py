@@ -65,6 +65,7 @@ from collections import deque
 
 import torch
 
+from repro_torch.runtime import trace
 from repro_torch.serving import request as req_mod
 from repro_torch.serving.request import Request, Ticket
 from repro_torch.serving.resilience import (
@@ -96,6 +97,19 @@ def settle(outs) -> None:
                and o.device.type == "cuda"}
     for device in devices:
         torch.cuda.current_stream(device).synchronize()
+
+
+def _dispatch_span(batch: list[Request]):
+    """The ``repro_torch.dispatch`` span of ``batch`` when one of its
+    requests is traced, as the calling thread's trace context, with each
+    request stamped with its start; else None."""
+    for r in batch:
+        if r.traced:
+            span = trace.begin("repro_torch.dispatch")
+            for q in batch:
+                q.dispatched = span.start
+            return span
+    return None
 
 
 class MicroBatcher:
@@ -170,8 +184,9 @@ class MicroBatcher:
         """Like ``submit`` but returns the ``Request`` record, so owners
         (``Server``) can wrap it themselves. ``deadline_ms`` overrides
         the batcher-wide shed deadline for this request; ``priority``
-        rides to the device scheduler's ordering key."""
-        req = Request(image, priority=priority)
+        rides to the device scheduler's ordering key. The request is
+        traced when the calling thread is tracing (``runtime/trace.py``)."""
+        req = Request(image, priority=priority, traced=trace.tracing())
         deadline_s = (self.deadline_s if deadline_ms is None
                       else deadline_ms / 1e3)
         if deadline_s is not None:
@@ -266,17 +281,19 @@ class MicroBatcher:
     # dispatch with retry / breaker / degraded-mode fallback
 
     def _run(self, batch: list[Request]):
-        if len(batch) == 1:
+        n = len(batch)
+        device = getattr(self.engine, "device", None)
+        span = trace.leaf("repro_torch.dispatch.copy_in")
+        images = [torch.as_tensor(r.image, device=device) for r in batch]
+        if span is not None:
+            trace.end(span)
+        if n == 1:
             # the paper's single-image fast path: tuned per-layer
             # dispatch on exactly one image, no stacking, no padding
-            outs = [self.engine.run(batch[0].image)]
+            outs = [self.engine.run(images[0])]
             padded = 1
         else:
-            n = len(batch)
             padded = bucket(n, self.max_batch) if self.pad_batches else n
-            device = getattr(self.engine, "device", None)
-            images = [torch.as_tensor(r.image, device=device)
-                      for r in batch]
             images += [images[-1]] * (padded - n)  # filler rows
             logits = self.engine.run_batch(torch.stack(images))
             outs = [logits[i] for i in range(n)]
@@ -303,41 +320,49 @@ class MicroBatcher:
         """Run ``batch`` to completion under the resilience policy:
         transient failures retry with backoff, every failure feeds the
         breaker, a trip attempts the degraded-mode engine swap, and an
-        open breaker sheds with ``CircuitOpen``."""
-        attempt = 0
-        while True:
-            if not self.breaker.allow():
-                if self._try_degrade():
-                    continue
-                with self._stats_lock:
-                    self._shed["breaker"] += len(batch)
-                raise CircuitOpen(
-                    f"engine circuit breaker is {self.breaker.state} "
-                    f"after {self.breaker.threshold} consecutive failures; "
-                    f"shedding until it recovers")
-            try:
-                # injected dispatch faults model a sick tuned kernel, so
-                # a degraded (xla-only) engine no longer contains them
-                if self._faults is not None and not self.degraded:
-                    delay = self._faults.check("dispatch")
-                    if delay:
-                        time.sleep(delay)
-                outs, padded = self._run(batch)
-            except Exception as e:
-                tripped = self.breaker.record_failure()
-                if tripped and self._try_degrade():
-                    continue  # serve this very batch from the fallback
-                if isinstance(e, TransientFailure) \
-                        and attempt < self.retry.max_retries \
-                        and self.breaker.allow():
+        open breaker sheds with ``CircuitOpen``. When a request of the
+        batch is traced, the attempt is a ``repro_torch.dispatch`` span on
+        the thread that runs it, and that thread's trace context."""
+        span = _dispatch_span(batch)
+        attempt, padded = 0, None
+        try:
+            while True:
+                if not self.breaker.allow():
+                    if self._try_degrade():
+                        continue
                     with self._stats_lock:
-                        self._retries += 1
-                    time.sleep(self.retry.delay(attempt))
-                    attempt += 1
-                    continue
-                raise
-            self.breaker.record_success()
-            return outs, padded
+                        self._shed["breaker"] += len(batch)
+                    raise CircuitOpen(
+                        f"engine circuit breaker is {self.breaker.state} "
+                        f"after {self.breaker.threshold} consecutive "
+                        f"failures; shedding until it recovers")
+                try:
+                    # injected dispatch faults model a sick tuned kernel,
+                    # so a degraded (xla-only) engine no longer has them
+                    if self._faults is not None and not self.degraded:
+                        delay = self._faults.check("dispatch")
+                        if delay:
+                            time.sleep(delay)
+                    outs, padded = self._run(batch)
+                except Exception as e:
+                    tripped = self.breaker.record_failure()
+                    if tripped and self._try_degrade():
+                        continue  # serve this very batch from the fallback
+                    if isinstance(e, TransientFailure) \
+                            and attempt < self.retry.max_retries \
+                            and self.breaker.allow():
+                        with self._stats_lock:
+                            self._retries += 1
+                        time.sleep(self.retry.delay(attempt))
+                        attempt += 1
+                        continue
+                    raise
+                self.breaker.record_success()
+                return outs, padded
+        finally:
+            if span is not None:
+                trace.end(span, {"requests": [r.id for r in batch],
+                                 "padded": padded})
 
     def _dispatch(self, batch: list[Request]) -> None:
         try:

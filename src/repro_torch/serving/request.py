@@ -23,13 +23,12 @@ instead of computing logits nobody is waiting for.
 """
 from __future__ import annotations
 
-import itertools
 import time
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from dataclasses import dataclass, field, replace
 
-_IDS = itertools.count()
+from repro_torch.runtime import trace
 
 
 @dataclass(frozen=True)
@@ -70,7 +69,13 @@ class Request:
     ``DeadlineExceeded`` before any compute is spent. ``cancel()`` marks
     the request for the same shed path (``Ticket.result`` calls it when
     its timeout fires, so a timed-out request never burns a dispatch).
-    ``priority`` feeds the device scheduler's ordering key."""
+    ``priority`` feeds the device scheduler's ordering key.
+
+    ``traced`` is the span recorder's decision at submit
+    (``runtime/trace.py``); ``dispatched`` the ``perf_counter_ns`` start
+    of the dispatch that took the request, stamped when that dispatch is
+    traced. A traced request's ``repro_torch.request`` span runs from
+    ``arrival`` to ``done``."""
 
     image: object
     future: Future = field(default_factory=Future)
@@ -79,7 +84,9 @@ class Request:
     deadline: float | None = None
     cancelled: bool = False
     priority: int = 0
-    id: int = field(default_factory=lambda: next(_IDS))
+    id: int = field(default_factory=trace.new_id)
+    traced: bool = False
+    dispatched: int | None = None
 
     @property
     def latency(self) -> float | None:
@@ -182,12 +189,19 @@ class Ticket:
         return f"Ticket(id={self.id}, {state})"
 
 
+def _settled(req: Request) -> None:
+    req.done = time.perf_counter()
+    if req.traced:
+        trace.record("repro_torch.request", req.id, round(req.arrival * 1e9),
+                     round(req.done * 1e9), {"dispatch_ns": req.dispatched})
+
+
 def resolve(req: Request, value) -> None:
     """Stamp completion time and fulfil the future."""
-    req.done = time.perf_counter()
+    _settled(req)
     req.future.set_result(value)
 
 
 def fail(req: Request, exc: BaseException) -> None:
-    req.done = time.perf_counter()
+    _settled(req)
     req.future.set_exception(exc)
